@@ -1,0 +1,466 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``dmlcloud_tpu_torch``) on one NVIDIA GPU.
+
+Run from the root of the repository, with one card visible::
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+
+1. device: the card's name and power limit, torch and CUDA versions;
+2. build: the flash-attention kernels (``csrc/flash_attention.cu``) with nvcc;
+3. kernels: K1 (forward), K2 (dQ) and K3 (dK/dV) each held against its plain
+   PyTorch version on the card, at the training shapes and at small variants,
+   and timed beside the plain version and ``scaled_dot_product_attention``;
+4. model: the full-width 1b ``DecoderLM`` forward with the flash kernels
+   against the dot path, on the same weights (2 layers, also on packed rows,
+   and all 24 layers);
+5. train: ``dmlcloud_tpu_torch.examples.train_lm.main`` trains the 1b model for
+   7 steps and validates on 1 batch through the port's ``TrainingPipeline``;
+   every kernel's launch count is read around this run, the main path;
+6. steady: three more synchronised train steps, and one under
+   ``torch.profiler`` for the split of the step's device time.
+
+The last line of standard output is one JSON object with ``"ok": true``. With no
+card, or without the package beside it, the script exits non-zero and prints no
+result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+#: tests/test_kernel_numerics.py:28 -- both sides accumulate in fp32; bf16
+#: rounds operands and outputs to 8 mantissa bits
+TOL = {"float32": dict(atol=5e-5, rtol=5e-5), "bfloat16": dict(atol=6e-2, rtol=6e-2)}
+#: norm-relative bound ||got - want|| / ||want|| held beside TOL. At the training
+#: shapes most outputs are ~1e-2 in size, below TOL bf16's atol, so TOL alone
+#: would pass a kernel that is tens of percent off; rounding the outputs to
+#: bf16 alone gives about 2e-3.
+REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+#: H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
+PEAK_BF16_FLOPS = 989e12
+HBM_BYTES_PER_S = 3.35e12
+#: the attention shapes of training: the 1b preset at batch 4, sequence 2048
+TRAIN_SHAPES = dict(b=4, t=2048, h=16, kh=8, d=128)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str, code: int = 1) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(code)
+
+
+def cuda_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median device time of ``fn`` in ms, from CUDA events around each call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def max_err(torch, got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+
+
+def rel_err(torch, got, want) -> float:
+    """``||got - want|| / ||want||`` (0 when both are zero)."""
+    diff, norm = float((got.float() - want.float()).norm()), float(want.float().norm())
+    return diff / norm if norm else (0.0 if diff == 0 else math.inf)
+
+
+def assert_close(torch, got, want, dtype_name: str, what: str) -> tuple[float, float]:
+    """Hold ``got`` to ``want`` within TOL elementwise and REL_TOL in norm;
+    returns (max abs err, norm-relative err)."""
+    err, rel = max_err(torch, got, want), rel_err(torch, got, want)
+    tol = TOL[dtype_name]
+    if not torch.allclose(got.float(), want.float(), atol=tol["atol"], rtol=tol["rtol"]):
+        raise AssertionError(f"{what}: kernel disagrees with its plain version (max abs err {err:.3g}, tol {tol})")
+    if not rel <= REL_TOL[dtype_name]:
+        raise AssertionError(f"{what}: kernel disagrees with its plain version "
+                             f"(norm-relative err {rel:.3g} > {REL_TOL[dtype_name]})")
+    return err, rel
+
+
+# ---------------------------------------------------------------------------
+# phase 1: device
+# ---------------------------------------------------------------------------
+
+def phase_device(torch) -> dict:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    log(f"[device] {name}; torch {torch.__version__}; CUDA {torch.version.cuda}; "
+        f"python {sys.version.split()[0]}")
+    # full fp32 matmuls for every comparison below
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {"name": name, "smi": smi}
+
+
+# ---------------------------------------------------------------------------
+# phase 2: build
+# ---------------------------------------------------------------------------
+
+def phase_build(fa) -> None:
+    t0 = time.perf_counter()
+    path = fa.build()
+    log(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", fa.build_log)]
+    spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", fa.build_log))
+    if regs:
+        log(f"[build] ptxas: {len(regs)} kernel instances, {min(regs)}-{max(regs)} registers, {spills} bytes spilled")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _inputs(torch, dtype, b, t, h, kh, d, s=None, seed=0, qk_scale=0.5):
+    """q, k, v, dO; scores have std ``qk_scale**2`` (0.5: a near-uniform
+    softmax, 2.0: a peaked one)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    s = t if s is None else s
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
+
+    return rnd(b, t, h, d, scale=qk_scale), rnd(b, s, kh, d, scale=qk_scale), rnd(b, s, kh, d), rnd(b, t, h, d)
+
+
+def _segments(torch, b, t, seed=1):
+    """Packed-row ids: a few segments of random lengths per row, the tail padded (0)."""
+    g = torch.Generator().manual_seed(seed)
+    seg = torch.zeros((b, t), dtype=torch.int32)
+    for row in range(b):
+        pos, sid = 0, 1
+        while pos < t - t // 8:
+            n = int(torch.randint(max(2, t // 8), max(3, t // 2), (1,), generator=g))
+            seg[row, pos : pos + n] = sid
+            pos, sid = pos + n, sid + 1
+    return seg.cuda()
+
+
+def check_case(torch, fa, name, dtype, b, t, h, kh, d, causal, window, with_seg, s=None, qk_scale=0.5):
+    """K1, K2 and K3 against their plain versions on one set of inputs;
+    returns the largest errors (max abs, norm-relative) and the inputs."""
+    q, k, v, do = _inputs(torch, dtype, b, t, h, kh, d, s=s, qk_scale=qk_scale)
+    seg = _segments(torch, b, t) if with_seg else None
+    scale = 1.0 / math.sqrt(d)
+    dname = str(dtype).replace("torch.", "")
+    args = (seg, causal, scale, window)
+
+    out, lse = fa.attn_fwd_cuda(q, k, v, *args)
+    out_p, lse_p = fa.attn_fwd_plain(q, k, v, *args)
+    torch.cuda.synchronize()
+    errs = {"K1": assert_close(torch, out, out_p, dname, f"{name} K1 out")}
+    # both sides take lse in fp32 from the same operands, whatever their dtype
+    errs["K1 lse"] = assert_close(torch, lse, lse_p, "float32", f"{name} K1 lse")
+
+    # the backward kernels take the same saved statistics as their plain versions
+    delta = fa.softmax_delta(out_p, do)
+    bwd = (q, k, v, do, lse_p, delta, *args)
+    dq = fa.attn_dq_cuda(*bwd)
+    dk, dv = fa.attn_dkv_cuda(*bwd)
+    dq_p = fa.attn_dq_plain(*bwd)
+    dk_p, dv_p = fa.attn_dkv_plain(*bwd)
+    torch.cuda.synchronize()
+    errs["K2"] = assert_close(torch, dq, dq_p, dname, f"{name} K2 dq")
+    errs["K3 dk"] = assert_close(torch, dk, dk_p, dname, f"{name} K3 dk")
+    errs["K3 dv"] = assert_close(torch, dv, dv_p, dname, f"{name} K3 dv")
+    worst = max(rel for _, rel in errs.values())
+    log(f"[kernels] {name:<28} " + "  ".join(f"{key} {err:.2e}/{rel:.2e}" for key, (err, rel) in errs.items())
+        + f"  (max abs/norm-relative; norm-relative margin {REL_TOL[dname] / max(worst, 1e-30):.3g}x)")
+    return errs, (q, k, v, do, seg, out_p, lse_p, delta)
+
+
+SMALL_CASES = [
+    # name, dtype, b, t, h, kh, d, causal, window, segment ids, s
+    ("fp32 causal gqa", "float32", 2, 256, 8, 2, 128, True, None, False, None),
+    ("fp32 window24", "float32", 2, 192, 8, 2, 64, True, 24, False, None),
+    ("bf16 window24", "bfloat16", 2, 192, 8, 2, 64, True, 24, False, None),
+    ("fp32 segment_ids", "float32", 2, 256, 4, 2, 64, True, None, True, None),
+    ("bf16 segment_ids window24", "bfloat16", 2, 256, 4, 2, 128, True, 24, True, None),
+    ("fp32 full", "float32", 2, 200, 4, 2, 64, False, None, False, None),
+    ("fp32 full t100 s160", "float32", 2, 100, 4, 1, 32, False, None, False, 160),
+    ("fp32 ragged t40", "float32", 2, 40, 4, 4, 16, True, None, False, None),
+    ("fp32 ragged t56", "float32", 2, 56, 4, 4, 16, True, None, False, None),
+    ("fp32 ragged t96", "float32", 2, 96, 4, 4, 16, True, None, False, None),
+    ("fp32 dead rows (window -8)", "float32", 2, 96, 4, 2, 32, False, -8, False, None),
+]
+
+
+def _causal_pairs(t: int) -> int:
+    return t * (t + 1) // 2
+
+
+def phase_kernels(torch, fa) -> dict:
+    import torch.nn.functional as F
+
+    for name, dname, b, t, h, kh, d, causal, window, with_seg, s in SMALL_CASES:
+        check_case(torch, fa, name, getattr(torch, dname), b, t, h, kh, d, causal, window, with_seg, s=s)
+
+    sl = TRAIN_SHAPES
+    train_case = (torch.bfloat16, sl["b"], sl["t"], sl["h"], sl["kh"], sl["d"], True, None, False)
+    check_case(torch, fa, "1b train bf16 peaked", *train_case, qk_scale=2.0)
+    errs, (q, k, v, do, seg, out_p, lse_p, delta) = check_case(torch, fa, "1b train bf16 causal gqa 16->8",
+                                                               *train_case)
+    scale = 1.0 / math.sqrt(sl["d"])
+    args = (None, True, scale, None)
+    bwd = (q, k, v, do, lse_p, delta, *args)
+    times = {
+        "K1": (cuda_ms(torch, lambda: fa.attn_fwd_cuda(q, k, v, *args)),
+               cuda_ms(torch, lambda: fa.attn_fwd_plain(q, k, v, *args), reps=5)),
+        "K2": (cuda_ms(torch, lambda: fa.attn_dq_cuda(*bwd)),
+               cuda_ms(torch, lambda: fa.attn_dq_plain(*bwd), reps=5)),
+        "K3": (cuda_ms(torch, lambda: fa.attn_dkv_cuda(*bwd)),
+               cuda_ms(torch, lambda: fa.attn_dkv_plain(*bwd), reps=5)),
+    }
+    # yardstick only: one PyTorch call for the same attention (never used by the port)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    sdpa_fwd_ms = cuda_ms(torch, sdpa)
+    o = sdpa()
+    g = do.transpose(1, 2)
+    sdpa_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(o, (qt, kt, vt), g, retain_graph=True))
+
+    # least time for the same work: operations over the bf16 tensor-core peak,
+    # bytes (each input read once, each output written once) over HBM bandwidth
+    b, t, h, kh, d = sl["b"], sl["t"], sl["h"], sl["kh"], sl["d"]
+    pairs = b * h * _causal_pairs(t)
+    e = 2  # bytes per bf16 element
+    q_bytes, kv_bytes, stat_bytes = b * t * h * d * e, b * t * kh * d * e, b * h * t * 4
+    work = {
+        # QK^T and PV
+        "K1": (4 * d * pairs, 2 * q_bytes + 2 * kv_bytes + stat_bytes),
+        # QK^T, dO V^T, dS K
+        "K2": (6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * stat_bytes),
+        # QK^T, dO V^T, P^T dO, dS^T Q
+        "K3": (8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes),
+    }
+    sources = {
+        "K1": ("flash_fwd", "dmlcloud_tpu/ops/flash_attention.py:149 (_attn_kernel, pallas_call :773)"),
+        "K2": ("flash_bwd_dq", "dmlcloud_tpu/ops/flash_attention.py:229 (_dq_kernel, pallas_call :847)"),
+        "K3": ("flash_bwd_dkv", "dmlcloud_tpu/ops/flash_attention.py:276 (_dkv_kernel, pallas_call :883)"),
+    }
+    err_of = {"K1": errs["K1"][0], "K2": errs["K2"][0], "K3": max(errs["K3 dk"][0], errs["K3 dv"][0])}
+    rows = {}
+    for key, (ms, plain_ms) in times.items():
+        flops, nbytes = work[key]
+        op_ms, byte_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        name, replaces = sources[key]
+        rows[key] = {
+            "name": name, "route": "cuda", "source": "dmlcloud_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces, "launches": 0, "max_abs_err": err_of[key],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(op_ms, byte_ms),
+            "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+            "library_ms": sdpa_fwd_ms if key == "K1" else sdpa_bwd_ms,
+        }
+        log(f"[kernels] {key} {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound {rows[key]['bound_ms']:.4f} ms "
+            f"by {rows[key]['bound_by']}, {flops / ms / 1e9:.1f} TFLOP/s)")
+    log(f"[kernels] yardstick scaled_dot_product_attention: fwd {sdpa_fwd_ms:.3f} ms, bwd {sdpa_bwd_ms:.3f} ms")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the full-width 1b model, flash kernels against the dot path
+# ---------------------------------------------------------------------------
+
+#: flash vs dot logits of the model. TOL is held by each kernel against its
+#: plain version (phase 3); here the two attention paths differ on purpose:
+#: the dot path rounds its scores to bf16 before the softmax (as the JAX
+#: reference's ``_dot_attention`` does, its einsum returns bf16) and the flash
+#: kernels keep them in fp32. On the H100 that gives logit differences up to
+#: 0.073 after 2 layers and 0.109 after 24 (logits std 1, norm-relative 0.012
+#: and 0.019), a few of them outside TOL bf16 where |logit| is small, so the
+#: model is held to this wider bound and a norm-relative one instead.
+MODEL_TOL = dict(atol=0.25, rtol=0.25, rel_norm=0.05)
+
+
+def phase_model(torch, fa) -> None:
+    from dmlcloud_tpu_torch.examples.train_lm import PRESETS
+    from dmlcloud_tpu_torch.models.transformer import DecoderLM, TransformerConfig
+
+    kw = dict(vocab_size=32000, max_seq_len=2048, **PRESETS["1b"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dot = DecoderLM(TransformerConfig(attn_impl="dot", **kw), device="cuda", generator=gen)
+    flash = DecoderLM(TransformerConfig(attn_impl="flash", **kw), device="cuda")
+    flash.load_state_dict(dot.state_dict())  # the same carried weights
+    tokens = torch.randint(0, 32000, (1, 2048), generator=gen, device="cuda")
+    packed = _segments(torch, 1, 2048)
+    all_layers = (dot.layers, flash.layers)
+    for depth, seg in ((2, None), (2, packed), (kw["num_layers"], None)):
+        dot.layers, flash.layers = all_layers[0][:depth], all_layers[1][:depth]
+        fa.reset_launch_counts()
+        with torch.no_grad():
+            want = dot(tokens, segment_ids=seg)
+            got = flash(tokens, segment_ids=seg)
+        torch.cuda.synchronize()
+        if fa.LAUNCHES["flash_fwd"] != depth:
+            raise AssertionError(f"flash model launched K1 {fa.LAUNCHES['flash_fwd']} times, want {depth}")
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise AssertionError("non-finite logits")
+        err = max_err(torch, got, want)
+        rel = float((got - want).norm() / want.norm())
+        outside = float((~torch.isclose(got, want, **TOL["bfloat16"])).float().mean())
+        rows = "packed rows (segment_ids)" if seg is not None else "tokens"
+        log(f"[model] 1b DecoderLM at full width, {depth} of 24 layers, {rows} [1, 2048]: flash vs dot logits "
+            f"max abs err {err:.3g}, relative norm err {rel:.3g}, share outside TOL bf16 {outside:.2e}, "
+            f"logits std {float(want.std()):.3g}")
+        if not (torch.allclose(got, want, atol=MODEL_TOL["atol"], rtol=MODEL_TOL["rtol"])
+                and rel <= MODEL_TOL["rel_norm"]):
+            raise AssertionError(f"1b logits ({depth} layers, {rows}), flash vs dot: outside {MODEL_TOL}")
+    del dot, flash, want, got, all_layers
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 5: train the 1b model through the port's TrainingPipeline
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGV = ["--preset", "1b", "--attn", "flash", "--vocab-size", "32000", "--seq-len", "2048",
+              "--batch-size", "4", "--n-seqs", "32", "--epochs", "1"]
+
+
+def phase_train(torch, fa) -> dict:
+    from dmlcloud_tpu_torch.examples.train_lm import main as train_main
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()  # the main path's run starts here ...
+    t0 = time.perf_counter()
+    stage = train_main(TRAIN_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)  # ... and ends here
+    tracker = stage.tracker
+    steps = len(stage.train_losses)
+    losses = [float(x) for x in stage.train_losses]
+    train_loss, val_loss = float(tracker["train/loss"][-1]), float(tracker["val/loss"][-1])
+    log(f"[train] per-step losses {[round(x, 4) for x in losses]}; train/loss {train_loss:.4f}, val/loss {val_loss:.4f}")
+    if steps != 7:
+        raise AssertionError(f"expected 7 train steps, ran {steps}")
+    if not all(math.isfinite(x) for x in losses + [train_loss, val_loss]):
+        raise AssertionError("non-finite loss")
+    if abs(losses[0] - math.log(32000)) > 1.5:
+        raise AssertionError(f"first-step loss {losses[0]:.3f} is not within 1.5 of ln(32000) = {math.log(32000):.3f}")
+    need = 24 * steps
+    for name, n in launches.items():
+        if n < need:
+            raise AssertionError(f"kernel {name} launched {n} times on the train path, want >= {need}")
+    step_ms = float(tracker["misc/train_step_avg_ms"][-1])
+    tokens_per_step = 4 * 2048
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[train] 7 steps + 1 val batch in {wall:.1f} s wall (model build and data included); "
+        f"train step avg {step_ms:.1f} ms = {1e3 / step_ms:.3f} steps/s = {tokens_per_step / step_ms * 1e3:.0f} tokens/s "
+        f"(first step included); peak memory {peak / 2**30:.2f} GiB; launches {launches}")
+    return launches, stage
+
+
+# ---------------------------------------------------------------------------
+# phase 6: steady-state steps and where the step's device time goes
+# ---------------------------------------------------------------------------
+
+def _device_us(event) -> float:
+    return float(getattr(event, "self_device_time_total", 0.0) or getattr(event, "self_cuda_time_total", 0.0))
+
+
+def phase_steady(torch, stage) -> None:
+    """Three more steps of the trained stage on one of its batches, each
+    synchronised, then one under torch.profiler (after the main path's launch
+    counts were read)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = next(iter(stage._feed(stage.train_dataset())))
+    times = []
+    for _ in range(3):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        stage._train_step(batch)
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    step_ms = statistics.median(times)
+    log(f"[steady] 1b train step (B=4, T=2048): {step_ms:.1f} ms median of {[round(t, 1) for t in times]} "
+        f"= {4 * 2048 / step_ms * 1e3:.0f} tokens/s")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stage._train_step(batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device-side activity only (kernels, copies): host ops also carry the
+    # device time of the kernels they launch, annotated ranges (the
+    # optimizer's step) span other kernels, and CUPTI reports the launch
+    # queue filling up ("Command Buffer Full") as an event of its own
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+              and "Command Buffer" not in e.key]
+    busy_us = sum(_device_us(e) for e in events)
+    if busy_us == 0:
+        log("[steady] profiler recorded no device time: breakdown not measured")
+        return
+    groups = {"flash_fwd (K1)": "flash_fwd_kernel", "flash_bwd_dq (K2)": "flash_bwd_dq_kernel",
+              "flash_bwd_dkv (K3)": "flash_bwd_dkv_kernel"}
+    shares = {g: sum(_device_us(e) for e in events if pat in e.key) for g, pat in groups.items()}
+    gemm = sum(_device_us(e) for e in events if re.search(r"gemm|xmma|cutlass|nvjet|sm90_", e.key, re.I)
+               and not any(p in e.key for p in groups.values()))
+    log(f"[steady] profiled step: wall {wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
+        f"(idle share {max(0.0, 1 - busy_us / wall_us):.3f})")
+    for g, us in [*shares.items(), ("matmuls (cuBLAS)", gemm),
+                  ("everything else", busy_us - gemm - sum(shares.values()))]:
+        log(f"[steady]   {g:<20} {us / 1e3:8.1f} ms  {us / busy_us:6.1%} of device time")
+    top = sorted(events, key=_device_us, reverse=True)[:16]
+    for e in top:
+        log(f"[steady]   top: {_device_us(e) / 1e3:8.1f} ms  x{e.count:<4} {e.key[:90]}")
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not importable")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs one CUDA card")
+    try:
+        from dmlcloud_tpu_torch.ops import flash_attention as fa
+    except ImportError as exc:
+        fail(f"dmlcloud_tpu_torch is not importable ({exc}); run from the repository root")
+
+    t0 = time.perf_counter()
+    dev = phase_device(torch)
+    phase_build(fa)
+    rows = phase_kernels(torch, fa)
+    phase_model(torch, fa)
+    launches, stage = phase_train(torch, fa)
+    for row in rows.values():
+        row["launches"] = launches[row["name"]]
+    phase_steady(torch, stage)
+    log(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": list(rows.values())}))
+    print(dev["smi"])
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,41 @@
+"""Synthetic corpora with learnable structure, for examples and benches.
+
+A verbatim numpy copy of ``dmlcloud_tpu/data/synthetic.py``, so that both
+packages build the same corpus from the same seed: a corpus a small model
+can actually LEARN, made without any network access.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["markov_tokens"]
+
+
+def markov_tokens(
+    vocab: int, n: int, s: int, seed: int = 0, noise: float = 0.1,
+    table_seed: int | None = None,
+) -> np.ndarray:
+    """``[n, s]`` int32 token chains: each token follows a fixed random
+    successor table with probability ``1 - noise``, else is uniform random.
+
+    At the default ``noise=0.1`` the per-token entropy floor is
+    ``0.9*ln(1/0.9) + 0.1*ln(vocab)`` ≈ 0.9 nats at vocab 512 — a trained
+    model's loss near that value means the chain was learned, which is the
+    learnedness gate bench.py's speculative bench prints.
+
+    ``table_seed`` decouples the successor TABLE from the sequences: ranks
+    of one training job (or a train corpus and its eval prompts) must share
+    the table — otherwise the union of their data is a mixture of
+    incompatible chains with ~ln(n_tables) extra entropy — while drawing
+    distinct sequences via per-rank ``seed``. Default (None) derives the
+    table from ``seed``, which is only right single-host."""
+    table_rng = np.random.RandomState(seed if table_seed is None else table_seed)
+    next_tok = table_rng.randint(0, vocab, size=vocab)
+    rng = table_rng if table_seed is None else np.random.RandomState(seed)
+    toks = np.empty((n, s), np.int32)
+    toks[:, 0] = rng.randint(0, vocab, size=n)
+    noisy = rng.rand(n, s) < noise
+    for t in range(1, s):
+        toks[:, t] = np.where(noisy[:, t], rng.randint(0, vocab, size=n), next_tok[toks[:, t - 1]])
+    return toks

@@ -1,0 +1,139 @@
+"""Decoder-LM pretraining through the port's pipeline — the counterpart of
+``examples/train_lm.py``, with the same presets and the flags of the ported
+paths (``--attn dot|flash``, ``--pack``, ``--window``).
+
+Run on one GPU (``--device cpu`` runs on the CPU with the kernels' plain
+PyTorch versions):
+
+    python -m dmlcloud_tpu_torch.examples.train_lm --preset tiny --epochs 2
+    python -m dmlcloud_tpu_torch.examples.train_lm --preset 1b --attn flash --vocab-size 32000 \\
+        --seq-len 2048 --batch-size 4 --n-seqs 32 --epochs 1
+
+``main(argv)`` returns the stage, so callers can read its tracked metrics and
+per-step losses.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+import dmlcloud_tpu_torch as dml
+from dmlcloud_tpu_torch.data import markov_tokens as synthetic_tokens
+from dmlcloud_tpu_torch.data import pack_sequences
+from dmlcloud_tpu_torch.models.transformer import DecoderLM, TransformerConfig, lm_loss
+from dmlcloud_tpu_torch.optim import adamw, warmup_cosine_decay_schedule
+from dmlcloud_tpu_torch.parallel import init_auto
+
+PRESETS = {
+    "tiny": dict(num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16, hidden_dim=64, mlp_dim=160),
+    "small": dict(num_layers=8, num_heads=8, num_kv_heads=4, head_dim=64, hidden_dim=512, mlp_dim=1408),
+    "1b": dict(num_layers=24, num_heads=16, num_kv_heads=8, head_dim=128, hidden_dim=2048, mlp_dim=5632),
+}
+
+
+class LMStage(dml.TrainValStage):
+    def pre_stage(self):
+        cfg = self.config
+        model_cfg = TransformerConfig(
+            vocab_size=cfg.vocab_size,
+            max_seq_len=cfg.seq_len,
+            attn_impl=cfg.attn,
+            tie_embeddings=bool(cfg.get("tie_embeddings", False)),
+            remat=bool(cfg.get("remat", False)),
+            sliding_window=cfg.get("window"),
+            **PRESETS[cfg.preset],
+        )
+        model = DecoderLM(model_cfg, device=self.device)
+        self.model = model
+
+        if cfg.get("pack", False):
+            # variable-length corpus packed into full rows: [N, 2, T] of
+            # (tokens, segment_ids), routed through the segment-isolated path
+            rng = np.random.RandomState(1)
+            # ids shifted +1 below so pad id 0 never collides with a token
+            full = synthetic_tokens(cfg.vocab_size - 1, cfg.n_seqs, cfg.seq_len)
+            pieces = [row[: rng.randint(cfg.seq_len // 4, cfg.seq_len + 1)] + 1 for row in full]
+            rows = list(pack_sequences(pieces, cfg.seq_len))
+            tokens = np.stack([np.stack([r["tokens"], r["segment_ids"]]) for r in rows])
+        else:
+            tokens = synthetic_tokens(cfg.vocab_size, cfg.n_seqs, cfg.seq_len)
+        n_val = max(cfg.batch_size, len(tokens) // 10)
+        bs = cfg.batch_size
+        if (len(tokens) - n_val) < bs:
+            raise ValueError(
+                f"{len(tokens)} rows after packing/splitting leave fewer than one "
+                f"train batch (batch_size={bs}, val={n_val}); raise --n-seqs or lower --batch-size"
+            )
+
+        def loader(data):
+            class Loader:
+                def __iter__(self):
+                    for i in range(0, len(data) - bs + 1, bs):
+                        yield data[i : i + bs]
+
+                def __len__(self):
+                    return len(data) // bs
+
+            return Loader()
+
+        self.pipeline.register_dataset("train", loader(tokens[n_val:]))
+        self.pipeline.register_dataset("val", loader(tokens[:n_val]))
+        self.pipeline.register_model("lm", model)
+        schedule = warmup_cosine_decay_schedule(0.0, cfg.lr, 20, 2000)
+        self.pipeline.register_optimizer("adamw", adamw(schedule), scheduler=schedule)
+
+    def gradient_clip(self):
+        return 1.0
+
+    def step(self, state, batch):
+        if self.config.get("pack", False):
+            toks, segs = batch[:, 0], batch[:, 1]
+        else:
+            toks, segs = batch, None
+        logits = state.model(toks, segment_ids=segs)
+        return lm_loss(logits, toks, segment_ids=segs)
+
+
+def main(argv: list[str] | None = None) -> LMStage:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--preset", choices=sorted(PRESETS), default="tiny")
+    parser.add_argument("--epochs", type=int, default=2)
+    parser.add_argument("--batch-size", type=int, default=8)
+    parser.add_argument("--seq-len", type=int, default=128)
+    parser.add_argument("--vocab-size", type=int, default=512)
+    parser.add_argument("--n-seqs", type=int, default=512)
+    parser.add_argument("--lr", type=float, default=3e-4)
+    parser.add_argument("--attn", choices=["dot", "flash"], default="dot")
+    parser.add_argument("--window", type=int, default=None, help="sliding-window attention width")
+    parser.add_argument("--pack", action="store_true", help="pack a variable-length corpus (segment_ids path)")
+    parser.add_argument("--remat", action="store_true", help="recompute blocks in the backward pass")
+    parser.add_argument("--tie-embeddings", action="store_true", help="share the embedding matrix with the LM head")
+    parser.add_argument("--device", default="cuda", help='"cuda" (default) or "cpu"')
+    args = parser.parse_args(argv)
+
+    init_auto(args.device, verbose=True)
+    config = {
+        "preset": args.preset,
+        "batch_size": args.batch_size,
+        "seq_len": args.seq_len,
+        "vocab_size": args.vocab_size,
+        "n_seqs": args.n_seqs,
+        "lr": args.lr,
+        "attn": args.attn,
+        "tie_embeddings": args.tie_embeddings,
+        "remat": args.remat,
+        "window": args.window,
+        "pack": args.pack,
+        "seed": 0,
+    }
+    pipeline = dml.TrainingPipeline(config, name=f"lm-{args.preset}", device=args.device)
+    stage = LMStage()
+    pipeline.append_stage(stage, max_epochs=args.epochs)
+    pipeline.run()
+    return stage
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,389 @@
+"""Decoder-only transformer LM (Llama-style), training path.
+
+Counterpart of ``dmlcloud_tpu/models/transformer.py``: ``TransformerConfig``
+(:31), ``RMSNorm`` (:113), ``rope_frequencies`` (:124), ``apply_rope`` (:163),
+``_dot_attention`` (:188), ``Attention`` (:232; the dense no-cache branch and
+the packed ``segment_ids`` branch), ``MLP`` (:371), ``DecoderBlock`` (:388),
+``DecoderLM`` (:435), ``lm_loss`` (:642) and ``_packed_mean`` (:658). The
+decode cache, paged decode, left-padded prompts, LoRA adapters, MoE, int8 and
+ring attention come in later slices; a config that asks for them raises.
+
+The numerics follow the reference, where a port that looks right would
+compute something else:
+
+- dense layers keep fp32 parameters and cast operands to ``cfg.dtype`` per
+  call, so their results are in ``cfg.dtype`` (flax ``dtype=bf16,
+  param_dtype=fp32``); the residual stream stays in ``cfg.dtype``;
+- ``RMSNorm`` computes in fp32 with eps 1e-6 and casts back to the input dtype;
+- ``apply_rope`` rotates INTERLEAVED pairs ``(x[..., ::2], x[..., 1::2])``
+  and re-interleaves them (not the half-split ``rotate_half``);
+- ``_dot_attention`` takes its softmax in fp32 and casts the probabilities
+  to ``v.dtype``; its score einsum rounds to the operand dtype first;
+- the LM head upcasts the hidden state and computes fp32 logits;
+- on packed rows, rotary positions restart at each segment, and only the raw
+  segment ids go to the flash kernels.
+
+``load_flax_params``/``to_flax_params`` carry weights between this module and
+the JAX ``DecoderLM``'s param tree (numpy arrays).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.flash_attention import flash_attention
+from ..parallel.runtime import resolve_device
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32000
+    num_layers: int = 8
+    num_heads: int = 8
+    num_kv_heads: int | None = None  # None => MHA; < num_heads => GQA
+    head_dim: int = 64
+    hidden_dim: int = 512
+    mlp_dim: int = 1408  # ~8/3 * hidden, SwiGLU convention
+    max_seq_len: int = 2048
+    rope_theta: float = 10000.0
+    # ("linear", factor) or ("llama3", factor, low_freq_factor, high_freq_factor, original_len)
+    rope_scaling: tuple | None = None
+    dtype: torch.dtype = torch.bfloat16
+    tie_embeddings: bool = False
+    attn_impl: str = "dot"  # 'dot' | 'flash'
+    # Sliding-window attention (Mistral convention): each token attends to
+    # itself + the previous W-1.
+    sliding_window: int | None = None
+    # recompute each block in the backward pass (torch.utils.checkpoint)
+    remat: bool = False
+
+    def __post_init__(self):
+        if self.attn_impl not in ("dot", "flash"):
+            raise ValueError(
+                f"attn_impl must be 'dot' or 'flash' in this port (ring attention is not ported yet), "
+                f"got {self.attn_impl!r}"
+            )
+        if self.sliding_window is not None and self.sliding_window < 1:
+            raise ValueError(f"sliding_window must be >= 1, got {self.sliding_window}")
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_kv_heads or self.num_heads
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        normed = x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + self.eps)
+        return (normed * self.weight).to(x.dtype)
+
+
+def rope_frequencies(
+    head_dim: int, max_len: int, theta: float, scaling: tuple | None = None, device=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rotary cos/sin tables [max_len, head_dim/2] in fp32; ``scaling``
+    applies linear or Llama-3 context extension to the base frequencies."""
+    freqs = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
+    if scaling is not None:
+        kind = scaling[0]
+        if kind == "linear":
+            freqs = freqs / float(scaling[1])
+        elif kind == "llama3":
+            _, factor, low_ff, high_ff, orig_len = scaling
+            wavelen = 2.0 * math.pi / freqs
+            low_wl = orig_len / float(low_ff)
+            high_wl = orig_len / float(high_ff)
+            smooth = (orig_len / wavelen - low_ff) / (high_ff - low_ff)
+            freqs = torch.where(
+                wavelen > low_wl,
+                freqs / factor,  # long wavelengths: fully interpolated
+                torch.where(wavelen < high_wl, freqs, (1 - smooth) * freqs / factor + smooth * freqs),
+            )
+        else:
+            raise ValueError(f"unsupported rope scaling kind {kind!r}")
+    t = torch.arange(max_len, dtype=torch.float32, device=device)
+    angles = torch.outer(t, freqs)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(
+    x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, offset: int = 0, positions: torch.Tensor | None = None
+) -> torch.Tensor:
+    """x: [B, T, H, D]. Rotates interleaved pairs (even, odd) of the head dim.
+    ``positions`` [B, T] overrides the contiguous ``offset`` window."""
+    if positions is not None:
+        cos = cos[positions][:, :, None, :]
+        sin = sin[positions][:, :, None, :]
+    else:
+        seq_len = x.shape[1]
+        cos = cos[offset : offset + seq_len][None, :, None, :]
+        sin = sin[offset : offset + seq_len][None, :, None, :]
+    x1, x2 = x[..., ::2], x[..., 1::2]
+    rotated = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return rotated.reshape(x.shape).to(x.dtype)
+
+
+def _window_keep(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int) -> torch.Tensor:
+    return (q_pos - k_pos) < window
+
+
+def _dot_attention(q, k, v, causal: bool = True, mask: torch.Tensor | None = None):
+    """Unfused attention: fp32 softmax, matmuls in the operand dtype.
+    q: [B,T,H,D], k/v: [B,S,KH,D]. ``mask`` ([T, S] or [B, T, S] bool, True =
+    attend) replaces the causal triangle entirely."""
+    b, t, h, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    q = q.reshape(b, t, kh, h // kh, d)
+    scores = torch.einsum("btkgd,bskd->bkgts", q, k).float() / math.sqrt(d)
+    if mask is None and causal:
+        mask = torch.ones((t, s), dtype=torch.bool, device=q.device).tril(s - t)
+    if mask is not None:
+        if mask.dim() == 2:
+            mask = mask[None]
+        scores = torch.where(mask[:, None, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, v)
+    return out.reshape(b, t, h, d)
+
+
+def _dense(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax Dense with ``dtype``: operands cast to ``dtype``, result in ``dtype``."""
+    return F.linear(x.to(dtype), weight.to(dtype))
+
+
+def _linear(in_features: int, out_features: int, device) -> nn.Linear:
+    return nn.Linear(in_features, out_features, bias=False, device=device, dtype=torch.float32)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, h, kh, hd = cfg.hidden_dim, cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        self.q_proj = _linear(d, h * hd, device)
+        self.k_proj = _linear(d, kh * hd, device)
+        self.v_proj = _linear(d, kh * hd, device)
+        self.o_proj = _linear(h * hd, d, device)
+
+    def forward(self, x, cos, sin, seg_info=None):
+        cfg = self.cfg
+        b, t, _ = x.shape
+        q = _dense(x, self.q_proj.weight, cfg.dtype).view(b, t, cfg.num_heads, cfg.head_dim)
+        k = _dense(x, self.k_proj.weight, cfg.dtype).view(b, t, cfg.kv_heads, cfg.head_dim)
+        v = _dense(x, self.v_proj.weight, cfg.dtype).view(b, t, cfg.kv_heads, cfg.head_dim)
+        if seg_info is not None:
+            # packed rows: positions restart per segment; attention is causal
+            # AND same-segment (flash masks from the raw ids, dot from the mask)
+            positions, mask, seg_ids = seg_info
+            q = apply_rope(q, cos, sin, positions=positions)
+            k = apply_rope(k, cos, sin, positions=positions)
+            if cfg.attn_impl == "flash":
+                out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window, segment_ids=seg_ids)
+            else:
+                out = _dot_attention(q, k, v, mask=mask)
+        else:
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+            if cfg.attn_impl == "flash":
+                out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+            elif cfg.sliding_window is not None:
+                pos = torch.arange(t, device=x.device)
+                q_pos, k_pos = pos[:, None], pos[None, :]
+                out = _dot_attention(q, k, v, mask=(q_pos >= k_pos) & _window_keep(q_pos, k_pos, cfg.sliding_window))
+            else:
+                out = _dot_attention(q, k, v, causal=True)
+        out = out.reshape(b, t, cfg.num_heads * cfg.head_dim)
+        return _dense(out, self.o_proj.weight, cfg.dtype)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.gate_proj = _linear(cfg.hidden_dim, cfg.mlp_dim, device)
+        self.up_proj = _linear(cfg.hidden_dim, cfg.mlp_dim, device)
+        self.down_proj = _linear(cfg.mlp_dim, cfg.hidden_dim, device)
+
+    def forward(self, x):
+        dt = self.cfg.dtype
+        h = F.silu(_dense(x, self.gate_proj.weight, dt)) * _dense(x, self.up_proj.weight, dt)
+        return _dense(h, self.down_proj.weight, dt)
+
+
+class DecoderBlock(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.attn_norm = RMSNorm(cfg.hidden_dim, device=device)
+        self.attn = Attention(cfg, device)
+        self.mlp_norm = RMSNorm(cfg.hidden_dim, device=device)
+        self.mlp = MLP(cfg, device)
+
+    def forward(self, x, cos, sin, seg_info=None):
+        x = x + self.attn(self.attn_norm(x), cos, sin, seg_info=seg_info)
+        return x + self.mlp(self.mlp_norm(x))
+
+
+class DecoderLM(nn.Module):
+    """Causal LM: tokens [B, T] int -> logits [B, T, vocab] fp32.
+
+    With ``segment_ids`` [B, T] int32, rows hold several packed examples and
+    attention never crosses a segment boundary (pair with
+    ``lm_loss(..., segment_ids=...)``).
+
+    Parameters live on ``device`` (default ``cuda``; raises without a card
+    unless ``device="cpu"``), initialised from ``generator`` (default: seed 0
+    on that device) with flax's initializer families: embeddings normal with
+    std 1/sqrt(hidden), dense kernels lecun-normal (truncated at two standard
+    deviations), norms one."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, generator: torch.Generator | None = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.embed = nn.Embedding(cfg.vocab_size, cfg.hidden_dim, device=device, dtype=torch.float32)
+        self.layers = nn.ModuleList(DecoderBlock(cfg, device) for _ in range(cfg.num_layers))
+        self.final_norm = RMSNorm(cfg.hidden_dim, device=device)
+        self.lm_head = None if cfg.tie_embeddings else _linear(cfg.hidden_dim, cfg.vocab_size, device)
+        cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta, cfg.rope_scaling, device)
+        self.register_buffer("rope_cos", cos, persistent=False)
+        self.register_buffer("rope_sin", sin, persistent=False)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.embed.weight.normal_(0.0, 1.0 / math.sqrt(self.cfg.hidden_dim), generator=generator)
+        for module in self.modules():
+            if isinstance(module, nn.Linear):
+                # lecun_normal: truncated normal, std 1/sqrt(fan_in) after truncation
+                std = math.sqrt(1.0 / module.in_features) / 0.87962566103423978
+                nn.init.trunc_normal_(module.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+            elif isinstance(module, RMSNorm):
+                module.weight.fill_(1.0)
+
+    def forward(self, tokens: torch.Tensor, segment_ids: torch.Tensor | None = None) -> torch.Tensor:
+        cfg = self.cfg
+        seg_info = None
+        if segment_ids is not None:
+            # computed once, shared by every layer: per-segment rotary
+            # positions and the causal-AND-same-segment mask of the dot path
+            t = tokens.shape[1]
+            same = segment_ids[:, :, None] == segment_ids[:, None, :]  # [B, T, S]
+            seg_start = same.to(torch.uint8).argmax(-1)  # first index of own segment
+            positions = torch.arange(t, device=tokens.device)[None, :] - seg_start
+            mask = None
+            if cfg.attn_impl != "flash":
+                mask = torch.ones((t, t), dtype=torch.bool, device=tokens.device).tril()[None] & same
+                if cfg.sliding_window is not None:
+                    pos = torch.arange(t, device=tokens.device)
+                    mask = mask & _window_keep(pos[:, None], pos[None, :], cfg.sliding_window)[None]
+            seg_info = (positions, mask, segment_ids)
+        x = self.embed(tokens).to(cfg.dtype)
+        for layer in self.layers:
+            if cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, self.rope_cos, self.rope_sin, seg_info, use_reentrant=False)
+            else:
+                x = layer(x, self.rope_cos, self.rope_sin, seg_info=seg_info)
+        x = self.final_norm(x)
+        head = self.embed.weight if cfg.tie_embeddings else self.lm_head.weight
+        return F.linear(x.float(), head.float())
+
+
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor, segment_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Next-token cross entropy over shifted targets. With ``segment_ids``
+    (packed rows), a position only counts when its target is in the SAME
+    non-pad segment (id 0 marks padding)."""
+    targets = tokens[:, 1:].long()
+    logits = logits[:, :-1].float()
+    losses = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1), reduction="none")
+    return _packed_mean(losses.view(targets.shape), segment_ids)
+
+
+def _packed_mean(losses: torch.Tensor, segment_ids: torch.Tensor | None) -> torch.Tensor:
+    """Mean of per-position losses; with packed ``segment_ids``, a position
+    only counts when its target is in the SAME non-pad segment."""
+    if segment_ids is None:
+        return losses.mean()
+    w = ((segment_ids[:, 1:] == segment_ids[:, :-1]) & (segment_ids[:, 1:] != 0)).to(losses.dtype)
+    return (losses * w).sum() / torch.clamp(w.sum(), min=1)
+
+
+# ---------------------------------------------------------------------------
+# carrying weights across: the JAX DecoderLM's param tree <-> this module
+# ---------------------------------------------------------------------------
+
+def _flax_layout(cfg: TransformerConfig) -> list[tuple[tuple[str, ...], str, str]]:
+    """(flax path, port parameter name, transform) for every parameter.
+    Transforms: 'same' (as is), 'heads' ([D, H, Dh] kernel -> reshape(D, -1).T),
+    't' (kernel -> .T)."""
+    rows = [(("embed", "embedding"), "embed.weight", "same")]
+    for i in range(cfg.num_layers):
+        flax, port = f"layer_{i}", f"layers.{i}"
+        for n in ("q", "k", "v"):
+            rows.append(((flax, "attn", f"{n}_proj", "kernel"), f"{port}.attn.{n}_proj.weight", "heads"))
+        rows.append(((flax, "attn", "o_proj", "kernel"), f"{port}.attn.o_proj.weight", "t"))
+        for n in ("gate", "up", "down"):
+            rows.append(((flax, "mlp", f"{n}_proj", "kernel"), f"{port}.mlp.{n}_proj.weight", "t"))
+        rows.append(((flax, "attn_norm", "scale"), f"{port}.attn_norm.weight", "same"))
+        rows.append(((flax, "mlp_norm", "scale"), f"{port}.mlp_norm.weight", "same"))
+    rows.append((("final_norm", "scale"), "final_norm.weight", "same"))
+    if not cfg.tie_embeddings:
+        rows.append((("lm_head", "kernel"), "lm_head.weight", "t"))
+    return rows
+
+
+@torch.no_grad()
+def load_flax_params(model: DecoderLM, tree: dict) -> DecoderLM:
+    """Copy the JAX ``DecoderLM``'s params (a nested dict of numpy arrays,
+    with or without the top-level ``"params"`` key) into ``model``."""
+    tree = tree.get("params", tree)
+    params = dict(model.named_parameters())
+    for path, name, how in _flax_layout(model.cfg):
+        node = tree
+        for key in path:
+            node = node[key]
+        arr = np.asarray(node, np.float32)
+        if how == "heads":
+            arr = arr.reshape(arr.shape[0], -1).T
+        elif how == "t":
+            arr = arr.T
+        param = params.pop(name)
+        if tuple(arr.shape) != tuple(param.shape):
+            raise ValueError(f"{'/'.join(path)}: shape {arr.shape} does not fit {name} {tuple(param.shape)}")
+        param.copy_(torch.from_numpy(np.array(arr, np.float32, order="C")))
+    if params:
+        raise ValueError(f"flax tree left parameters unset: {sorted(params)}")
+    return model
+
+
+@torch.no_grad()
+def to_flax_params(model: DecoderLM) -> dict:
+    """The inverse of ``load_flax_params``: a nested dict of float32 numpy
+    arrays in the JAX ``DecoderLM``'s layout."""
+    cfg = model.cfg
+    params = dict(model.named_parameters())
+    tree: dict = {}
+    for path, name, how in _flax_layout(cfg):
+        arr = params[name].detach().float().cpu().numpy()
+        if how == "heads":
+            arr = arr.T.reshape(cfg.hidden_dim, -1, cfg.head_dim)
+        elif how == "t":
+            arr = arr.T
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return tree

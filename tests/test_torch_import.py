@@ -1,0 +1,68 @@
+"""The port stands alone: it imports no JAX and nothing of the JAX package.
+
+A subprocess blocks ``jax``, ``jaxlib``, ``flax``, ``optax``, ``orbax`` and
+``dmlcloud_tpu`` before anything else is imported, imports every module of
+``dmlcloud_tpu_torch``, trains the tiny model for an epoch on ``device="cpu"``,
+and checks that none of those modules was loaded — and that, on a machine
+without CUDA, entry points called without a device raise instead of running
+on the CPU.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+_SCRIPT = textwrap.dedent(
+    """
+    import json, pkgutil, importlib, sys
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "dmlcloud_tpu")
+    for name in BLOCKED:
+        sys.modules[name] = None  # any import of these now raises ImportError
+
+    import torch
+    torch.set_num_threads(2)
+    import dmlcloud_tpu_torch
+    modules = [m.name for m in pkgutil.walk_packages(dmlcloud_tpu_torch.__path__, "dmlcloud_tpu_torch.")]
+    for name in modules:
+        importlib.import_module(name)
+
+    from dmlcloud_tpu_torch.examples.train_lm import main
+    from dmlcloud_tpu_torch.models import DecoderLM, TransformerConfig
+    stage = main(["--device", "cpu", "--epochs", "1", "--n-seqs", "40", "--seq-len", "32", "--attn", "flash"])
+    loss = float(stage.tracker["train/loss"][-1])
+
+    loaded = sorted(m for m, mod in sys.modules.items()
+                    if mod is not None and m.split(".")[0] in BLOCKED)
+    raised = {}
+    if not torch.cuda.is_available():
+        cfg = TransformerConfig(vocab_size=64, num_layers=1, num_heads=2, head_dim=8, hidden_dim=16, mlp_dim=32)
+        for name, call in [("DecoderLM", lambda: DecoderLM(cfg)),
+                           ("TrainingPipeline", lambda: dmlcloud_tpu_torch.TrainingPipeline()),
+                           ("train_lm.main", lambda: main(["--epochs", "1"]))]:
+            try:
+                call()
+                raised[name] = False
+            except RuntimeError:
+                raised[name] = True
+    print(json.dumps({"modules": modules, "loaded": loaded, "loss": loss, "raised": raised}))
+    """
+)
+
+
+def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", _SCRIPT], env=env, cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["loaded"] == []
+    assert "dmlcloud_tpu_torch.ops.flash_attention" in result["modules"]
+    assert "dmlcloud_tpu_torch.stage" in result["modules"]
+    assert result["loss"] == result["loss"] and result["loss"] > 0  # finite, trained
+    for name, did_raise in result["raised"].items():
+        assert did_raise, f"{name} without a device ran on the CPU instead of raising"
