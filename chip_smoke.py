@@ -8,16 +8,22 @@ Run from the root of the repository, with one card visible::
 Phases, each fatal on failure:
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. build: the flash-attention kernels (``csrc/flash_attention.cu``) with nvcc;
-3. kernels: K1 (forward), K2 (dQ) and K3 (dK/dV) each held against its plain
-   PyTorch version on the card, at the training shapes and at small variants,
-   and timed beside the plain version and ``scaled_dot_product_attention``;
+2. build: the flash-attention kernels (``csrc/flash_attention.cu``, the
+   CUDA-core K1-K3, and ``csrc/flash_attention_tc.cu``, the bf16 tensor-core
+   K1 and K3), one nvcc per source in parallel; the tensor-core kernels must
+   not spill;
+3. kernels: K1 (forward), K2 (dQ) and K3 (dK/dV), on the path
+   ``kernel_route`` picks, each held against its plain PyTorch version on the
+   card, at the training shapes (there also the CUDA-core K1 and K3) and at
+   small variants, and timed beside the plain version and
+   ``scaled_dot_product_attention``;
 4. model: the full-width 1b ``DecoderLM`` forward with the flash kernels
    against the dot path, on the same weights (2 layers, also on packed rows,
    and all 24 layers);
 5. train: ``dmlcloud_tpu_torch.examples.train_lm.main`` trains the 1b model for
    7 steps and validates on 1 batch through the port's ``TrainingPipeline``;
-   every kernel's launch count is read around this run, the main path;
+   every kernel's launch count is read around this run, the main path, and
+   must show the tensor-core K1 and K3 and no CUDA-core K1 or K3;
 6. steady: three more synchronised train steps, and one under
    ``torch.profiler`` for the split of the step's device time.
 
@@ -121,14 +127,38 @@ def phase_device(torch) -> dict:
 # phase 2: build
 # ---------------------------------------------------------------------------
 
+def ptxas_report(build_log: str) -> dict[str, tuple[int, int]]:
+    """``{kernel entry: (registers, spilled bytes)}`` from nvcc's ``-Xptxas -v`` output."""
+    report, entry, spill = {}, None, 0
+    for line in build_log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            entry, spill = m.group(1), 0
+        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)) and entry:
+            spill = int(m.group(1)) + int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry:
+            report[entry] = (int(m.group(1)), spill)
+            entry = None
+    return report
+
+
 def phase_build(fa) -> None:
     t0 = time.perf_counter()
-    path = fa.build()
-    log(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
-    regs = [int(m) for m in re.findall(r"Used (\d+) registers", fa.build_log)]
-    spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", fa.build_log))
-    if regs:
-        log(f"[build] ptxas: {len(regs)} kernel instances, {min(regs)}-{max(regs)} registers, {spills} bytes spilled")
+    paths = fa.build()
+    log(f"[build] {', '.join(p.name for p in paths.values())} in {time.perf_counter() - t0:.1f} s "
+        f"(one nvcc per source, in parallel)")
+    report = ptxas_report(fa.build_log)
+    simt = [v for k, v in report.items() if "_tc_" not in k]
+    if simt:
+        log(f"[build] ptxas, CUDA-core kernels: {len(simt)} instances, {min(r for r, _ in simt)}-"
+            f"{max(r for r, _ in simt)} registers, {sum(s for _, s in simt)} bytes spilled")
+    for entry, (regs, spill) in sorted(report.items()):
+        if "_tc_" in entry:
+            log(f"[build] ptxas, tensor-core kernel {entry}: {regs} registers, {spill} bytes spilled")
+            if spill:
+                raise AssertionError(f"{entry} spills {spill} bytes")
+    for line in fa.build_log.splitlines():
+        if "wgmma" in line or "warning" in line.lower():
+            log(f"[build] nvcc: {line.strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -160,52 +190,78 @@ def _segments(torch, b, t, seed=1):
     return seg.cuda()
 
 
-def check_case(torch, fa, name, dtype, b, t, h, kh, d, causal, window, with_seg, s=None, qk_scale=0.5):
-    """K1, K2 and K3 against their plain versions on one set of inputs;
-    returns the largest errors (max abs, norm-relative) and the inputs."""
+def check_case(torch, fa, name, dtype, b, t, h, kh, d, causal, window, with_seg, s=None, qk_scale=0.5,
+               also_simt=False):
+    """K1, K2 and K3 (the kernels ``kernel_route`` picks) against their plain
+    versions on one set of inputs; with ``also_simt`` the CUDA-core K1 and K3
+    too. Returns the errors (max abs, norm-relative) by kernel and the inputs."""
     q, k, v, do = _inputs(torch, dtype, b, t, h, kh, d, s=s, qk_scale=qk_scale)
     seg = _segments(torch, b, t) if with_seg else None
     scale = 1.0 / math.sqrt(d)
     dname = str(dtype).replace("torch.", "")
     args = (seg, causal, scale, window)
+    route = fa.kernel_route(dtype, d)
+    fwds = {route: fa.attn_fwd_tc if route == "tc" else fa.attn_fwd_simt}
+    dkvs = {route: fa.attn_dkv_tc if route == "tc" else fa.attn_dkv_simt}
+    if also_simt:
+        fwds["simt"], dkvs["simt"] = fa.attn_fwd_simt, fa.attn_dkv_simt
 
-    out, lse = fa.attn_fwd_cuda(q, k, v, *args)
     out_p, lse_p = fa.attn_fwd_plain(q, k, v, *args)
-    torch.cuda.synchronize()
-    errs = {"K1": assert_close(torch, out, out_p, dname, f"{name} K1 out")}
-    # both sides take lse in fp32 from the same operands, whatever their dtype
-    errs["K1 lse"] = assert_close(torch, lse, lse_p, "float32", f"{name} K1 lse")
-
     # the backward kernels take the same saved statistics as their plain versions
     delta = fa.softmax_delta(out_p, do)
     bwd = (q, k, v, do, lse_p, delta, *args)
-    dq = fa.attn_dq_cuda(*bwd)
-    dk, dv = fa.attn_dkv_cuda(*bwd)
     dq_p = fa.attn_dq_plain(*bwd)
     dk_p, dv_p = fa.attn_dkv_plain(*bwd)
+    errs = {}
+    for kind, fwd in fwds.items():
+        out, lse = fwd(q, k, v, *args)
+        torch.cuda.synchronize()
+        errs[f"K1 {kind}"] = assert_close(torch, out, out_p, dname, f"{name} K1 {kind} out")
+        # both sides take lse in fp32 from the same operands, whatever their dtype
+        errs[f"K1 {kind} lse"] = assert_close(torch, lse, lse_p, "float32", f"{name} K1 {kind} lse")
+    dq = fa.attn_dq_cuda(*bwd)
     torch.cuda.synchronize()
     errs["K2"] = assert_close(torch, dq, dq_p, dname, f"{name} K2 dq")
-    errs["K3 dk"] = assert_close(torch, dk, dk_p, dname, f"{name} K3 dk")
-    errs["K3 dv"] = assert_close(torch, dv, dv_p, dname, f"{name} K3 dv")
+    for kind, dkv in dkvs.items():
+        dk, dv = dkv(*bwd)
+        torch.cuda.synchronize()
+        errs[f"K3 {kind} dk"] = assert_close(torch, dk, dk_p, dname, f"{name} K3 {kind} dk")
+        errs[f"K3 {kind} dv"] = assert_close(torch, dv, dv_p, dname, f"{name} K3 {kind} dv")
     worst = max(rel for _, rel in errs.values())
-    log(f"[kernels] {name:<28} " + "  ".join(f"{key} {err:.2e}/{rel:.2e}" for key, (err, rel) in errs.items())
+    log(f"[kernels] {name:<34} " + "  ".join(f"{key} {err:.2e}/{rel:.2e}" for key, (err, rel) in errs.items())
         + f"  (max abs/norm-relative; norm-relative margin {REL_TOL[dname] / max(worst, 1e-30):.3g}x)")
     return errs, (q, k, v, do, seg, out_p, lse_p, delta)
 
 
 SMALL_CASES = [
     # name, dtype, b, t, h, kh, d, causal, window, segment ids, s
+    # fp32 and head dims 16/32: the CUDA-core kernels
     ("fp32 causal gqa", "float32", 2, 256, 8, 2, 128, True, None, False, None),
     ("fp32 window24", "float32", 2, 192, 8, 2, 64, True, 24, False, None),
-    ("bf16 window24", "bfloat16", 2, 192, 8, 2, 64, True, 24, False, None),
     ("fp32 segment_ids", "float32", 2, 256, 4, 2, 64, True, None, True, None),
-    ("bf16 segment_ids window24", "bfloat16", 2, 256, 4, 2, 128, True, 24, True, None),
     ("fp32 full", "float32", 2, 200, 4, 2, 64, False, None, False, None),
     ("fp32 full t100 s160", "float32", 2, 100, 4, 1, 32, False, None, False, 160),
     ("fp32 ragged t40", "float32", 2, 40, 4, 4, 16, True, None, False, None),
     ("fp32 ragged t56", "float32", 2, 56, 4, 4, 16, True, None, False, None),
     ("fp32 ragged t96", "float32", 2, 96, 4, 4, 16, True, None, False, None),
     ("fp32 dead rows (window -8)", "float32", 2, 96, 4, 2, 32, False, -8, False, None),
+    # bf16 with head dim 64/128: the tensor-core kernels, GQA groups 1, 2, 8
+    ("bf16 causal d128 g2", "bfloat16", 2, 256, 8, 4, 128, True, None, False, None),
+    ("bf16 causal d64 g8", "bfloat16", 2, 256, 8, 1, 64, True, None, False, None),
+    ("bf16 causal d128 g1", "bfloat16", 1, 384, 4, 4, 128, True, None, False, None),
+    ("bf16 ragged t40 d64 g2", "bfloat16", 2, 40, 4, 2, 64, True, None, False, None),
+    ("bf16 ragged t96 d128 g1", "bfloat16", 2, 96, 4, 4, 128, True, None, False, None),
+    ("bf16 ragged t200 d128 g8", "bfloat16", 1, 200, 8, 1, 128, True, None, False, None),
+    ("bf16 ragged t200 d64 g1", "bfloat16", 2, 200, 2, 2, 64, True, None, False, None),
+    ("bf16 full t100 s160 d64 g2", "bfloat16", 2, 100, 4, 2, 64, False, None, False, 160),
+    ("bf16 full t100 s160 d128 g8", "bfloat16", 1, 100, 8, 1, 128, False, None, False, 160),
+    ("bf16 segment_ids d128 g2", "bfloat16", 2, 256, 4, 2, 128, True, None, True, None),
+    ("bf16 segment_ids d64 g8 t200", "bfloat16", 1, 200, 8, 1, 64, True, None, True, None),
+    ("bf16 window24 d64 g2", "bfloat16", 2, 192, 8, 2, 64, True, 24, False, None),
+    ("bf16 window24 d128 g8 t300", "bfloat16", 1, 300, 8, 1, 128, True, 24, False, None),
+    ("bf16 segment_ids window24 d128", "bfloat16", 2, 256, 4, 2, 128, True, 24, True, None),
+    ("bf16 dead rows (window -8) d64 g2", "bfloat16", 2, 96, 4, 2, 64, False, -8, False, None),
+    ("bf16 dead rows (window -8) d128 g1", "bfloat16", 2, 200, 4, 4, 128, False, -8, False, None),
 ]
 
 
@@ -221,19 +277,21 @@ def phase_kernels(torch, fa) -> dict:
 
     sl = TRAIN_SHAPES
     train_case = (torch.bfloat16, sl["b"], sl["t"], sl["h"], sl["kh"], sl["d"], True, None, False)
-    check_case(torch, fa, "1b train bf16 peaked", *train_case, qk_scale=2.0)
+    check_case(torch, fa, "1b train bf16 peaked", *train_case, qk_scale=2.0, also_simt=True)
     errs, (q, k, v, do, seg, out_p, lse_p, delta) = check_case(torch, fa, "1b train bf16 causal gqa 16->8",
-                                                               *train_case)
+                                                               *train_case, also_simt=True)
     scale = 1.0 / math.sqrt(sl["d"])
     args = (None, True, scale, None)
     bwd = (q, k, v, do, lse_p, delta, *args)
+    plain_fwd = cuda_ms(torch, lambda: fa.attn_fwd_plain(q, k, v, *args), reps=5)
+    plain_dkv = cuda_ms(torch, lambda: fa.attn_dkv_plain(*bwd), reps=5)
     times = {
-        "K1": (cuda_ms(torch, lambda: fa.attn_fwd_cuda(q, k, v, *args)),
-               cuda_ms(torch, lambda: fa.attn_fwd_plain(q, k, v, *args), reps=5)),
+        "K1 simt": (cuda_ms(torch, lambda: fa.attn_fwd_simt(q, k, v, *args)), plain_fwd),
         "K2": (cuda_ms(torch, lambda: fa.attn_dq_cuda(*bwd)),
                cuda_ms(torch, lambda: fa.attn_dq_plain(*bwd), reps=5)),
-        "K3": (cuda_ms(torch, lambda: fa.attn_dkv_cuda(*bwd)),
-               cuda_ms(torch, lambda: fa.attn_dkv_plain(*bwd), reps=5)),
+        "K3 simt": (cuda_ms(torch, lambda: fa.attn_dkv_simt(*bwd)), plain_dkv),
+        "K1 tc": (cuda_ms(torch, lambda: fa.attn_fwd_tc(q, k, v, *args)), plain_fwd),
+        "K3 tc": (cuda_ms(torch, lambda: fa.attn_dkv_tc(*bwd)), plain_dkv),
     }
     # yardstick only: one PyTorch call for the same attention (never used by the port)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
@@ -257,27 +315,42 @@ def phase_kernels(torch, fa) -> dict:
         # QK^T, dO V^T, P^T dO, dS^T Q
         "K3": (8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes),
     }
+    simt_src, tc_src = "dmlcloud_tpu_torch/csrc/flash_attention.cu", "dmlcloud_tpu_torch/csrc/flash_attention_tc.cu"
+    k1_site = "dmlcloud_tpu/ops/flash_attention.py:149 (_attn_kernel, pallas_call :773)"
+    k3_site = "dmlcloud_tpu/ops/flash_attention.py:276 (_dkv_kernel, pallas_call :883)"
     sources = {
-        "K1": ("flash_fwd", "dmlcloud_tpu/ops/flash_attention.py:149 (_attn_kernel, pallas_call :773)"),
-        "K2": ("flash_bwd_dq", "dmlcloud_tpu/ops/flash_attention.py:229 (_dq_kernel, pallas_call :847)"),
-        "K3": ("flash_bwd_dkv", "dmlcloud_tpu/ops/flash_attention.py:276 (_dkv_kernel, pallas_call :883)"),
+        "K1 simt": ("flash_fwd", simt_src, k1_site),
+        "K2": ("flash_bwd_dq", simt_src, "dmlcloud_tpu/ops/flash_attention.py:229 (_dq_kernel, pallas_call :847)"),
+        "K3 simt": ("flash_bwd_dkv", simt_src, k3_site),
+        "K1 tc": ("flash_fwd_tc", tc_src, k1_site),
+        "K3 tc": ("flash_bwd_dkv_tc", tc_src, k3_site),
     }
-    err_of = {"K1": errs["K1"][0], "K2": errs["K2"][0], "K3": max(errs["K3 dk"][0], errs["K3 dv"][0])}
+
+    def err_of(key):
+        return max(err for name, (err, _) in errs.items() if name.startswith(key) and not name.endswith("lse"))
+
     rows = {}
     for key, (ms, plain_ms) in times.items():
-        flops, nbytes = work[key]
+        flops, nbytes = work[key.split()[0]]
         op_ms, byte_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        name, replaces = sources[key]
+        name, source, replaces = sources[key]
+        library_ms = sdpa_fwd_ms if key.startswith("K1") else sdpa_bwd_ms
         rows[key] = {
-            "name": name, "route": "cuda", "source": "dmlcloud_tpu_torch/csrc/flash_attention.cu",
-            "replaces": replaces, "launches": 0, "max_abs_err": err_of[key],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": err_of(key),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(op_ms, byte_ms),
             "bound_by": "operations" if op_ms >= byte_ms else "bytes",
-            "library_ms": sdpa_fwd_ms if key == "K1" else sdpa_bwd_ms,
+            "library_ms": library_ms,
         }
-        log(f"[kernels] {key} {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound {rows[key]['bound_ms']:.4f} ms "
-            f"by {rows[key]['bound_by']}, {flops / ms / 1e9:.1f} TFLOP/s)")
-    log(f"[kernels] yardstick scaled_dot_product_attention: fwd {sdpa_fwd_ms:.3f} ms, bwd {sdpa_bwd_ms:.3f} ms")
+        extra = ""
+        if key.endswith("tc"):
+            earlier = times[key.replace("tc", "simt")][0]
+            extra = f", {earlier / ms:.1f}x faster than the CUDA-core kernel ({earlier:.3f} ms)"
+        log(f"[kernels] {key} {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {rows[key]['bound_ms']:.4f} ms "
+            f"by {rows[key]['bound_by']}); {flops / ms / 1e9:.1f} TFLOP/s = {rows[key]['bound_ms'] / ms:.1%} of the "
+            f"bound; {ms / library_ms:.2f}x the library's {library_ms:.3f} ms{extra}")
+    log(f"[kernels] yardstick scaled_dot_product_attention: fwd {sdpa_fwd_ms:.3f} ms, bwd {sdpa_bwd_ms:.3f} ms "
+        f"(dQ+dK+dV)")
     return rows
 
 
@@ -315,8 +388,8 @@ def phase_model(torch, fa) -> None:
             want = dot(tokens, segment_ids=seg)
             got = flash(tokens, segment_ids=seg)
         torch.cuda.synchronize()
-        if fa.LAUNCHES["flash_fwd"] != depth:
-            raise AssertionError(f"flash model launched K1 {fa.LAUNCHES['flash_fwd']} times, want {depth}")
+        if fa.LAUNCHES["flash_fwd_tc"] != depth or fa.LAUNCHES["flash_fwd"]:
+            raise AssertionError(f"flash model launched K1 {fa.LAUNCHES}, want flash_fwd_tc {depth} times")
         if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
             raise AssertionError("non-finite logits")
         err = max_err(torch, got, want)
@@ -336,6 +409,12 @@ def phase_model(torch, fa) -> None:
 # ---------------------------------------------------------------------------
 # phase 5: train the 1b model through the port's TrainingPipeline
 # ---------------------------------------------------------------------------
+
+#: the same run on the CUDA-core kernels (H100 80GB HBM3, 700 W): step-1 loss
+#: and peak memory; the tensor-core kernels must reproduce the first and not
+#: raise the second
+PR1_FIRST_LOSS = 10.861
+PR1_PEAK_GIB = 37.43
 
 TRAIN_ARGV = ["--preset", "1b", "--attn", "flash", "--vocab-size", "32000", "--seq-len", "2048",
               "--batch-size", "4", "--n-seqs", "32", "--epochs", "1"]
@@ -362,13 +441,18 @@ def phase_train(torch, fa) -> dict:
         raise AssertionError("non-finite loss")
     if abs(losses[0] - math.log(32000)) > 1.5:
         raise AssertionError(f"first-step loss {losses[0]:.3f} is not within 1.5 of ln(32000) = {math.log(32000):.3f}")
-    need = 24 * steps
-    for name, n in launches.items():
-        if n < need:
-            raise AssertionError(f"kernel {name} launched {n} times on the train path, want >= {need}")
+    # 24 layers: a forward per train step and for the val batch, a backward per train step
+    want = {"flash_fwd_tc": 24 * (steps + 1), "flash_bwd_dq": 24 * steps, "flash_bwd_dkv_tc": 24 * steps,
+            "flash_fwd": 0, "flash_bwd_dkv": 0}
+    if launches != want:
+        raise AssertionError(f"kernel launches on the train path {launches}, want {want}")
+    if abs(losses[0] - PR1_FIRST_LOSS) > 0.01:
+        raise AssertionError(f"first-step loss {losses[0]:.4f} is not within 0.01 of {PR1_FIRST_LOSS}")
     step_ms = float(tracker["misc/train_step_avg_ms"][-1])
     tokens_per_step = 4 * 2048
     peak = torch.cuda.max_memory_allocated()
+    if peak > PR1_PEAK_GIB * 2**30:
+        raise AssertionError(f"peak memory {peak / 2**30:.2f} GiB above the CUDA-core kernels' {PR1_PEAK_GIB} GiB")
     log(f"[train] 7 steps + 1 val batch in {wall:.1f} s wall (model build and data included); "
         f"train step avg {step_ms:.1f} ms = {1e3 / step_ms:.3f} steps/s = {tokens_per_step / step_ms * 1e3:.0f} tokens/s "
         f"(first step included); peak memory {peak / 2**30:.2f} GiB; launches {launches}")
@@ -419,8 +503,9 @@ def phase_steady(torch, stage) -> None:
     if busy_us == 0:
         log("[steady] profiler recorded no device time: breakdown not measured")
         return
-    groups = {"flash_fwd (K1)": "flash_fwd_kernel", "flash_bwd_dq (K2)": "flash_bwd_dq_kernel",
-              "flash_bwd_dkv (K3)": "flash_bwd_dkv_kernel"}
+    groups = {"flash_fwd_tc (K1)": "flash_fwd_tc_kernel", "flash_bwd_dq (K2)": "flash_bwd_dq_kernel",
+              "flash_bwd_dkv_tc (K3)": "flash_bwd_dkv_tc_kernel", "flash_fwd (K1, CUDA cores)": "flash_fwd_kernel",
+              "flash_bwd_dkv (K3, CUDA cores)": "flash_bwd_dkv_kernel"}
     shares = {g: sum(_device_us(e) for e in events if pat in e.key) for g, pat in groups.items()}
     gemm = sum(_device_us(e) for e in events if re.search(r"gemm|xmma|cutlass|nvjet|sm90_", e.key, re.I)
                and not any(p in e.key for p in groups.values()))
@@ -428,7 +513,7 @@ def phase_steady(torch, stage) -> None:
         f"(idle share {max(0.0, 1 - busy_us / wall_us):.3f})")
     for g, us in [*shares.items(), ("matmuls (cuBLAS)", gemm),
                   ("everything else", busy_us - gemm - sum(shares.values()))]:
-        log(f"[steady]   {g:<20} {us / 1e3:8.1f} ms  {us / busy_us:6.1%} of device time")
+        log(f"[steady]   {g:<30} {us / 1e3:8.1f} ms  {us / busy_us:6.1%} of device time")
     top = sorted(events, key=_device_us, reverse=True)[:16]
     for e in top:
         log(f"[steady]   top: {_device_us(e) / 1e3:8.1f} ms  x{e.count:<4} {e.key[:90]}")

@@ -32,7 +32,9 @@
 //     grid is walked heaviest tile first so the last wave is short;
 //   - K3 owns one (batch, KV head, K tile) and loops over the group's query heads,
 //     so the GQA sum happens in registers and dk/dv are written once, in place.
-// Tensor cores (wgmma), TMA and warp specialisation are later work.
+// For bf16 operands with head dim 64 or 128, the forward and dK/dV run on the
+// tensor cores instead (flash_attention_tc.cu: wgmma, TMA, warp
+// specialisation); these kernels take fp32, the other head dims, and dQ.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,15 +1,25 @@
-"""Flash attention for the port: three hand-written CUDA kernels and their plain versions.
+"""Flash attention for the port: hand-written CUDA kernels and their plain versions.
 
 Counterpart of ``dmlcloud_tpu/ops/flash_attention.py``. The three Pallas TPU
-kernels there (``_attn_kernel``, ``_dq_kernel``, ``_dkv_kernel``) become the
-CUDA C++ kernels of ``csrc/flash_attention.cu``, built with ``nvcc`` for
-``sm_90a`` at first use and bound with ``ctypes`` (no PyTorch headers, so the
-build takes seconds). Each kernel has:
+kernels there (``_attn_kernel``, ``_dq_kernel``, ``_dkv_kernel``) become CUDA
+C++ kernels for ``sm_90a``, built with ``nvcc`` at first use (one ``nvcc`` per
+source, started together) and bound with ``ctypes`` (no PyTorch headers, so
+the build takes seconds):
 
-- a wrapper (``attn_fwd_cuda``, ``attn_dq_cuda``, ``attn_dkv_cuda``) that
-  checks its inputs, allocates the outputs with ``torch.empty``, launches on
-  the current stream, raises if the launch failed, and adds one to its entry
-  in ``LAUNCHES``;
+- ``csrc/flash_attention_tc.cu``: forward and dK/dV on the bf16 tensor cores
+  (``wgmma``, TMA), for bf16 operands with head dim 64 or 128;
+- ``csrc/flash_attention.cu``: forward, dQ and dK/dV on the CUDA cores in
+  fp32 arithmetic, for every other supported case, and dQ always.
+
+``kernel_route(dtype, head_dim)`` makes that choice and nothing else does;
+a kernel that fails to build or launch raises, nothing retries on the other.
+Each kernel has:
+
+- a wrapper (``attn_fwd_tc``/``attn_fwd_simt``, ``attn_dq_cuda``,
+  ``attn_dkv_tc``/``attn_dkv_simt``; ``attn_fwd_cuda`` and ``attn_dkv_cuda``
+  route between the pairs) that checks its inputs, allocates the outputs with
+  ``torch.empty``, launches on the current stream, raises if the launch
+  failed, and adds one to its entry in ``LAUNCHES``;
 - a plain PyTorch version of the same function (``attn_fwd_plain``,
   ``attn_dq_plain``, ``attn_dkv_plain``): the port of the reference's
   blockwise-XLA twin ``_xla_fwd``/``_xla_bwd``, with the same masks, GQA
@@ -53,18 +63,23 @@ DEAD_LSE = NEG_INF + math.log(1e-30)
 PLAIN_BLOCK_Q = 128
 MAX_HEAD_DIM = 128
 
-#: launches of each kernel since the last ``reset_launch_counts()``
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+#: head dims the tensor-core kernels take (bf16 only)
+TC_HEAD_DIMS = (64, 128)
+
+#: launches of each kernel since the last ``reset_launch_counts()``:
+#: the CUDA-core K1, K2, K3 and the tensor-core K1, K3
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_fwd_tc": 0, "flash_bwd_dkv_tc": 0}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCE = _CSRC / "flash_attention.cu"
+#: library name -> source; each is one nvcc call
+_SOURCES = {"simt": _CSRC / "flash_attention.cu", "tc": _CSRC / "flash_attention_tc.cu"}
 _BUILD_DIR = _CSRC / "build"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
+_libs: dict = {}
 _lib_lock = threading.Lock()
 #: what the last build printed (nvcc's ``-Xptxas -v`` register/smem report)
 build_log = ""
@@ -89,40 +104,67 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> Path:
-    """Compile ``csrc/flash_attention.cu`` into ``csrc/build/`` (once per source
-    version) and return the library path."""
+def _lib_path(src: Path) -> Path:
+    """Where the library of ``src`` goes; named by a hash of the source and the flags."""
+    tag = hashlib.sha256(src.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    return _BUILD_DIR / f"libdml_{src.stem}-{tag}.so"
+
+
+def build() -> dict[str, Path]:
+    """Compile each source of ``_SOURCES`` into ``csrc/build/`` (once per source
+    version), all nvcc calls started together, and return the library paths."""
     global build_log
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"libdml_flash_attention-{tag}.so"
-    if lib_path.is_file():
-        return lib_path
+    paths = {name: _lib_path(src) for name, src in _SOURCES.items()}
+    todo = {name: path for name, path in paths.items() if not path.is_file()}
+    if not todo:
+        return paths
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, lib_path)
-    return lib_path
+    nvcc = _nvcc()
+    procs = {}
+    for name, path in todo.items():
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCES[name])]
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs.append(f"== {_SOURCES[name].name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{_SOURCES[name].name} ({proc.returncode})")
+        else:
+            os.replace(tmp, todo[name])
+    build_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{build_log}")
+    return paths
 
 
-def _load():
-    global _lib
+def _load() -> dict:
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+        if not _libs:
+            paths = build()
+            simt, tc = ctypes.CDLL(str(paths["simt"])), ctypes.CDLL(str(paths["tc"]))
             vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             shape = [i] * 6 + [f, i, i, i, vp]  # B T S H KH D, scale, causal, has_window, window, stream
-            lib.dml_flash_fwd.argtypes = [i, vp, vp, vp, vp, vp, vp, *shape]
-            lib.dml_flash_bwd_dq.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, *shape]
-            lib.dml_flash_bwd_dkv.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, vp, *shape]
-            for fn in (lib.dml_flash_fwd, lib.dml_flash_bwd_dq, lib.dml_flash_bwd_dkv):
+            simt.dml_flash_fwd.argtypes = [i, vp, vp, vp, vp, vp, vp, *shape]
+            simt.dml_flash_bwd_dq.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, *shape]
+            simt.dml_flash_bwd_dkv.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, vp, *shape]
+            tc.dml_flash_fwd_tc.argtypes = [vp, vp, vp, vp, vp, vp, *shape]
+            tc.dml_flash_bwd_dkv_tc.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, *shape]
+            for fn in (simt.dml_flash_fwd, simt.dml_flash_bwd_dq, simt.dml_flash_bwd_dkv,
+                       tc.dml_flash_fwd_tc, tc.dml_flash_bwd_dkv_tc):
                 fn.restype = i
-            _lib = lib
-    return _lib
+            _libs.update(simt=simt, tc=tc)
+    return _libs
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernels take K1 and K3 on the card: ``"tc"`` (the bf16 tensor-core
+    kernels) for bf16 with head dim 64 or 128, else ``"simt"`` (the CUDA-core
+    kernels). K2 always runs on the CUDA cores."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash kernels take float32 or bfloat16, got {dtype}")
+    return "tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS else "simt"
 
 
 def _ptr(t: torch.Tensor | None):
@@ -185,10 +227,20 @@ def _raise_on(err: int, name: str):
 # kernel wrappers (CUDA tensors only)
 # ---------------------------------------------------------------------------
 
-def attn_fwd_cuda(q, k, v, seg, causal: bool, scale: float, window: int | None):
-    """K1 (``_attn_kernel``): ``(out [B,T,H,D], lse [B*H,T] fp32)``."""
+def _check_tc(q, *more):
+    """The tensor-core kernels read bf16 operands with head dim 64 or 128 through
+    TMA, which needs 16-byte-aligned base addresses."""
+    if kernel_route(q.dtype, q.shape[-1]) != "tc":
+        raise ValueError(f"tensor-core kernels take bf16 with head dim in {TC_HEAD_DIMS}, "
+                         f"got {q.dtype} with head dim {q.shape[-1]}")
+    if any(x.data_ptr() % 16 for x in (q, *more)):
+        raise ValueError("tensor-core kernels need 16-byte-aligned operands")
+
+
+def attn_fwd_simt(q, k, v, seg, causal: bool, scale: float, window: int | None):
+    """K1 (``_attn_kernel``) on the CUDA cores: ``(out [B,T,H,D], lse [B*H,T] fp32)``."""
     dims = _check_cuda(q, k, v, seg)
-    lib = _load()
+    lib = _load()["simt"]
     b, t, _, h, _, _ = dims
     out = torch.empty_like(q)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
@@ -201,11 +253,33 @@ def attn_fwd_cuda(q, k, v, seg, causal: bool, scale: float, window: int | None):
     return out, lse
 
 
+def attn_fwd_tc(q, k, v, seg, causal: bool, scale: float, window: int | None):
+    """K1 (``_attn_kernel``) on the bf16 tensor cores: ``(out [B,T,H,D], lse [B*H,T] fp32)``."""
+    dims = _check_cuda(q, k, v, seg)
+    _check_tc(q, k, v)
+    lib = _load()["tc"]
+    b, t, _, h, _, _ = dims
+    out = torch.empty_like(q)
+    lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+    err = lib.dml_flash_fwd_tc(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(seg), _ptr(out), _ptr(lse), *_shape_args(dims, scale, causal, window, q.device),
+    )
+    _raise_on(err, "flash_fwd_tc")
+    LAUNCHES["flash_fwd_tc"] += 1
+    return out, lse
+
+
+def attn_fwd_cuda(q, k, v, seg, causal: bool, scale: float, window: int | None):
+    """K1 on the card, by ``kernel_route``."""
+    fwd = attn_fwd_tc if kernel_route(q.dtype, q.shape[-1]) == "tc" else attn_fwd_simt
+    return fwd(q, k, v, seg, causal, scale, window)
+
+
 def attn_dq_cuda(q, k, v, do, lse, delta, seg, causal: bool, scale: float, window: int | None):
     """K2 (``_dq_kernel``): dq ``[B,T,H,D]`` from the saved lse and ``delta``."""
     dims = _check_cuda(q, k, v, seg, do, lse, delta)
     _check_bwd(q, do, lse, delta)
-    lib = _load()
+    lib = _load()["simt"]
     dq = torch.empty_like(q)
     err = lib.dml_flash_bwd_dq(
         _DTYPE_CODES[q.dtype], _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(seg),
@@ -216,11 +290,11 @@ def attn_dq_cuda(q, k, v, do, lse, delta, seg, causal: bool, scale: float, windo
     return dq
 
 
-def attn_dkv_cuda(q, k, v, do, lse, delta, seg, causal: bool, scale: float, window: int | None):
-    """K3 (``_dkv_kernel``): ``(dk, dv)`` ``[B,S,KH,D]``, GQA-summed in the kernel."""
+def attn_dkv_simt(q, k, v, do, lse, delta, seg, causal: bool, scale: float, window: int | None):
+    """K3 (``_dkv_kernel``) on the CUDA cores: ``(dk, dv)`` ``[B,S,KH,D]``, GQA-summed in the kernel."""
     dims = _check_cuda(q, k, v, seg, do, lse, delta)
     _check_bwd(q, do, lse, delta)
-    lib = _load()
+    lib = _load()["simt"]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     err = lib.dml_flash_bwd_dkv(
@@ -230,6 +304,29 @@ def attn_dkv_cuda(q, k, v, do, lse, delta, seg, causal: bool, scale: float, wind
     _raise_on(err, "flash_bwd_dkv")
     LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv
+
+
+def attn_dkv_tc(q, k, v, do, lse, delta, seg, causal: bool, scale: float, window: int | None):
+    """K3 (``_dkv_kernel``) on the bf16 tensor cores: ``(dk, dv)`` ``[B,S,KH,D]``, GQA-summed in the kernel."""
+    dims = _check_cuda(q, k, v, seg, do, lse, delta)
+    _check_bwd(q, do, lse, delta)
+    _check_tc(q, k, v, do)
+    lib = _load()["tc"]
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    err = lib.dml_flash_bwd_dkv_tc(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(seg), _ptr(dk), _ptr(dv),
+        *_shape_args(dims, scale, causal, window, q.device),
+    )
+    _raise_on(err, "flash_bwd_dkv_tc")
+    LAUNCHES["flash_bwd_dkv_tc"] += 1
+    return dk, dv
+
+
+def attn_dkv_cuda(q, k, v, do, lse, delta, seg, causal: bool, scale: float, window: int | None):
+    """K3 on the card, by ``kernel_route``."""
+    dkv = attn_dkv_tc if kernel_route(q.dtype, q.shape[-1]) == "tc" else attn_dkv_simt
+    return dkv(q, k, v, do, lse, delta, seg, causal, scale, window)
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +390,7 @@ def attn_fwd_plain(q, k, v, seg, causal: bool, scale: float, window: int | None)
         o = torch.einsum("bkgts,bskd->btkgd", _rounded(p / l_safe[..., None], v.dtype), vf[:, lo:hi])
         out[:, q0 : q0 + bq] = o.reshape(b, bq, h, d).to(q.dtype)
         lse[:, q0 : q0 + bq] = (m + torch.log(l_safe)).permute(0, 3, 1, 2).reshape(b, bq, h)
-    return out, lse.permute(0, 2, 1).reshape(b * h, t)
+    return out, lse.permute(0, 2, 1).reshape(b * h, t).contiguous()
 
 
 def _bwd_plain(q, k, v, do, lse, delta, seg, causal, scale, window, want_dq=True, want_dkv=True):

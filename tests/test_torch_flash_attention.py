@@ -174,8 +174,37 @@ def test_cpu_tensors_take_the_plain_versions_and_cuda_wrappers_refuse_them():
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
     fa.reset_launch_counts()
     fa.flash_attention(tq, tk, tv)
-    assert fa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert set(fa.LAUNCHES) == {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_tc", "flash_bwd_dkv_tc"}
+    assert all(n == 0 for n in fa.LAUNCHES.values())
     with pytest.raises(ValueError, match="CUDA"):
         fa.attn_fwd_cuda(tq, tk, tv, None, True, 0.35, None)
     with pytest.raises(RuntimeError, match="no path"):
         fa.attn_fwd(tq.to("meta"), tk.to("meta"), tv.to("meta"), None, True, 0.35, None)
+
+
+@pytest.mark.parametrize("wrapper", ["attn_fwd_tc", "attn_fwd_cuda", "attn_dkv_tc", "attn_dkv_cuda"])
+def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
+    """The tensor-core wrappers, and the routers on their route, launch a kernel or raise."""
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in _arrays(t=16, h=2, d=64))
+    assert fa.kernel_route(q.dtype, q.shape[-1]) == "tc"
+    stats = () if "fwd" in wrapper else (do, torch.zeros(4, 16), torch.zeros(4, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(fa, wrapper)(q, k, v, *stats, None, True, 0.125, None)
+
+
+@pytest.mark.parametrize(
+    "dtype,head_dim,route",
+    [(torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"), (torch.bfloat16, 16, "simt"),
+     (torch.bfloat16, 32, "simt"), (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+     (torch.float32, 16, "simt")],
+    ids=lambda x: str(x).replace("torch.", ""),
+)
+def test_kernel_route(dtype, head_dim, route):
+    """bf16 with head dim 64/128 goes to the tensor-core kernels, the rest to the CUDA-core ones."""
+    assert fa.kernel_route(dtype, head_dim) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int32], ids=str)
+def test_kernel_route_refuses_unsupported_dtypes(dtype):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.kernel_route(dtype, 64)
