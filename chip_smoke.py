@@ -10,11 +10,11 @@ Phases, each fatal on failure:
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: the flash-attention kernels (``csrc/flash_attention.cu``, the
    CUDA-core K1-K3, and ``csrc/flash_attention_tc.cu``, the bf16 tensor-core
-   K1 and K3), one nvcc per source in parallel; the tensor-core kernels must
-   not spill;
+   K1-K3), one nvcc per source in parallel; every tensor-core kernel must be
+   built and must not spill;
 3. kernels: K1 (forward), K2 (dQ) and K3 (dK/dV), on the path
    ``kernel_route`` picks, each held against its plain PyTorch version on the
-   card, at the training shapes (there also the CUDA-core K1 and K3) and at
+   card, at the training shapes (there also the CUDA-core K1-K3) and at
    small variants, and timed beside the plain version and
    ``scaled_dot_product_attention``;
 4. model: the full-width 1b ``DecoderLM`` forward with the flash kernels
@@ -23,7 +23,7 @@ Phases, each fatal on failure:
 5. train: ``dmlcloud_tpu_torch.examples.train_lm.main`` trains the 1b model for
    7 steps and validates on 1 batch through the port's ``TrainingPipeline``;
    every kernel's launch count is read around this run, the main path, and
-   must show the tensor-core K1 and K3 and no CUDA-core K1 or K3;
+   must show the tensor-core K1-K3 and no CUDA-core kernel;
 6. steady: three more synchronised train steps, and one under
    ``torch.profiler`` for the split of the step's device time.
 
@@ -95,6 +95,8 @@ def rel_err(torch, got, want) -> float:
 def assert_close(torch, got, want, dtype_name: str, what: str) -> tuple[float, float]:
     """Hold ``got`` to ``want`` within TOL elementwise and REL_TOL in norm;
     returns (max abs err, norm-relative err)."""
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: kernel output is not finite")
     err, rel = max_err(torch, got, want), rel_err(torch, got, want)
     tol = TOL[dtype_name]
     if not torch.allclose(got.float(), want.float(), atol=tol["atol"], rtol=tol["rtol"]):
@@ -115,7 +117,7 @@ def phase_device(torch) -> dict:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    log(f"[device] {name}; torch {torch.__version__}; CUDA {torch.version.cuda}; "
+    log(f"[device] {name} ({smi}); torch {torch.__version__}; CUDA {torch.version.cuda}; "
         f"python {sys.version.split()[0]}")
     # full fp32 matmuls for every comparison below
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -141,6 +143,11 @@ def ptxas_report(build_log: str) -> dict[str, tuple[int, int]]:
     return report
 
 
+#: every tensor-core kernel instance the build must produce (head dim 64 and 128)
+TC_KERNELS = [f"{name}ILi{d}E" for name in ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+                                             "flash_bwd_dkv_tc_kernel") for d in (64, 128)]
+
+
 def phase_build(fa) -> None:
     t0 = time.perf_counter()
     paths = fa.build()
@@ -156,6 +163,9 @@ def phase_build(fa) -> None:
             log(f"[build] ptxas, tensor-core kernel {entry}: {regs} registers, {spill} bytes spilled")
             if spill:
                 raise AssertionError(f"{entry} spills {spill} bytes")
+    missing = [k for k in TC_KERNELS if not any(k in entry for entry in report)]
+    if missing:
+        raise AssertionError(f"ptxas reported no tensor-core kernel {missing}")
     for line in fa.build_log.splitlines():
         if "wgmma" in line or "warning" in line.lower():
             log(f"[build] nvcc: {line.strip()}")
@@ -193,7 +203,7 @@ def _segments(torch, b, t, seed=1):
 def check_case(torch, fa, name, dtype, b, t, h, kh, d, causal, window, with_seg, s=None, qk_scale=0.5,
                also_simt=False):
     """K1, K2 and K3 (the kernels ``kernel_route`` picks) against their plain
-    versions on one set of inputs; with ``also_simt`` the CUDA-core K1 and K3
+    versions on one set of inputs; with ``also_simt`` the CUDA-core K1-K3
     too. Returns the errors (max abs, norm-relative) by kernel and the inputs."""
     q, k, v, do = _inputs(torch, dtype, b, t, h, kh, d, s=s, qk_scale=qk_scale)
     seg = _segments(torch, b, t) if with_seg else None
@@ -202,9 +212,10 @@ def check_case(torch, fa, name, dtype, b, t, h, kh, d, causal, window, with_seg,
     args = (seg, causal, scale, window)
     route = fa.kernel_route(dtype, d)
     fwds = {route: fa.attn_fwd_tc if route == "tc" else fa.attn_fwd_simt}
+    dqs = {route: fa.attn_dq_tc if route == "tc" else fa.attn_dq_simt}
     dkvs = {route: fa.attn_dkv_tc if route == "tc" else fa.attn_dkv_simt}
     if also_simt:
-        fwds["simt"], dkvs["simt"] = fa.attn_fwd_simt, fa.attn_dkv_simt
+        fwds["simt"], dqs["simt"], dkvs["simt"] = fa.attn_fwd_simt, fa.attn_dq_simt, fa.attn_dkv_simt
 
     out_p, lse_p = fa.attn_fwd_plain(q, k, v, *args)
     # the backward kernels take the same saved statistics as their plain versions
@@ -219,9 +230,10 @@ def check_case(torch, fa, name, dtype, b, t, h, kh, d, causal, window, with_seg,
         errs[f"K1 {kind}"] = assert_close(torch, out, out_p, dname, f"{name} K1 {kind} out")
         # both sides take lse in fp32 from the same operands, whatever their dtype
         errs[f"K1 {kind} lse"] = assert_close(torch, lse, lse_p, "float32", f"{name} K1 {kind} lse")
-    dq = fa.attn_dq_cuda(*bwd)
-    torch.cuda.synchronize()
-    errs["K2"] = assert_close(torch, dq, dq_p, dname, f"{name} K2 dq")
+    for kind, dq_fn in dqs.items():
+        dq = dq_fn(*bwd)
+        torch.cuda.synchronize()
+        errs[f"K2 {kind}"] = assert_close(torch, dq, dq_p, dname, f"{name} K2 {kind} dq")
     for kind, dkv in dkvs.items():
         dk, dv = dkv(*bwd)
         torch.cuda.synchronize()
@@ -284,13 +296,14 @@ def phase_kernels(torch, fa) -> dict:
     args = (None, True, scale, None)
     bwd = (q, k, v, do, lse_p, delta, *args)
     plain_fwd = cuda_ms(torch, lambda: fa.attn_fwd_plain(q, k, v, *args), reps=5)
+    plain_dq = cuda_ms(torch, lambda: fa.attn_dq_plain(*bwd), reps=5)
     plain_dkv = cuda_ms(torch, lambda: fa.attn_dkv_plain(*bwd), reps=5)
     times = {
         "K1 simt": (cuda_ms(torch, lambda: fa.attn_fwd_simt(q, k, v, *args)), plain_fwd),
-        "K2": (cuda_ms(torch, lambda: fa.attn_dq_cuda(*bwd)),
-               cuda_ms(torch, lambda: fa.attn_dq_plain(*bwd), reps=5)),
+        "K2 simt": (cuda_ms(torch, lambda: fa.attn_dq_simt(*bwd)), plain_dq),
         "K3 simt": (cuda_ms(torch, lambda: fa.attn_dkv_simt(*bwd)), plain_dkv),
         "K1 tc": (cuda_ms(torch, lambda: fa.attn_fwd_tc(q, k, v, *args)), plain_fwd),
+        "K2 tc": (cuda_ms(torch, lambda: fa.attn_dq_tc(*bwd)), plain_dq),
         "K3 tc": (cuda_ms(torch, lambda: fa.attn_dkv_tc(*bwd)), plain_dkv),
     }
     # yardstick only: one PyTorch call for the same attention (never used by the port)
@@ -317,12 +330,14 @@ def phase_kernels(torch, fa) -> dict:
     }
     simt_src, tc_src = "dmlcloud_tpu_torch/csrc/flash_attention.cu", "dmlcloud_tpu_torch/csrc/flash_attention_tc.cu"
     k1_site = "dmlcloud_tpu/ops/flash_attention.py:149 (_attn_kernel, pallas_call :773)"
+    k2_site = "dmlcloud_tpu/ops/flash_attention.py:229 (_dq_kernel, pallas_call :847)"
     k3_site = "dmlcloud_tpu/ops/flash_attention.py:276 (_dkv_kernel, pallas_call :883)"
     sources = {
         "K1 simt": ("flash_fwd", simt_src, k1_site),
-        "K2": ("flash_bwd_dq", simt_src, "dmlcloud_tpu/ops/flash_attention.py:229 (_dq_kernel, pallas_call :847)"),
+        "K2 simt": ("flash_bwd_dq", simt_src, k2_site),
         "K3 simt": ("flash_bwd_dkv", simt_src, k3_site),
         "K1 tc": ("flash_fwd_tc", tc_src, k1_site),
+        "K2 tc": ("flash_bwd_dq_tc", tc_src, k2_site),
         "K3 tc": ("flash_bwd_dkv_tc", tc_src, k3_site),
     }
 
@@ -345,12 +360,16 @@ def phase_kernels(torch, fa) -> dict:
         extra = ""
         if key.endswith("tc"):
             earlier = times[key.replace("tc", "simt")][0]
-            extra = f", {earlier / ms:.1f}x faster than the CUDA-core kernel ({earlier:.3f} ms)"
+            extra = (f", {earlier / ms:.1f}x faster than the CUDA-core kernel ({earlier:.3f} ms), "
+                     f"{ms / (2 * rows[key]['bound_ms']):.2f}x twice the bound")
         log(f"[kernels] {key} {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {rows[key]['bound_ms']:.4f} ms "
             f"by {rows[key]['bound_by']}); {flops / ms / 1e9:.1f} TFLOP/s = {rows[key]['bound_ms'] / ms:.1%} of the "
             f"bound; {ms / library_ms:.2f}x the library's {library_ms:.3f} ms{extra}")
     log(f"[kernels] yardstick scaled_dot_product_attention: fwd {sdpa_fwd_ms:.3f} ms, bwd {sdpa_bwd_ms:.3f} ms "
         f"(dQ+dK+dV)")
+    bwd_tc = times["K2 tc"][0] + times["K3 tc"][0]
+    log(f"[kernels] backward on the tensor cores, K2 tc + K3 tc: {bwd_tc:.4f} ms = {bwd_tc / sdpa_bwd_ms:.2f}x the "
+        f"library's whole backward ({sdpa_bwd_ms:.3f} ms, same run)")
     return rows
 
 
@@ -442,8 +461,8 @@ def phase_train(torch, fa) -> dict:
     if abs(losses[0] - math.log(32000)) > 1.5:
         raise AssertionError(f"first-step loss {losses[0]:.3f} is not within 1.5 of ln(32000) = {math.log(32000):.3f}")
     # 24 layers: a forward per train step and for the val batch, a backward per train step
-    want = {"flash_fwd_tc": 24 * (steps + 1), "flash_bwd_dq": 24 * steps, "flash_bwd_dkv_tc": 24 * steps,
-            "flash_fwd": 0, "flash_bwd_dkv": 0}
+    want = {"flash_fwd_tc": 24 * (steps + 1), "flash_bwd_dq_tc": 24 * steps, "flash_bwd_dkv_tc": 24 * steps,
+            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     if launches != want:
         raise AssertionError(f"kernel launches on the train path {launches}, want {want}")
     if abs(losses[0] - PR1_FIRST_LOSS) > 0.01:
@@ -503,8 +522,9 @@ def phase_steady(torch, stage) -> None:
     if busy_us == 0:
         log("[steady] profiler recorded no device time: breakdown not measured")
         return
-    groups = {"flash_fwd_tc (K1)": "flash_fwd_tc_kernel", "flash_bwd_dq (K2)": "flash_bwd_dq_kernel",
+    groups = {"flash_fwd_tc (K1)": "flash_fwd_tc_kernel", "flash_bwd_dq_tc (K2)": "flash_bwd_dq_tc_kernel",
               "flash_bwd_dkv_tc (K3)": "flash_bwd_dkv_tc_kernel", "flash_fwd (K1, CUDA cores)": "flash_fwd_kernel",
+              "flash_bwd_dq (K2, CUDA cores)": "flash_bwd_dq_kernel",
               "flash_bwd_dkv (K3, CUDA cores)": "flash_bwd_dkv_kernel"}
     shares = {g: sum(_device_us(e) for e in events if pat in e.key) for g, pat in groups.items()}
     gemm = sum(_device_us(e) for e in events if re.search(r"gemm|xmma|cutlass|nvjet|sm90_", e.key, re.I)

@@ -32,9 +32,9 @@
 //     grid is walked heaviest tile first so the last wave is short;
 //   - K3 owns one (batch, KV head, K tile) and loops over the group's query heads,
 //     so the GQA sum happens in registers and dk/dv are written once, in place.
-// For bf16 operands with head dim 64 or 128, the forward and dK/dV run on the
-// tensor cores instead (flash_attention_tc.cu: wgmma, TMA, warp
-// specialisation); these kernels take fp32, the other head dims, and dQ.
+// For bf16 operands with head dim 64 or 128, all three run on the tensor cores
+// instead (flash_attention_tc.cu: wgmma, TMA, warp specialisation); these
+// kernels take fp32 and the other head dims.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -296,6 +296,8 @@ __global__ void __launch_bounds__(128) flash_fwd_kernel(Params p) {
 // recomputes p = exp(s - lse) from the saved statistics (never a forward
 // replay), takes delta = rowsum(dO * O) precomputed outside like the
 // reference, keeps dq in registers across the K/V loop and writes it once.
+// It takes fp32, and bf16 with head dim 16 or 32; bf16 with head dim 64 or
+// 128 goes to flash_bwd_dq_tc_kernel (flash_attention_tc.cu).
 // ---------------------------------------------------------------------------
 template <typename T, int D_PAD>
 __global__ void __launch_bounds__(128) flash_bwd_dq_kernel(Params p) {

@@ -1,9 +1,10 @@
-// Flash attention on Hopper's bf16 tensor cores (sm_90a): forward and dK/dV.
+// Flash attention on Hopper's bf16 tensor cores (sm_90a): forward, dQ and dK/dV.
 //
-// Replaces two Pallas TPU kernels of dmlcloud_tpu/ops/flash_attention.py for
-// bf16 operands with head dim 64 or 128 (flash_attention.cu keeps fp32 and the
-// other head dims, and the dQ kernel):
+// Replaces the three Pallas TPU kernels of dmlcloud_tpu/ops/flash_attention.py
+// for bf16 operands with head dim 64 or 128 (flash_attention.cu keeps fp32 and
+// the other head dims):
 //   flash_fwd_tc_kernel     <- _attn_kernel (:149, pallas_call :773 in _flash_fwd_impl)
+//   flash_bwd_dq_tc_kernel  <- _dq_kernel   (:229, pallas_call :847 in _flash_bwd_impl)
 //   flash_bwd_dkv_tc_kernel <- _dkv_kernel  (:276, pallas_call :883 in _flash_bwd_impl)
 //
 // The contract is flash_attention.cu's, unchanged: q [B, T, H, D], k/v
@@ -15,7 +16,8 @@
 // over the GQA group in the kernel and written once in [B, S, KH, D]. The
 // reference's rounding points stay where the tensor cores take their operands:
 // p is rounded to bf16 for P.V with l summed from the unrounded p (:197-206);
-// p and ds are rounded to bf16 for P^T.dO and dS^T.Q (:310-318).
+// ds is rounded to bf16 for dS.K (:264); p and ds are rounded to bf16 for
+// P^T.dO and dS^T.Q (:310-318).
 //
 // What bounds them on the H100: at the training shapes (T = S = 2048, D = 128,
 // causal) attention does ~4*D FLOPs per unmasked pair and product pair against
@@ -27,33 +29,40 @@
 //     memory (K [kv, d] is already the K-major B operand); O += P.V with P as
 //     the register A operand, converted to bf16 in place from the S
 //     accumulator (the accumulator and A-fragment layouts coincide), and V the
-//     MN-major B operand read through wgmma's transpose bit. K3 works with keys
-//     as rows: S^T = K.Q^T and dP^T = V.dO^T from shared memory, P^T recomputed
-//     from lse (broadcast along the columns), then dV += P^T.dO and
-//     dK += dS^T.Q with P^T and dS^T as register A operands;
+//     MN-major B operand read through wgmma's transpose bit. K2 takes K1's
+//     products: S = Q.K^T and dP = dO.V^T from shared memory, p recomputed
+//     from lse, then dQ += dS.K with dS as the register A operand and the same
+//     K tile as the MN-major B operand. K3 works with keys as rows:
+//     S^T = K.Q^T and dP^T = V.dO^T from shared memory, P^T recomputed from
+//     lse (broadcast along the columns), then dV += P^T.dO and dK += dS^T.Q
+//     with P^T and dS^T as register A operands;
 //   - warp specialisation: a block is two consumer warpgroups and a producer
 //     warp; the producer gives its registers up (setmaxnreg 24) so that the
 //     consumers can hold their accumulators (setmaxnreg 240) without spilling;
 //   - tiles arrive by TMA (cp.async.bulk.tensor, 4-D maps over [B, rows,
 //     heads, D], so rows past T or S are zero-filled by the hardware) into
-//     two-stage rings with full/empty mbarriers: the next K and V tiles (K1)
-//     or Q/dO tile (K3) load while the current one is multiplied, and K1
-//     releases a K stage as soon as S is computed, a V stage when P.V is.
-//     Shared-memory tiles use the 128-byte swizzle that TMA writes and wgmma
+//     rings with full/empty mbarriers (two stages; three for K2's smaller
+//     tiles): the next K and V tiles (K1, K2) or Q/dO tile (K3) load while the
+//     current one is multiplied; K1 releases a K stage as soon as S is
+//     computed, a V stage when P.V is, and K2 a V stage when dP is, a K stage
+//     when dS.K is. Shared-memory tiles use the 128-byte swizzle that TMA writes and wgmma
 //     reads without bank conflicts (a D = 128 tile is two 64-column halves);
 //   - K1 overlaps its softmax with the tensor cores twice: within a
 //     warpgroup, S of tile j and P.V of tile j - 1 are issued together and
 //     the softmax of tile j runs under the P.V product; between the two
-//     warpgroups, named barriers make them take turns issuing (ping-pong);
+//     warpgroups, named barriers make them take turns issuing (ping-pong).
+//     K2 overlaps the same way within a warpgroup (S and dP of tile j with
+//     dS.K of tile j - 1), and its two warpgroups without turns;
 //   - the causal / window / segment / ragged-edge mask is applied only on tiles
 //     that it cuts, as a column range per row (and a segment-id compare on
 //     packed rows, the ids staged in shared memory by the producer); tiles
 //     wholly outside are skipped by the loop bounds, and the tile index is the
 //     slow grid axis, walked so that the heaviest causal tiles start first;
 //   - tile sizes: K1 takes 128 query rows per block (64 per consumer
-//     warpgroup) and 128-key tiles; K3 takes 128 keys per block (64 per
-//     warpgroup), loops over the group's query heads and the reachable 64-row
-//     query tiles, and keeps dK and dV (2 x 64 x D fp32 per warpgroup) in
+//     warpgroup) and 128-key tiles; K2 the same rows and 64-key tiles, so that
+//     dQ (64 x D fp32 per warpgroup), S, dP and the dS fragments fit in 240
+//     registers; K3 takes 128 keys per block (64 per warpgroup), loops over
+//     the group's query heads and the reachable 64-row query tiles, and keeps dK and dV (2 x 64 x D fp32 per warpgroup) in
 //     registers.
 
 #include <cuda.h>
@@ -74,7 +83,7 @@ struct Params {
   const float* lse;   // backward input
   const float* delta; // backward input
   const int* seg;     // [B, T] or null
-  void* out;          // forward: out; dkv kernel: dk
+  void* out;          // forward: out; dq kernel: dq; dkv kernel: dk
   void* out2;         // dkv kernel: dv
   float* lse_out;     // forward: lse or null
   int B, T, S, H, KH, D;
@@ -260,6 +269,35 @@ __device__ __forceinline__ void acc_to_a(const float (&acc)[KS * 8], uint32_t (&
     for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(acc[8 * kk + 2 * r], acc[8 * kk + 2 * r + 1]);
 }
 
+// The K and V rings of K1 and K2, filled by the producer warp: K tile j of
+// [lo, lo + n) (BN keys, D = 64 NH columns, with the keys' segment ids) into
+// stage j % NS on k_full, the V tile on v_full, each stage refilled once both
+// consumer warpgroups have released it.
+template <int BN, int NS, int NH>
+__device__ __forceinline__ void produce_kv(const CUtensorMap* tk, const CUtensorMap* tv, const Params& p,
+                                           uint8_t* sK, uint8_t* sV, int* sSeg, uint64_t* k_full,
+                                           uint64_t* k_empty, uint64_t* v_full, uint64_t* v_empty, int b, int kh,
+                                           int lo, int n, int lane) {
+  constexpr uint32_t KV_BYTES = BN * NH * 64 * 2;
+  for (int j = 0; j < n; ++j) {
+    const int s = j % NS, k0 = (lo + j) * BN;
+    if (j >= NS) mbar_wait(&k_empty[s], (j / NS - 1) & 1);
+    if (p.seg)
+      for (int c = lane; c < BN; c += 32) sSeg[s * BN + c] = seg_at(p, b, k0 + c, p.S);
+    if (lane == 0) {
+      mbar_expect_tx(&k_full[s], KV_BYTES);
+#pragma unroll
+      for (int c = 0; c < NH; ++c) tma_load(sK + s * KV_BYTES + c * BN * 128, tk, &k_full[s], c * 64, kh, k0, b);
+      if (j >= NS) mbar_wait(&v_empty[s], (j / NS - 1) & 1);
+      mbar_expect_tx(&v_full[s], KV_BYTES);
+#pragma unroll
+      for (int c = 0; c < NH; ++c) tma_load(sV + s * KV_BYTES + c * BN * 128, tv, &v_full[s], c * 64, kh, k0, b);
+    } else {
+      mbar_arrive(&k_full[s]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // K1: forward. One block of 384 threads per (batch * head, 128 query rows):
 // warpgroups 0 and 1 own rows 64w..64w+63 and compute; the first warp of
@@ -407,23 +445,7 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
         for (int c = 0; c < NH; ++c) tma_load(sQ + c * BM * 128, &tq, q_full, c * 64, h, q0, b);
       }
-      for (int j = 0; j < n; ++j) {
-        const int s = j % NS, k0 = (lo + j) * BN;
-        if (j >= NS) mbar_wait(&k_empty[s], (j / NS - 1) & 1);
-        if (p.seg)
-          for (int c = lane; c < BN; c += 32) sSeg[s * BN + c] = seg_at(p, b, k0 + c, p.S);
-        if (lane == 0) {
-          mbar_expect_tx(&k_full[s], KV_BYTES);
-#pragma unroll
-          for (int c = 0; c < NH; ++c) tma_load(sK + s * KV_BYTES + c * BN * 128, &tk, &k_full[s], c * 64, kh, k0, b);
-          if (j >= NS) mbar_wait(&v_empty[s], (j / NS - 1) & 1);
-          mbar_expect_tx(&v_full[s], KV_BYTES);
-#pragma unroll
-          for (int c = 0; c < NH; ++c) tma_load(sV + s * KV_BYTES + c * BN * 128, &tv, &v_full[s], c * 64, kh, k0, b);
-        } else {
-          mbar_arrive(&k_full[s]);
-        }
-      }
+      produce_kv<BN, NS, NH>(&tk, &tv, p, sK, sV, sSeg, k_full, k_empty, v_full, v_empty, b, kh, lo, n, lane);
     }
   } else {  // consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
@@ -512,6 +534,194 @@ __global__ void __launch_bounds__(384, 1)
       // m is on the raw scores; a dead row keeps the reference's -1e30 + log(1e-30)
       const float m_nat = m[r] > kNegInf / 2 ? m[r] * p.scale : kNegInf;
       if (lane % 4 == 0 && p.lse_out) p.lse_out[(size_t)bh * p.T + qp] = m_nat + logf(ls);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2: dQ. K1's block: 384 threads per (batch * head, 128 query rows),
+// warpgroups 0 and 1 own rows 64w..64w+63, the first warp of warpgroup 2 is
+// the producer. It loads the Q and dO tiles once and keeps two rings filled
+// by TMA: 64-key K tiles (with the keys' segment ids) and V tiles. Per tile a
+// consumer computes S = Q K^T and dP = dO V^T, then p = exp(s - lse) from the
+// saved statistics and dS = p (dP - delta) scale, and issues dQ += dS K (dS
+// the register A operand, K the MN-major B operand: the K tile serves both
+// products). S and dP of tile j are issued together with dS K of tile j - 1,
+// so the dS of tile j is computed under that product. dQ stays in registers
+// across the tiles and is written once.
+// ---------------------------------------------------------------------------
+constexpr int kDqBM = 128, kDqBN = 64, kDqStages = 3;
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return 2 * (size_t)kDqBM * D * 2 + 2 * kDqStages * (size_t)kDqBN * D * 2 + kDqStages * kDqBN * sizeof(int) +
+         (1 + 4 * kDqStages) * sizeof(uint64_t) + 1024;
+}
+
+// dS = p (dP - delta) scale for one tile, in place of dP, with
+// p = exp2(s * scale * log2(e) - lse * log2(e)). A pair the mask drops gets
+// p = 0 by a select, never by a product: on a dead row (lse = -1e30 + log(1e-30))
+// the exponent is +inf. Only tiles the mask cuts test the pairs.
+template <int BN>
+__device__ __forceinline__ void dq_ds_tile(const float (&sc)[BN / 2], float (&dp)[BN / 2], const Params& p, bool cut,
+                                           int row0, int k0, const int* seg_k, const int (&segq)[2],
+                                           const float (&lse2)[2], const float (&delta)[2], int lane) {
+  const float scale_log2 = p.scale * kLog2e;
+  int c_lo[2] = {0, 0}, c_hi[2] = {BN, BN};
+  if (cut) {
+    // row r keeps the tile's columns [c_lo, c_hi) (causal, window, ragged edges)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = row0 + 8 * r;
+      c_hi[r] = (qp >= p.T ? 0 : p.causal && qp + 1 < p.S ? qp + 1 : p.S) - k0;
+      c_lo[r] = (p.has_window ? qp - p.window + 1 : 0) - k0;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const int col = acc_col(i, lane), r = (i >> 1) & 1;
+    float pr = fast_exp2(fmaf(sc[i], scale_log2, -lse2[r]));
+    if (cut && (col < c_lo[r] || col >= c_hi[r] || (p.seg && seg_k[col] != segq[r]))) pr = 0.f;
+    dp[i] = pr * (dp[i] - delta[r]) * p.scale;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                           const Params p) {
+  constexpr int BM = kDqBM, BN = kDqBN, NH = D / 64, NS = kDqStages;
+  constexpr uint32_t Q_BYTES = BM * D * 2, KV_BYTES = BN * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align_1024(smem_raw);
+  uint8_t* sdO = sQ + Q_BYTES;
+  uint8_t* sK = sdO + Q_BYTES;        // stage s at sK + s KV_BYTES
+  uint8_t* sV = sK + NS * KV_BYTES;   // stage s at sV + s KV_BYTES
+  int* sSeg = reinterpret_cast<int*>(sV + NS * KV_BYTES);  // stage s: segment ids of K stage s [BN]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sSeg + NS * BN);  // Q and dO arrived
+  uint64_t* k_full = q_full + 1;
+  uint64_t* k_empty = k_full + NS;    // [s]: both consumer warpgroups are done with K stage s
+  uint64_t* v_full = k_empty + NS;
+  uint64_t* v_empty = v_full + NS;
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  // the query tile is the slow grid axis, walked from the last: the
+  // heaviest causal tiles of every head start first
+  const int qb = gridDim.y - 1 - blockIdx.y;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H, kh = h / (p.H / p.KH);
+  const int q0 = qb * BM;
+
+  // K-tile range [lo, lo + n) the query rows can reach (_kv_skip_cond as
+  // loop bounds). Both warpgroups walk all of it: bounds that depend on the
+  // warpgroup would put the wgmma issue on a path the compiler takes as
+  // divergent, and it then serializes every wgmma.
+  long long k_lo = 0, k_hi = p.S;
+  if (p.causal) k_hi = k_hi < (long long)q0 + BM ? k_hi : (long long)q0 + BM;
+  if (p.has_window && (long long)q0 - p.window + 1 > 0) k_lo = (long long)q0 - p.window + 1;
+  const int lo = (int)(k_lo / BN);
+  const int n = k_lo < k_hi ? (int)((k_hi + BN - 1) / BN) - lo : 0;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&k_full[s], 32);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 256);
+      mbar_init(&v_empty[s], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: the first warp
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (warp == 0 && n > 0) {
+      if (lane == 0) {
+        mbar_expect_tx(q_full, 2 * Q_BYTES);
+#pragma unroll
+        for (int c = 0; c < NH; ++c) {
+          tma_load(sQ + c * BM * 128, &tq, q_full, c * 64, h, q0, b);
+          tma_load(sdO + c * BM * 128, &tdo, q_full, c * 64, h, q0, b);
+        }
+      }
+      produce_kv<BN, NS, NH>(&tk, &tv, p, sK, sV, sSeg, k_full, k_empty, v_full, v_empty, b, kh, lo, n, lane);
+    }
+  } else {  // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int qw = q0 + wg * 64;                        // this warpgroup's first row
+    const int row0 = qw + warp * 16 + lane / 4;         // this thread's rows: row0, row0 + 8
+    const int segq[2] = {seg_at(p, b, row0, p.T), seg_at(p, b, row0 + 8, p.T)};
+    float lse2[2], delta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = row0 + 8 * r;
+      lse2[r] = qp < p.T ? p.lse[(size_t)bh * p.T + qp] * kLog2e : 0.f;
+      delta[r] = qp < p.T ? p.delta[(size_t)bh * p.T + qp] : 0.f;
+    }
+    // does the mask cut the tile at k0 for this warpgroup's rows? (a tile
+    // wholly outside them is cut too, and every tile of a window <= 0: the
+    // ring's shifted hops, which make dead rows)
+    auto cut = [&](int k0) {
+      return p.seg || qw + 64 > p.T || k0 + BN > p.S || (p.causal && k0 + BN - 1 > qw) ||
+             (p.has_window && (p.window <= 0 || qw + 63 - k0 >= p.window));
+    };
+
+    float dq[D / 2], sc[BN / 2], dp[BN / 2];
+    uint32_t dsa[BN / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    // S and dP of tile j are issued together with dS K of tile j - 1; the dS
+    // of tile j is computed while dS K of tile j - 1 still runs
+    if (n > 0) {
+      mbar_wait(q_full, 0);
+      mbar_wait(&k_full[0], 0);
+      mbar_wait(&v_full[0], 0);
+      issue_qk<D, BM, BN>(sc, sQ, sK, wg);
+      issue_qk<D, BM, BN>(dp, sdO, sV, wg);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      mbar_arrive(&v_empty[0]);
+      dq_ds_tile<BN>(sc, dp, p, cut(lo * BN), row0, lo * BN, sSeg, segq, lse2, delta, lane);
+      acc_to_a<BN / 16>(dp, dsa);  // dS rounded to bf16 (ds.astype(k.dtype))
+    }
+    for (int j = 1; j < n; ++j) {
+      const int s = j % NS, sp = (j - 1) % NS, k0 = (lo + j) * BN;
+      mbar_wait(&k_full[s], (j / NS) & 1);
+      mbar_wait(&v_full[s], (j / NS) & 1);
+      issue_qk<D, BM, BN>(sc, sQ, sK + s * KV_BYTES, wg);
+      issue_qk<D, BM, BN>(dp, sdO, sV + s * KV_BYTES, wg);
+      issue_pv<D, BN>(dq, dsa, sK + sp * KV_BYTES);
+      wgmma_wait<1>();  // S and dP of tile j; dS K of tile j - 1 still runs
+      fence_regs(sc);
+      fence_regs(dp);
+      mbar_arrive(&v_empty[s]);
+      dq_ds_tile<BN>(sc, dp, p, cut(k0), row0, k0, sSeg + s * BN, segq, lse2, delta, lane);
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(dsa);
+      mbar_arrive(&k_empty[sp]);
+      acc_to_a<BN / 16>(dp, dsa);
+    }
+    if (n > 0) {
+      const int sp = (n - 1) % NS;
+      issue_pv<D, BN>(dq, dsa, sK + sp * KV_BYTES);
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(dsa);
+      mbar_arrive(&k_empty[sp]);
+    }
+
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = row0 + 8 * r;
+      if (qp >= p.T) continue;
+      __nv_bfloat16* orow = out + (((size_t)b * p.T + qp) * p.H + h) * D;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<uint32_t*>(orow + c * 8 + 2 * (lane % 4)) = pack_bf16(dq[c * 4 + 2 * r], dq[c * 4 + 2 * r + 1]);
     }
   }
 }
@@ -769,6 +979,22 @@ cudaError_t launch_fwd(const Params& p, cudaStream_t stream) {
 }
 
 template <int D>
+cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
+  const dim3 grid(p.B * p.H, (p.T + kDqBM - 1) / kDqBM);
+  if (grid.x == 0 || grid.y == 0) return cudaSuccess;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!make_map(&tq, p.q, p.B, p.T, p.H, D, kDqBM) || !make_map(&tdo, p.dout, p.B, p.T, p.H, D, kDqBM) ||
+      !make_map(&tk, p.k, p.B, p.S, p.KH, D, kDqBN) || !make_map(&tv, p.v, p.B, p.S, p.KH, D, kDqBN))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = dq_smem_bytes<D>();
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_tc_kernel<D><<<grid, 384, smem, stream>>>(tq, tk, tv, tdo, p);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
   const dim3 grid(p.B * p.KH, (p.S + kBwdBK - 1) / kBwdBK);
   if (grid.x == 0 || grid.y == 0) return cudaSuccess;
@@ -820,6 +1046,19 @@ extern "C" int dml_flash_fwd_tc(const void* q, const void* k, const void* v, con
   if (!valid(p)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(D == 64 ? launch_fwd<64>(p, s) : launch_fwd<128>(p, s));
+}
+
+extern "C" int dml_flash_bwd_dq_tc(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                                   const float* delta, const int* seg, void* dq, int B, int T, int S, int H, int KH,
+                                   int D, float scale, int causal, int has_window, int window, void* stream) {
+  Params p = make_params(q, k, v, seg, B, T, S, H, KH, D, scale, causal, has_window, window);
+  p.dout = dout;
+  p.lse = lse;
+  p.delta = delta;
+  p.out = dq;
+  if (!valid(p)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(D == 64 ? launch_dq<64>(p, s) : launch_dq<128>(p, s));
 }
 
 extern "C" int dml_flash_bwd_dkv_tc(const void* q, const void* k, const void* v, const void* dout, const float* lse,

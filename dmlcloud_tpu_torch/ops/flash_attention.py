@@ -6,18 +6,20 @@ C++ kernels for ``sm_90a``, built with ``nvcc`` at first use (one ``nvcc`` per
 source, started together) and bound with ``ctypes`` (no PyTorch headers, so
 the build takes seconds):
 
-- ``csrc/flash_attention_tc.cu``: forward and dK/dV on the bf16 tensor cores
-  (``wgmma``, TMA), for bf16 operands with head dim 64 or 128;
+- ``csrc/flash_attention_tc.cu``: forward, dQ and dK/dV on the bf16 tensor
+  cores (``wgmma``, TMA), for bf16 operands with head dim 64 or 128;
 - ``csrc/flash_attention.cu``: forward, dQ and dK/dV on the CUDA cores in
-  fp32 arithmetic, for every other supported case, and dQ always.
+  fp32 arithmetic, for every other supported case (fp32, and bf16 with head
+  dim 16 or 32).
 
 ``kernel_route(dtype, head_dim)`` makes that choice and nothing else does;
 a kernel that fails to build or launch raises, nothing retries on the other.
 Each kernel has:
 
-- a wrapper (``attn_fwd_tc``/``attn_fwd_simt``, ``attn_dq_cuda``,
-  ``attn_dkv_tc``/``attn_dkv_simt``; ``attn_fwd_cuda`` and ``attn_dkv_cuda``
-  route between the pairs) that checks its inputs, allocates the outputs with
+- a wrapper (``attn_fwd_tc``/``attn_fwd_simt``, ``attn_dq_tc``/
+  ``attn_dq_simt``, ``attn_dkv_tc``/``attn_dkv_simt``; ``attn_fwd_cuda``,
+  ``attn_dq_cuda`` and ``attn_dkv_cuda`` route between the pairs) that
+  checks its inputs, allocates the outputs with
   ``torch.empty``, launches on the current stream, raises if the launch
   failed, and adds one to its entry in ``LAUNCHES``;
 - a plain PyTorch version of the same function (``attn_fwd_plain``,
@@ -67,8 +69,9 @@ MAX_HEAD_DIM = 128
 TC_HEAD_DIMS = (64, 128)
 
 #: launches of each kernel since the last ``reset_launch_counts()``:
-#: the CUDA-core K1, K2, K3 and the tensor-core K1, K3
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_fwd_tc": 0, "flash_bwd_dkv_tc": 0}
+#: the CUDA-core K1, K2, K3 and the tensor-core K1, K2, K3
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_fwd_tc": 0, "flash_bwd_dq_tc": 0, "flash_bwd_dkv_tc": 0}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: library name -> source; each is one nvcc call
@@ -150,18 +153,19 @@ def _load() -> dict:
             simt.dml_flash_bwd_dq.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, *shape]
             simt.dml_flash_bwd_dkv.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, vp, *shape]
             tc.dml_flash_fwd_tc.argtypes = [vp, vp, vp, vp, vp, vp, *shape]
+            tc.dml_flash_bwd_dq_tc.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, *shape]
             tc.dml_flash_bwd_dkv_tc.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, *shape]
             for fn in (simt.dml_flash_fwd, simt.dml_flash_bwd_dq, simt.dml_flash_bwd_dkv,
-                       tc.dml_flash_fwd_tc, tc.dml_flash_bwd_dkv_tc):
+                       tc.dml_flash_fwd_tc, tc.dml_flash_bwd_dq_tc, tc.dml_flash_bwd_dkv_tc):
                 fn.restype = i
             _libs.update(simt=simt, tc=tc)
     return _libs
 
 
 def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
-    """Which kernels take K1 and K3 on the card: ``"tc"`` (the bf16 tensor-core
-    kernels) for bf16 with head dim 64 or 128, else ``"simt"`` (the CUDA-core
-    kernels). K2 always runs on the CUDA cores."""
+    """Which kernels take K1, K2 and K3 on the card: ``"tc"`` (the bf16
+    tensor-core kernels) for bf16 with head dim 64 or 128, else ``"simt"``
+    (the CUDA-core kernels)."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"flash kernels take float32 or bfloat16, got {dtype}")
     return "tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS else "simt"
@@ -255,8 +259,8 @@ def attn_fwd_simt(q, k, v, seg, causal: bool, scale: float, window: int | None):
 
 def attn_fwd_tc(q, k, v, seg, causal: bool, scale: float, window: int | None):
     """K1 (``_attn_kernel``) on the bf16 tensor cores: ``(out [B,T,H,D], lse [B*H,T] fp32)``."""
-    dims = _check_cuda(q, k, v, seg)
     _check_tc(q, k, v)
+    dims = _check_cuda(q, k, v, seg)
     lib = _load()["tc"]
     b, t, _, h, _, _ = dims
     out = torch.empty_like(q)
@@ -275,8 +279,8 @@ def attn_fwd_cuda(q, k, v, seg, causal: bool, scale: float, window: int | None):
     return fwd(q, k, v, seg, causal, scale, window)
 
 
-def attn_dq_cuda(q, k, v, do, lse, delta, seg, causal: bool, scale: float, window: int | None):
-    """K2 (``_dq_kernel``): dq ``[B,T,H,D]`` from the saved lse and ``delta``."""
+def attn_dq_simt(q, k, v, do, lse, delta, seg, causal: bool, scale: float, window: int | None):
+    """K2 (``_dq_kernel``) on the CUDA cores: dq ``[B,T,H,D]`` from the saved lse and ``delta``."""
     dims = _check_cuda(q, k, v, seg, do, lse, delta)
     _check_bwd(q, do, lse, delta)
     lib = _load()["simt"]
@@ -288,6 +292,28 @@ def attn_dq_cuda(q, k, v, do, lse, delta, seg, causal: bool, scale: float, windo
     _raise_on(err, "flash_bwd_dq")
     LAUNCHES["flash_bwd_dq"] += 1
     return dq
+
+
+def attn_dq_tc(q, k, v, do, lse, delta, seg, causal: bool, scale: float, window: int | None):
+    """K2 (``_dq_kernel``) on the bf16 tensor cores: dq ``[B,T,H,D]`` from the saved lse and ``delta``."""
+    _check_tc(q, k, v, do)
+    dims = _check_cuda(q, k, v, seg, do, lse, delta)
+    _check_bwd(q, do, lse, delta)
+    lib = _load()["tc"]
+    dq = torch.empty_like(q)
+    err = lib.dml_flash_bwd_dq_tc(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(seg), _ptr(dq),
+        *_shape_args(dims, scale, causal, window, q.device),
+    )
+    _raise_on(err, "flash_bwd_dq_tc")
+    LAUNCHES["flash_bwd_dq_tc"] += 1
+    return dq
+
+
+def attn_dq_cuda(q, k, v, do, lse, delta, seg, causal: bool, scale: float, window: int | None):
+    """K2 on the card, by ``kernel_route``."""
+    dq = attn_dq_tc if kernel_route(q.dtype, q.shape[-1]) == "tc" else attn_dq_simt
+    return dq(q, k, v, do, lse, delta, seg, causal, scale, window)
 
 
 def attn_dkv_simt(q, k, v, do, lse, delta, seg, causal: bool, scale: float, window: int | None):
@@ -308,9 +334,9 @@ def attn_dkv_simt(q, k, v, do, lse, delta, seg, causal: bool, scale: float, wind
 
 def attn_dkv_tc(q, k, v, do, lse, delta, seg, causal: bool, scale: float, window: int | None):
     """K3 (``_dkv_kernel``) on the bf16 tensor cores: ``(dk, dv)`` ``[B,S,KH,D]``, GQA-summed in the kernel."""
+    _check_tc(q, k, v, do)
     dims = _check_cuda(q, k, v, seg, do, lse, delta)
     _check_bwd(q, do, lse, delta)
-    _check_tc(q, k, v, do)
     lib = _load()["tc"]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)

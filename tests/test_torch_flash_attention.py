@@ -174,7 +174,8 @@ def test_cpu_tensors_take_the_plain_versions_and_cuda_wrappers_refuse_them():
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
     fa.reset_launch_counts()
     fa.flash_attention(tq, tk, tv)
-    assert set(fa.LAUNCHES) == {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_tc", "flash_bwd_dkv_tc"}
+    assert set(fa.LAUNCHES) == {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                                "flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc"}
     assert all(n == 0 for n in fa.LAUNCHES.values())
     with pytest.raises(ValueError, match="CUDA"):
         fa.attn_fwd_cuda(tq, tk, tv, None, True, 0.35, None)
@@ -182,13 +183,25 @@ def test_cpu_tensors_take_the_plain_versions_and_cuda_wrappers_refuse_them():
         fa.attn_fwd(tq.to("meta"), tk.to("meta"), tv.to("meta"), None, True, 0.35, None)
 
 
-@pytest.mark.parametrize("wrapper", ["attn_fwd_tc", "attn_fwd_cuda", "attn_dkv_tc", "attn_dkv_cuda"])
+@pytest.mark.parametrize("wrapper", ["attn_fwd_tc", "attn_fwd_cuda", "attn_dq_tc", "attn_dq_cuda", "attn_dkv_tc",
+                                     "attn_dkv_cuda"])
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     """The tensor-core wrappers, and the routers on their route, launch a kernel or raise."""
     q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in _arrays(t=16, h=2, d=64))
     assert fa.kernel_route(q.dtype, q.shape[-1]) == "tc"
     stats = () if "fwd" in wrapper else (do, torch.zeros(4, 16), torch.zeros(4, 16))
     with pytest.raises(ValueError, match="CUDA"):
+        getattr(fa, wrapper)(q, k, v, *stats, None, True, 0.125, None)
+
+
+@pytest.mark.parametrize("wrapper", ["attn_fwd_tc", "attn_dq_tc", "attn_dkv_tc"])
+@pytest.mark.parametrize("dtype,head_dim", [(torch.float32, 64), (torch.bfloat16, 32)], ids=["fp32_d64", "bf16_d32"])
+def test_tensor_core_wrappers_refuse_what_the_route_sends_elsewhere(wrapper, dtype, head_dim):
+    """fp32 and head dims below 64 stay on the CUDA-core kernels: the tensor-core
+    wrappers raise before touching the operands."""
+    q, k, v, do = (torch.from_numpy(x).to(dtype) for x in _arrays(t=16, h=2, d=head_dim))
+    stats = () if "fwd" in wrapper else (do, torch.zeros(4, 16), torch.zeros(4, 16))
+    with pytest.raises(ValueError, match="tensor-core kernels take bf16"):
         getattr(fa, wrapper)(q, k, v, *stats, None, True, 0.125, None)
 
 
