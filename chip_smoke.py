@@ -25,7 +25,17 @@ Phases, each fatal on failure:
    every kernel's launch count is read around this run, the main path, and
    must show the tensor-core K1-K3 and no CUDA-core kernel;
 6. steady: three more synchronised train steps, and one under
-   ``torch.profiler`` for the split of the step's device time.
+   ``torch.profiler`` for the split of the step's device time;
+7. resume: phase 5's run again with ``--ema 0.999 --save-every-steps 4``,
+   three times: uninterrupted (C); with a checkpoint directory and preemption
+   handling, sending itself SIGUSR1 after step 3 so that it drains at the
+   step-4 save (P); and resumed from P's directory (R), which must skip 4
+   batches, launch only the tensor-core K1-K3, and end with the step, the
+   parameters, the EMA shadow, the AdamW moments and count, and the losses of
+   steps 5-7 and of validation bitwise equal to C's. It prints the state bytes
+   per save, the disk, the seconds and GB/s of each save (the blocking part
+   and the background commit) and of the restore, and the EMA pass's time per
+   step. Its directories live under a ``tempfile.mkdtemp()`` that it removes.
 
 The last line of standard output is one JSON object with ``"ok": true``. With no
 card, or without the package beside it, the script exits non-zero and prints no
@@ -34,12 +44,17 @@ result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
+import os
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 #: tests/test_kernel_numerics.py:28 -- both sides accumulate in fp32; bf16
@@ -539,6 +554,179 @@ def phase_steady(torch, stage) -> None:
         log(f"[steady]   top: {_device_us(e) / 1e3:8.1f} ms  x{e.count:<4} {e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: preempt the 1b run at a step save and resume it from its directory
+# ---------------------------------------------------------------------------
+
+RESUME_ARGV = TRAIN_ARGV + ["--ema", "0.999", "--save-every-steps", "4"]
+#: SIGUSR1 arrives after this many train steps; the drain lands at the next save
+SIGNAL_AFTER = 3
+SAVE_STEP = 4
+TRAIN_STEPS = 7
+
+
+class _SignalAfter:
+    """A train dataset that sends this process SIGUSR1 after yielding batch ``k``."""
+
+    def __init__(self, ds, k: int):
+        self.ds, self.k = ds, k
+
+    def __iter__(self):
+        for i, batch in enumerate(self.ds):
+            yield batch
+            if i + 1 == self.k:
+                os.kill(os.getpid(), signal.SIGUSR1)
+
+    def __len__(self):
+        return len(self.ds)
+
+
+def _gb(nbytes: float) -> float:
+    return nbytes / 1e9
+
+
+def _save_line(what: str, info: dict, smi: str) -> str:
+    line = f"[resume] {what}: {_gb(info['bytes']):.2f} GB, blocking {info['blocking_s']:.3f} s"
+    if info["async"]:
+        line += (f" ({_gb(info['bytes']) / info['blocking_s']:.2f} GB/s, the copy to host memory), background "
+                 f"commit {info['commit_s']:.3f} s ({_gb(info['bytes']) / info['commit_s']:.2f} GB/s)")
+    else:
+        line += f" ({_gb(info['bytes']) / info['blocking_s']:.2f} GB/s, the whole write)"
+    return line + f" [{smi}]"
+
+
+def phase_resume(torch, fa, smi: str) -> None:
+    from dmlcloud_tpu_torch.checkpoint import read_requeue_verdict
+    from dmlcloud_tpu_torch.examples.train_lm import build
+
+    want_p = {"flash_fwd_tc": 24 * SAVE_STEP, "flash_bwd_dq_tc": 24 * SAVE_STEP, "flash_bwd_dkv_tc": 24 * SAVE_STEP,
+              "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    rest = TRAIN_STEPS - SAVE_STEP
+    # the rest of the epoch's train steps and the validation batch
+    want_r = {"flash_fwd_tc": 24 * (rest + 1), "flash_bwd_dq_tc": 24 * rest, "flash_bwd_dkv_tc": 24 * rest,
+              "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    root = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        disk = shutil.disk_usage(root)
+        log(f"[resume] temp root {root}: disk total {_gb(disk.total):.1f} GB, free {_gb(disk.free):.1f} GB")
+
+        # C: uninterrupted; its final state, losses and val loss stay on the card
+        t0 = time.perf_counter()
+        pipe, stage = build(RESUME_ARGV)
+        pipe.run()
+        torch.cuda.synchronize()
+        stage.state.optimizer.zero_grad(set_to_none=True)
+        c_state, c_step, c_count = stage.state.state_dict(), stage.state.step, stage.state.optimizer.count
+        c_losses, c_val = stage.train_losses, float(stage.tracker["val/loss"][-1])
+        log(f"[resume] C, uninterrupted: {c_step} steps + 1 val batch in {time.perf_counter() - t0:.1f} s wall; "
+            f"losses {[round(float(x), 4) for x in c_losses]}, val/loss {c_val:.6f}")
+        if c_step != TRAIN_STEPS:
+            raise AssertionError(f"C ran {c_step} steps, want {TRAIN_STEPS}")
+        del pipe, stage
+        gc.collect()  # stage and pipeline reference each other
+
+        # P: preempted by a real signal after step 3; drains at the step-4 save
+        t0 = time.perf_counter()
+        pipe, stage = build(RESUME_ARGV + ["--checkpoint-dir", root], resume=True)
+        datasets = stage.train_dataset
+        stage.train_dataset = lambda: _SignalAfter(datasets(), SIGNAL_AFTER)
+        pipe.enable_preemption_handling(("SIGUSR1",))
+        fa.reset_launch_counts()
+        pipe.run()
+        torch.cuda.synchronize()
+        launches_p = dict(fa.LAUNCHES)
+        run_dir, scope = pipe.checkpoint_dir.path, stage.name
+        steps_mgr = pipe.checkpoint_dir.state_manager(f"{scope}.steps")
+        p_save = steps_mgr.last_save
+        log(f"[resume] P, preempted: drained at step {stage.state.step} in {time.perf_counter() - t0:.1f} s wall; "
+            f"launches {launches_p}")
+        verdict = read_requeue_verdict(run_dir)
+        checks = {
+            "drain at the step-4 save": stage.state.step == SAVE_STEP and stage._mid_epoch_exit and stage._preempt_exit,
+            "verdict preemption mid-epoch": bool(verdict) and verdict["requeue"] is True
+            and verdict["kind"] == "preemption" and verdict["mid_epoch"] is True
+            and "save_on_preempt_latency_s" in verdict,
+            "contract files": (run_dir / ".dmlcloud_tpu").exists() and (run_dir / "config.yaml").exists()
+            and (run_dir / "log.txt").stat().st_size > 0,
+            "step save 4 committed, no epoch save": steps_mgr.all_steps() == [SAVE_STEP]
+            and not (run_dir / "state" / scope).exists(),
+            "launch counts": launches_p == want_p,
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"preempted run: failed {[k for k, ok in checks.items() if not ok]}; "
+                                 f"verdict {verdict}, launches {launches_p} (want {want_p})")
+        log(f"[resume] P verdict: {json.dumps(verdict)}")
+        log(_save_line("P step save (async)", p_save, smi))
+        del pipe, stage, datasets
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # R: the same construction on P's directory
+        t0 = time.perf_counter()
+        pipe, stage = build(RESUME_ARGV + ["--checkpoint-dir", str(run_dir)], resume=True)
+        restore_s = []
+        restore = stage._restore_state
+
+        def timed_restore():
+            t = time.perf_counter()
+            restore()
+            torch.cuda.synchronize()
+            restore_s.append(time.perf_counter() - t)
+
+        stage._restore_state = timed_restore
+        fa.reset_launch_counts()
+        pipe.run()
+        torch.cuda.synchronize()
+        launches_r = dict(fa.LAUNCHES)
+        r_save = pipe.checkpoint_dir.state_manager(scope).last_save
+        log(f"[resume] R, resumed: steps {SAVE_STEP + 1}-{stage.state.step} + 1 val batch in "
+            f"{time.perf_counter() - t0:.1f} s wall; launches {launches_r}")
+        log(f"[resume] restore of step {SAVE_STEP}: {restore_s[0]:.3f} s "
+            f"({_gb(p_save['bytes']) / restore_s[0]:.2f} GB/s) [{smi}]")
+        log(_save_line("R epoch save (async)", r_save, smi))
+        verdict = read_requeue_verdict(run_dir)
+        if not (verdict and verdict["kind"] == "completed" and verdict["requeue"] is False):
+            raise AssertionError(f"resumed run: verdict {verdict}, want completed")
+        if len(stage.train_losses) != rest or launches_r != want_r:
+            raise AssertionError(f"resumed run: {len(stage.train_losses)} steps (want {rest}), "
+                                 f"launches {launches_r} (want {want_r})")
+
+        # bitwise against C: every difference must be exactly 0
+        r_state = stage.state.state_dict()
+        diffs = {}
+        for part, got, want in (("params", r_state["params"], c_state["params"]), ("ema", r_state["ema"], c_state["ema"]),
+                                ("mu", r_state["opt_state"]["mu"], c_state["opt_state"]["mu"]),
+                                ("nu", r_state["opt_state"]["nu"], c_state["opt_state"]["nu"])):
+            if got.keys() != want.keys():
+                raise AssertionError(f"resumed {part} has other tensors than the uninterrupted run's")
+            diffs[part] = max(max_err(torch, got[n], want[n]) for n in want)
+        r_losses = [float(x) for x in stage.train_losses]
+        r_val = float(stage.tracker["val/loss"][-1])
+        diffs["losses 5-7"] = max(abs(a - float(b)) for a, b in zip(r_losses, c_losses[SAVE_STEP:]))
+        diffs["val/loss"] = abs(r_val - c_val)
+        counters = (stage.state.step, stage.state.optimizer.count) == (c_step, c_count)
+        log(f"[resume] R against C: step {stage.state.step}/{c_step}, AdamW count "
+            f"{stage.state.optimizer.count}/{c_count}; max abs difference {diffs}")
+        if not counters or any(diffs.values()):
+            raise AssertionError(f"resumed run is not bitwise equal to the uninterrupted one: {diffs}")
+        log("[resume] R equals C bitwise: params, EMA, AdamW moments and count, step, losses of steps 5-7, val/loss")
+
+        # the EMA pass alone, on R's state
+        n_params = sum(t.numel() for t in r_state["params"].values())
+        ema_ms = cuda_ms(torch, lambda: stage.state.update_ema(0.999))
+        ema_bytes = 3 * 4 * n_params  # read the shadow and the fp32 params, write the shadow
+        log(f"[resume] EMA pass (torch._foreach_lerp_ over {n_params / 1e9:.3f} B fp32 params): {ema_ms:.3f} ms "
+            f"per step, {_gb(ema_bytes) / ema_ms * 1e3:.0f} GB/s = {ema_bytes / HBM_BYTES_PER_S * 1e3 / ema_ms:.1%} "
+            f"of the {ema_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms bound by bytes [{smi}]")
+        disk = shutil.disk_usage(root)
+        log(f"[resume] state per save {_gb(p_save['bytes']):.2f} GB; disk after R: free {_gb(disk.free):.1f} GB")
+        del pipe, stage, c_state, r_state
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -560,6 +748,10 @@ def main() -> None:
     for row in rows.values():
         row["launches"] = launches[row["name"]]
     phase_steady(torch, stage)
+    del stage
+    gc.collect()  # stage and pipeline reference each other
+    torch.cuda.empty_cache()
+    phase_resume(torch, fa, dev["smi"])
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(dev["smi"])

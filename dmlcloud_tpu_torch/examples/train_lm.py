@@ -1,13 +1,20 @@
 """Decoder-LM pretraining through the port's pipeline — the counterpart of
 ``examples/train_lm.py``, with the same presets and the flags of the ported
-paths (``--attn dot|flash``, ``--pack``, ``--window``).
+paths (``--attn dot|flash``, ``--pack``, ``--window``, ``--checkpoint-dir``,
+``--save-every-steps``, ``--ema``).
 
 Run on one GPU (``--device cpu`` runs on the CPU with the kernels' plain
 PyTorch versions):
 
     python -m dmlcloud_tpu_torch.examples.train_lm --preset tiny --epochs 2
     python -m dmlcloud_tpu_torch.examples.train_lm --preset 1b --attn flash --vocab-size 32000 \\
-        --seq-len 2048 --batch-size 4 --n-seqs 32 --epochs 1
+        --seq-len 2048 --batch-size 4 --n-seqs 32 --epochs 1 \\
+        --checkpoint-dir runs --save-every-steps 4 --ema 0.999
+
+``--checkpoint-dir`` creates a fresh run directory under the given root, as the
+reference's example does. To resume one, build the same pipeline with
+``build(argv, resume=True)``, where ``--checkpoint-dir`` names the run
+directory itself (or its root, under a requeued Slurm job), and run it.
 
 ``main(argv)`` returns the stage, so callers can read its tracked metrics and
 per-step losses.
@@ -87,6 +94,12 @@ class LMStage(dml.TrainValStage):
     def gradient_clip(self):
         return 1.0
 
+    def ema_decay(self):
+        return float(self.config.get("ema", 0.0))
+
+    def checkpoint_every_steps(self):
+        return int(self.config.get("save_every_steps", 0))
+
     def step(self, state, batch):
         if self.config.get("pack", False):
             toks, segs = batch[:, 0], batch[:, 1]
@@ -96,7 +109,10 @@ class LMStage(dml.TrainValStage):
         return lm_loss(logits, toks, segment_ids=segs)
 
 
-def main(argv: list[str] | None = None) -> LMStage:
+def build(argv: list[str] | None = None, resume: bool = False) -> tuple[dml.TrainingPipeline, LMStage]:
+    """The pipeline and stage that ``argv`` describes, not yet run; with
+    ``resume``, a valid ``--checkpoint-dir`` is continued instead of a fresh
+    run directory being created under it."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--preset", choices=sorted(PRESETS), default="tiny")
     parser.add_argument("--epochs", type=int, default=2)
@@ -110,6 +126,9 @@ def main(argv: list[str] | None = None) -> LMStage:
     parser.add_argument("--pack", action="store_true", help="pack a variable-length corpus (segment_ids path)")
     parser.add_argument("--remat", action="store_true", help="recompute blocks in the backward pass")
     parser.add_argument("--tie-embeddings", action="store_true", help="share the embedding matrix with the LM head")
+    parser.add_argument("--checkpoint-dir", type=str, default=None)
+    parser.add_argument("--ema", type=float, default=0.0, help="param EMA decay (0 off); validation uses the average")
+    parser.add_argument("--save-every-steps", type=int, default=0, help="mid-epoch step saves (resumable mid-epoch)")
     parser.add_argument("--device", default="cuda", help='"cuda" (default) or "cpu"')
     args = parser.parse_args(argv)
 
@@ -126,11 +145,20 @@ def main(argv: list[str] | None = None) -> LMStage:
         "remat": args.remat,
         "window": args.window,
         "pack": args.pack,
+        "ema": args.ema,
+        "save_every_steps": args.save_every_steps,
         "seed": 0,
     }
     pipeline = dml.TrainingPipeline(config, name=f"lm-{args.preset}", device=args.device)
+    if args.checkpoint_dir:
+        pipeline.enable_checkpointing(args.checkpoint_dir, resume=resume)
     stage = LMStage()
     pipeline.append_stage(stage, max_epochs=args.epochs)
+    return pipeline, stage
+
+
+def main(argv: list[str] | None = None) -> LMStage:
+    pipeline, stage = build(argv)
     pipeline.run()
     return stage
 

@@ -13,7 +13,9 @@ Counterpart of ``dmlcloud_tpu/metrics.py`` (``Reduction`` :43,
    size 1 there is no collective at all.
 
 The ragged-tracking consensus error (some ranks tracked a metric, some did not)
-is kept.
+is kept, and so are the resume hooks: ``state_dict``/``load_state_dict`` of the
+tracker and its reducers (JSON-encodable, the resume sidecar's ``tracker``) and
+``MetricTracker.fast_forward``.
 """
 
 from __future__ import annotations
@@ -105,6 +107,24 @@ class MetricReducer:
         stacked = _stack_host(self.values)
         axis = tuple(range(stacked.ndim)) if self.dim is None else tuple([0] + [d + 1 for d in self.dim])
         return self.reduction.combine(stacked, axis)
+
+    # -- serialization ------------------------------------------------------
+    def state_dict(self) -> dict:
+        # reduction stored by value so the state is JSON-encodable (resume
+        # sidecars are JSON, not pickle: utils/serialization.py)
+        return {
+            "reduction": self.reduction.value,
+            "dim": self.dim,
+            "globally": self.globally,
+            "values": [_to_host(v) for v in self.values],
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        red = state["reduction"]
+        self.reduction = red if isinstance(red, Reduction) else Reduction(red)
+        self.dim = state["dim"]
+        self.globally = bool(state["globally"])
+        self.values = list(state["values"])
 
 
 def _combine_across(per_rank: list, reduction: Reduction) -> np.ndarray:
@@ -283,6 +303,34 @@ class MetricTracker:
         """Reduce anything un-reduced and advance the epoch counter."""
         self.reduce_all(strict=False)
         self.epoch += 1
+
+    def fast_forward(self, epoch: int) -> None:
+        """Jump the tracker to ``epoch``, padding every history with None for
+        the skipped epochs (no-op when already there or past). A mid-epoch
+        resume whose restored tracker is older than the resumed epoch (sparse
+        ``checkpoint_every``) keeps later epochs aligned this way."""
+        if epoch <= self.epoch:
+            return
+        for hist in self.histories.values():
+            while len(hist) < epoch - 1:
+                hist.append(None)
+        self.epoch = epoch
+
+    def state_dict(self) -> dict:
+        return {
+            "epoch": self.epoch,
+            "histories": {k: list(v) for k, v in self.histories.items()},
+            "reducers": {name: r.state_dict() for name, r in self.reducers.items()},
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        self.epoch = int(state["epoch"])
+        self.histories = {k: list(v) for k, v in state["histories"].items()}
+        self.reducers = {}
+        for name, rstate in state["reducers"].items():
+            r = MetricReducer()
+            r.load_state_dict(rstate)
+            self.reducers[name] = r
 
     def __str__(self) -> str:
         s = "MetricTracker("

@@ -346,11 +346,13 @@ def _flax_layout(cfg: TransformerConfig) -> list[tuple[tuple[str, ...], str, str
 
 
 @torch.no_grad()
-def load_flax_params(model: DecoderLM, tree: dict) -> DecoderLM:
+def load_flax_params(model: DecoderLM, tree: dict, tensors: dict[str, torch.Tensor] | None = None) -> DecoderLM:
     """Copy the JAX ``DecoderLM``'s params (a nested dict of numpy arrays,
-    with or without the top-level ``"params"`` key) into ``model``."""
+    with or without the top-level ``"params"`` key) into ``model``, or into
+    ``tensors``, a dict by parameter name in ``model``'s layout (the EMA
+    shadow ``TrainState.ema`` carries the JAX ``TrainState.ema`` tree so)."""
     tree = tree.get("params", tree)
-    params = dict(model.named_parameters())
+    params = dict(model.named_parameters() if tensors is None else tensors)
     for path, name, how in _flax_layout(model.cfg):
         node = tree
         for key in path:
@@ -370,11 +372,12 @@ def load_flax_params(model: DecoderLM, tree: dict) -> DecoderLM:
 
 
 @torch.no_grad()
-def to_flax_params(model: DecoderLM) -> dict:
+def to_flax_params(model: DecoderLM, tensors: dict[str, torch.Tensor] | None = None) -> dict:
     """The inverse of ``load_flax_params``: a nested dict of float32 numpy
-    arrays in the JAX ``DecoderLM``'s layout."""
+    arrays in the JAX ``DecoderLM``'s layout, from ``model``'s parameters or
+    from ``tensors`` in their layout."""
     cfg = model.cfg
-    params = dict(model.named_parameters())
+    params = dict(model.named_parameters() if tensors is None else tensors)
     tree: dict = {}
     for path, name, how in _flax_layout(cfg):
         arr = params[name].detach().float().cpu().numpy()

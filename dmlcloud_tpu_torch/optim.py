@@ -12,7 +12,10 @@ here keep optax's conventions, which differ from ``torch.optim``'s:
 
 Like an optax transformation, ``adamw(...)`` is not yet bound to parameters:
 it returns a factory that ``TrainState.create`` calls with the model's
-parameters.
+parameters. Optax's ``count`` is the attribute ``AdamW.count``, outside
+``torch.optim.Optimizer.state_dict()``; checkpoints carry it through
+``TrainState.state_dict()``, so that a resumed run keeps its bias correction
+and its place in the schedule.
 """
 
 from __future__ import annotations
@@ -81,6 +84,15 @@ class AdamW(torch.optim.Optimizer):
         #: optax's ScaleByAdamState.count: updates applied so far
         self.count = 0
 
+    @torch.no_grad()
+    def init_state(self) -> None:
+        """Create the zero moments of every parameter that has none yet: at
+        the first step, or before a checkpoint restore that fills them."""
+        for group in self.param_groups:
+            for p in group["params"]:
+                if not self.state.get(p):
+                    self.state[p] = {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
+
     def current_lr(self, group: dict | None = None) -> float:
         lr = (group or self.param_groups[0])["lr"]
         return float(lr(self.count)) if callable(lr) else float(lr)
@@ -90,15 +102,13 @@ class AdamW(torch.optim.Optimizer):
         if closure is not None:
             raise ValueError("AdamW.step takes no closure")
         count_inc = self.count + 1
+        self.init_state()
         for group in self.param_groups:
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
                 continue
             b1, b2, eps, wd = group["b1"], group["b2"], group["eps"], group["weight_decay"]
             lr = self.current_lr(group)
-            for p in params:
-                if p not in self.state or not self.state[p]:
-                    self.state[p] = {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
             grads = [p.grad for p in params]
             mus = [self.state[p]["mu"] for p in params]
             nus = [self.state[p]["nu"] for p in params]

@@ -8,8 +8,11 @@ stages (``register_model`` :210, ``register_optimizer`` :268,
 device mesh, this one owns one ``torch.device`` (``cuda`` unless the caller
 passes another; no card and no explicit CPU request raises).
 
-Checkpointing, wandb, tensorboard, preemption handling and meshes over many
-GPUs come in later slices.
+Checkpointing (``enable_checkpointing`` :364, the run directory of
+``checkpoint.py`` with ``config.yaml`` and the ``log.txt`` tee) and preemption
+handling (``enable_preemption_handling`` :487, the requeue verdict of
+``run``/``_post_run``/``_teardown``) follow the reference. Wandb, tensorboard
+and meshes over many GPUs come in later slices.
 """
 
 from __future__ import annotations
@@ -23,11 +26,12 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from .checkpoint import CheckpointDir, find_slurm_checkpoint, generate_checkpoint_path, write_requeue_verdict
 from .metrics import MetricTracker, Reduction
 from .parallel import runtime
 from .stage import Stage
 from .utils.config import Config, as_config
-from .utils.logging import add_log_handlers, experiment_header, general_diagnostics
+from .utils.logging import IORedirector, add_log_handlers, experiment_header, general_diagnostics
 
 
 @dataclass
@@ -42,6 +46,9 @@ class TrainingPipeline:
         self.name = name
         self.device = runtime.resolve_device(device)
         self.logger = logging.getLogger("dmlcloud_tpu_torch")
+        self.checkpoint_dir: CheckpointDir | None = None
+        self.io_redirector: IORedirector | None = None
+        self.resumed: bool | None = None
         self.tracker = MetricTracker()
         self.start_time = None
         self.stop_time = None
@@ -53,6 +60,86 @@ class TrainingPipeline:
         self.optimizers: dict[str, Callable] = {}
         self.schedulers: dict[str, Callable[[int], float]] = {}
         self._optimizer_model: dict[str, str | None] = {}
+
+        self._preemption = runtime.PreemptionGuard(signals=())
+        self._verdict_written = False
+
+    @property
+    def checkpointing_enabled(self) -> bool:
+        return self.checkpoint_dir is not None
+
+    # -------------------------------------------------------- checkpointing
+    def enable_checkpointing(self, root: str, resume: bool = False):
+        """Reuse ``root`` as the run directory when resuming and it is one,
+        rediscover it by Slurm job id on a requeue, else create a fresh path
+        under ``root``, agreed across processes by broadcast."""
+        if self.checkpointing_enabled:
+            raise ValueError("Checkpointing already enabled")
+        path = None
+        if resume and CheckpointDir(root).is_valid:
+            path = root
+            self.resumed = True
+        elif resume and (slurm_path := find_slurm_checkpoint(root)):
+            path = slurm_path
+            self.resumed = True
+        if path is None:
+            path = runtime.broadcast_object(generate_checkpoint_path(root=root, name=self.name))
+            self.resumed = False
+        self.checkpoint_dir = CheckpointDir(path)
+
+    # ----------------------------------------------------------- preemption
+    def enable_preemption_handling(self, signals: tuple[str, ...] | None = ("SIGTERM",)):
+        """Exit cleanly at the next save boundary when any of ``signals``
+        arrives on ANY rank (Slurm jobs typically arrange
+        ``--signal=USR1@60``: pass ``("SIGUSR1",)``; ``signals=None`` takes
+        the guard's default: SIGTERM + SIGINT, plus SIGUSR1 inside a Slurm
+        step).
+
+        With epoch checkpointing the drain lands at the epoch boundary (the
+        finished epoch has been saved); with ``checkpoint_every_steps()`` it
+        lands at the next step save mid-epoch. Either way the stage is NOT
+        marked stopped, and the root writes a requeue verdict
+        (``requeue.json``) so that a requeued run resumes where this one
+        drained."""
+        # re-arming: restore the ORIGINAL dispositions first, so the new guard
+        # records them (not our previous handler)
+        self._preemption.uninstall()
+        self._preemption = runtime.PreemptionGuard(signals=signals).install()
+
+    def _preemption_coordinated(self) -> bool:
+        """Whether ANY rank caught a preemption signal."""
+        return self._preemption.coordinated()
+
+    def _write_requeue_verdict(self, requeue: bool, kind: str, reason: str, **extra) -> None:
+        """Root-only, first-writer-wins requeue verdict of this run (a
+        preemption verdict must not be overwritten by the teardown's generic
+        classification). No-op without a checkpoint dir: there is nowhere
+        durable to resume from."""
+        if self._verdict_written or self.checkpoint_dir is None or not runtime.is_root():
+            return
+        try:
+            if not self.checkpoint_dir.exists:
+                return  # e.g. the run failed before _init_checkpointing created it
+            write_requeue_verdict(self.checkpoint_dir.path, requeue, reason, kind, **extra)
+            self._verdict_written = True
+            self.logger.info("requeue verdict: requeue=%s (%s) — %s", requeue, kind, reason)
+        except Exception:
+            self.logger.warning("could not write requeue verdict", exc_info=True)
+
+    def _classify_failure(self, exc: BaseException) -> tuple[bool, str, str]:
+        """(requeue, kind, reason) for an uncaught exception: deterministic
+        failures (a NaN loss) are not requeued, since they recur; transient
+        ones (stragglers, filesystem errors) are."""
+        if isinstance(exc, KeyboardInterrupt):
+            return False, "user-interrupt", "run aborted by user (KeyboardInterrupt)"
+        if isinstance(exc, runtime.BarrierTimeout):
+            return True, "hang", (f"barrier '{exc.tag}' timed out; straggler ranks {exc.stragglers or 'unknown'}"
+                                  " — transient by default")
+        if isinstance(exc, FloatingPointError):
+            return False, "exception", f"non-finite loss is deterministic: {exc}"
+        if isinstance(exc, OSError):
+            return True, "exception", f"filesystem/IO error ({type(exc).__name__}: {exc}) — transient by default"
+        return False, "exception", f"{type(exc).__name__}: {exc}"
 
     # ----------------------------------------------------------- registries
     def register_model(self, name: str, model: torch.nn.Module, verbose: bool = True):
@@ -170,7 +257,8 @@ class TrainingPipeline:
         self.tracker.track(name, value)
 
     def barrier(self):
-        runtime.barrier()
+        """All-process barrier with a timeout that names stragglers."""
+        runtime.barrier("pipeline")
 
     # ------------------------------------------------------------ lifecycle
     def run(self):
@@ -180,6 +268,21 @@ class TrainingPipeline:
             for stage in self.stages:
                 self.current_stage = stage
                 stage.run()
+                # the stage's own coordinated decision: already in lockstep
+                # across ranks
+                if stage._preempt_exit:
+                    self.logger.info("preemption requested; skipping remaining stages")
+                    extra = {"stage": stage.name, "epoch": stage.current_epoch,
+                             "mid_epoch": bool(getattr(stage, "_mid_epoch_exit", False))}
+                    lat = getattr(stage, "_last_save_latency_s", None)
+                    if lat is not None:
+                        extra["save_on_preempt_latency_s"] = round(float(lat), 4)
+                    sig = self._preemption.signal_name or "coordinated-drain"
+                    self._write_requeue_verdict(
+                        True, "preemption", f"drained cleanly on {sig}; state saved at the last boundary, resumable",
+                        **extra,
+                    )
+                    break
             self._post_run()
 
     def pre_run(self):
@@ -188,15 +291,27 @@ class TrainingPipeline:
     def post_run(self):
         pass
 
+    def resume_run(self):
+        pass
+
     def _pre_run(self):
         if len(self.stages) == 0:
             raise ValueError("No stages defined. Use append_stage() to add stages to the pipeline.")
+        self._verdict_written = False
         if not runtime.is_initialized():
             runtime.init_auto(self.device)
+        # no process creates the directory before every process looked for it
+        self.barrier()
+        if self.checkpointing_enabled:
+            self._init_checkpointing()
         self.barrier()
         self.start_time = datetime.now()
         add_log_handlers(self.logger)
-        self.logger.info("\n" + experiment_header(self.name, None, self.start_time))
+        header = experiment_header(self.name, str(self.checkpoint_dir) if self.checkpoint_dir else None,
+                                   self.start_time)
+        self.logger.info("\n" + header)
+        if self.resumed:
+            self._resume_run()
         diagnostics = general_diagnostics()
         diagnostics += "\n* RUNTIME:\n"
         diagnostics += f"    - device: {self.device}\n"
@@ -206,16 +321,54 @@ class TrainingPipeline:
         self.logger.info(diagnostics)
         self.pre_run()
 
+    @runtime.root_only
+    def _init_checkpointing(self):
+        if not self.checkpoint_dir.is_valid:
+            self.checkpoint_dir.create()
+            self.checkpoint_dir.save_config(self.config)
+        self.io_redirector = IORedirector(self.checkpoint_dir.log_file)
+        self.io_redirector.install()
+
+    def _resume_run(self):
+        self.logger.info(f"Resuming training from checkpoint: {self.checkpoint_dir}")
+        self.resume_run()
+
     def _post_run(self):
         self.stop_time = datetime.now()
+        if self.checkpoint_dir is not None:
+            self.checkpoint_dir.wait_until_finished()
         self.logger.info(f"Finished training in {self.stop_time - self.start_time} ({self.stop_time})")
+        if self.checkpointing_enabled:
+            self.logger.info(f"Outputs have been saved to {self.checkpoint_dir}")
+        # a run that got here without a preemption verdict finished for real:
+        # the requeue wrapper stands down
+        self._write_requeue_verdict(False, "completed", "run finished all stages")
         self.post_run()
 
     def _teardown(self, exc: BaseException | None) -> None:
+        """Runs whether the stages finished, raised or were interrupted; the
+        exception (if any) propagates afterwards."""
         if isinstance(exc, KeyboardInterrupt):
             self.logger.info("=== run aborted by user (KeyboardInterrupt) ===")
         elif exc is not None:
             self.logger.error("=== run failed; traceback follows ===", exc_info=exc)
+        if exc is not None:
+            # first writer wins: a preemption verdict of this run stays
+            requeue, kind, reason = self._classify_failure(exc)
+            self._write_requeue_verdict(requeue, kind, reason)
+        if self.checkpoint_dir is not None:
+            # a failed or interrupted run may still have an async save in
+            # flight: let it commit (or log its own error) rather than orphan
+            # a half-written save behind the exception about to propagate
+            try:
+                self.checkpoint_dir.wait_until_finished()
+            except Exception:
+                self.logger.warning("pending async checkpoint save failed during teardown", exc_info=True)
+        if self.io_redirector is not None:
+            self.io_redirector.uninstall()
+        # restore process-wide signal dispositions: a stale handler would make
+        # a post-run SIGTERM a silent no-op
+        self._preemption.uninstall()
 
 
 @contextmanager

@@ -19,14 +19,26 @@ What carries over unchanged:
   ``misc/total_{train,val}_batches``, ``misc/worker_{train,val}_batches``,
   ``misc/step_dispatch_ms``, ``misc/train_step_avg_ms``, ``misc/host_stall_ms``
   and ``misc/lr_<name>``;
-- validation under ``torch.no_grad()``.
+- validation under ``torch.no_grad()``;
+- the EMA shadow (``ema_decay``), updated after each optimizer step and used
+  by validation (``val_with_ema``) through ``torch.func.functional_call``,
+  without a copy of the weights;
+- checkpointing (stage.py:809-1459 of the reference): epoch saves under the
+  stage's scope, step saves every ``checkpoint_every_steps()`` steps under
+  ``<name>.steps`` with the coordinated preemption poll, JSON resume sidecars
+  under ``meta/<scope>/``, and restore at stage start of a resumed pipeline,
+  mid-epoch included (the skipped batches are neither run nor copied to the
+  device).
 
-EMA, gradient accumulation, int8 training, precompile/verify/lint, the
-telemetry journal, checkpointing and preemption come in later slices.
+Gradient accumulation, int8 training, precompile/verify/lint and the
+telemetry journal come in later slices.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
+import json
 import sys
 import time
 from datetime import datetime
@@ -35,9 +47,11 @@ from typing import Any
 import numpy as np
 import torch
 
+from . import checkpoint as ckpt_lib
 from .metrics import MetricTracker, Reduction
+from .parallel import runtime
 from .parallel.runtime import is_root
-from .train_state import TrainState
+from .train_state import TrainState, ema_like
 from .utils.logging import DevNullIO, flush_log_handlers
 from .utils.profiling import StallTimer
 from .utils.table import ProgressTable
@@ -64,6 +78,7 @@ class Stage:
         self.epoch_stop_time = None
         self.current_epoch = 1
         self._stop_requested = False
+        self._preempt_exit = False
         self.metric_prefix = None
         self.table = None
 
@@ -136,12 +151,33 @@ class Stage:
 
     # -- lifecycle ----------------------------------------------------------
     def run(self):
-        """Run until ``max_epochs`` or ``stop_stage()``."""
+        """Run until ``max_epochs`` or ``stop_stage()``. A restored
+        ``_stop_requested`` (the stage had stopped before the interruption)
+        skips the loop entirely; a coordinated preemption exits early without
+        marking the stage stopped, so a resumed run continues it."""
         self._pre_stage()
         while not self._stop_requested and (self.max_epochs is None or self.current_epoch <= self.max_epochs):
             self._pre_epoch()
             self.run_epoch()
+            if getattr(self, "_mid_epoch_exit", False):
+                # a step save persisted the state and a coordinated preemption
+                # cut the epoch short: exit WITHOUT _post_epoch, so the partial
+                # epoch neither reduces metrics nor counts as complete
+                self._preempt_exit = True
+                self.logger.info(
+                    f"preemption requested; stage {self.name!r} exiting cleanly mid-epoch "
+                    f"{self.current_epoch} (state saved at the last step boundary; resumable)"
+                )
+                break
+            # decided BEFORE _post_epoch, so its save treats this epoch as final
+            self._preempt_exit = self.pipeline._preemption_coordinated()
             self._post_epoch()
+            if self._preempt_exit:
+                self.logger.info(
+                    f"preemption requested; stage {self.name!r} exiting cleanly after epoch "
+                    f"{self.current_epoch - 1} (resumable)"
+                )
+                break
         self._post_stage()
 
     def _pre_stage(self):
@@ -234,6 +270,22 @@ def _to_device(batch: Any, device: torch.device) -> Any:
     return batch
 
 
+class _Reparametrized:
+    """``module`` called with ``tensors`` in place of its parameters
+    (``torch.func.functional_call``), neither side copied; any other
+    attribute is the module's."""
+
+    def __init__(self, module: torch.nn.Module, tensors: dict[str, torch.Tensor]):
+        self.module = module
+        self.tensors = tensors
+
+    def __call__(self, *args, **kwargs):
+        return torch.func.functional_call(self.module, self.tensors, args, kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.module, name)
+
+
 class TrainValStage(Stage):
     """Train + validation stage around one eager step.
 
@@ -248,12 +300,24 @@ class TrainValStage(Stage):
         super().__init__()
         self.is_train = True
         self.state: TrainState | None = None
-        #: accumulates the wall-clock the host spends blocked on the device;
-        #: reset per epoch, published as ``misc/host_stall_ms``
+        #: accumulates the wall-clock the host spends blocked on the device
+        #: or on checkpoint saves; reset per epoch, published as
+        #: ``misc/host_stall_ms``
         self._stall = StallTimer()
         #: the current (or last) train epoch's per-step losses, as device
         #: tensors; the loop reads one only every ``log_every()`` steps
         self.train_losses: list[torch.Tensor] = []
+        #: batches of the CURRENT epoch to skip on a mid-epoch resume
+        #: (one-shot, set by _restore_state from a step-save sidecar, already
+        #: scaled to this run's world size)
+        self._resume_skip_steps = 0
+        #: wall-clock of the most recent state save: the preemption verdict's
+        #: save-on-preempt latency
+        self._last_save_latency_s: float | None = None
+        #: set when a preemption poll at a step save cut the epoch short:
+        #: run_epoch skips validation and Stage.run exits without treating the
+        #: partial epoch as complete
+        self._mid_epoch_exit = False
 
     # -- overridables -------------------------------------------------------
     def train_dataset(self):
@@ -285,6 +349,19 @@ class TrainValStage(Stage):
         """Global-norm clip threshold; 0 disables."""
         return 0.0
 
+    def ema_decay(self) -> float:
+        """Per-step decay of an exponential moving average of the parameters,
+        kept as an fp32 shadow on the state and updated after every optimizer
+        step; 0 disables, typical values are 0.999-0.9999. Validation runs on
+        the average (``val_with_ema``), and the shadow rides checkpoints and
+        resume like the rest of the state."""
+        return 0.0
+
+    def val_with_ema(self) -> bool:
+        """Whether validation sees the EMA parameters instead of the raw ones
+        (only meaningful when ``ema_decay() > 0``)."""
+        return True
+
     def log_every(self) -> int:
         """Steps between host reads of a (trailing) loss inside the training
         loop; each read feeds the NaN/inf guard and the live table. 0
@@ -295,6 +372,45 @@ class TrainValStage(Stage):
         """Whether the periodic read raises ``FloatingPointError`` on a
         non-finite loss."""
         return True
+
+    def async_checkpoint(self) -> bool:
+        """Whether this stage's saves commit on a background writer (the call
+        costs one copy of the state to host memory; default True). At most
+        one save per scope is in flight, and the waits at stage end, run end
+        and preemption exit make every save durable before the process goes
+        away, so resume behaves as with synchronous saves."""
+        return True
+
+    def checkpoint_every(self) -> int:
+        """Epochs between automatic state saves (0 disables). Active only
+        when ``pipeline.enable_checkpointing()`` was called. A resumed
+        pipeline continues bit-for-bit: parameters, optimizer state, step,
+        EMA, metric histories and the epoch counter are restored."""
+        return 1
+
+    def checkpoint_every_steps(self) -> int:
+        """Steps between mid-epoch state saves (0 disables, the default).
+        Every N steps the full state is saved under the ``<name>.steps`` scope
+        (newest only), the preemption flag is polled, so a preempted run exits
+        within N steps, and a resume whose step save is fresher than the last
+        completed epoch continues MID-epoch by skipping the consumed batches
+        of the train dataset, whose per-epoch order must be deterministic.
+        The resumed epoch's metrics cover only the steps after the resume."""
+        return 0
+
+    def checkpoint_keep(self) -> int:
+        """How many epoch saves the stage keeps."""
+        return 3
+
+    def checkpoint_best_metric(self) -> str | None:
+        """Tracker metric (e.g. ``'val/loss'``) ranking which epoch saves to
+        KEEP: the best ``checkpoint_keep()`` by this metric, plus always the
+        newest. None (default) keeps the most recent."""
+        return None
+
+    def checkpoint_best_mode(self) -> str:
+        """'min' (e.g. losses) or 'max' (e.g. accuracies)."""
+        return "min"
 
     def model_name(self) -> str | None:
         """Which registered model this stage trains (None = the only one)."""
@@ -308,6 +424,7 @@ class TrainValStage(Stage):
             model=entry.module,
             tx=self.pipeline.optimizers[opt_name],
             schedule=self.pipeline.schedulers.get(opt_name),
+            ema=float(self.ema_decay()) > 0.0,
         )
 
     def step(self, state: TrainState, batch) -> Any:
@@ -345,21 +462,70 @@ class TrainValStage(Stage):
             grads = [p.grad for p in state.model.parameters() if p.grad is not None]
             self._clip_gradients(grads, clip)
         state.apply_gradients()
+        decay = float(self.ema_decay())
+        if decay > 0.0:
+            state.update_ema(decay)
         metrics[self.loss_metric_name()] = loss.detach()
         return metrics
 
     @torch.no_grad()
     def _val_step(self, batch) -> dict:
-        self.state.model.eval()
-        loss, metrics = self._unpack(self.val_step(self.state, batch))
+        state = self.state
+        state.model.eval()
+        if state.ema is not None and float(self.ema_decay()) > 0.0 and self.val_with_ema():
+            # the user's val_step reads state.model as usual and runs on the
+            # average, cast to the parameters' dtypes (an fp32 shadow must not
+            # promote a bf16 model's forward to fp32)
+            params = dict(state.model.named_parameters())
+            ema = {n: e if e.dtype == params[n].dtype else e.to(params[n].dtype) for n, e in state.ema.items()}
+            state = dataclasses.replace(state, model=_Reparametrized(state.model, ema))
+        loss, metrics = self._unpack(self.val_step(state, batch))
         metrics[self.loss_metric_name()] = loss
         return metrics
 
     # -- lifecycle ----------------------------------------------------------
+    def _configure_state_manager(self):
+        """Bind this stage's retention options (keep count, optional
+        keep-best ranking) before any save or restore touches the scope."""
+        ckpt = self.pipeline.checkpoint_dir
+        if ckpt is None:
+            return
+        asave = bool(self.async_checkpoint())
+        # step-save scope first: it gets its newest-only retention even when
+        # the user configured the epoch scope or disabled epoch saves
+        if int(self.checkpoint_every_steps()) > 0 and not ckpt.has_state_manager(self._steps_scope):
+            ckpt.state_manager(self._steps_scope, max_to_keep=1, async_save=asave)
+        if int(self.checkpoint_every()) <= 0 or ckpt.has_state_manager(self.name):
+            return  # disabled, or the user configured this scope in pre_stage
+        policy = None
+        metric = self.checkpoint_best_metric()
+        if metric is not None:
+            mode = self.checkpoint_best_mode()
+            if mode not in ("min", "max"):
+                raise ValueError(f"checkpoint_best_mode() must be 'min' or 'max', got {mode!r}")
+            # best-N by the metric PLUS always the newest (a requeued run
+            # resumes from the latest epoch either way)
+            policy = ckpt_lib.AnyPreservationPolicy([
+                ckpt_lib.LatestN(n=1),
+                ckpt_lib.BestN(get_metric_fn=lambda m: m[metric], reverse=(mode == "min"),
+                               n=int(self.checkpoint_keep()), keep_checkpoints_without_metrics=False),
+            ])
+        keep = None if policy is not None else int(self.checkpoint_keep())
+        ckpt.state_manager(self.name, max_to_keep=keep, async_save=asave, preservation_policy=policy)
+
+    @property
+    def _steps_scope(self) -> str:
+        """Scope of the mid-epoch step saves (separate from the epoch scope,
+        so step ids never collide with epoch numbers)."""
+        return f"{self.name}.steps"
+
     def _pre_stage(self):
         super()._pre_stage()
         if self.state is None:
             self.state = self.make_state()
+        self._configure_state_manager()
+        if self.pipeline.resumed and (int(self.checkpoint_every()) > 0 or int(self.checkpoint_every_steps()) > 0):
+            self._restore_state()
 
     def _pre_epoch(self):
         self._stall.reset()  # misc/host_stall_ms is a per-epoch total
@@ -369,8 +535,219 @@ class TrainValStage(Stage):
         self.track("misc/host_stall_ms", round(self._stall.ms, 3), prefixed=False)
         super()._reduce_metrics()
 
+    def _post_epoch(self):
+        super()._post_epoch()
+        self._maybe_save_state()
+
+    def _post_stage(self):
+        # every async save of this stage is committed before the stage counts
+        # as finished: a following stage's restore, the run-end teardown and
+        # a preemption exit all rely on the newest save being durable here
+        ckpt = self.pipeline.checkpoint_dir
+        if ckpt is not None:
+            ckpt.wait_until_finished(scope=self.name)
+            ckpt.wait_until_finished(scope=self._steps_scope)
+        super()._post_stage()
+
+    # -- automatic state checkpointing --------------------------------------
+    def _maybe_save_state(self):
+        ckpt = self.pipeline.checkpoint_dir
+        every = int(self.checkpoint_every())
+        if ckpt is None or every <= 0 or self.state is None:
+            return
+        completed = self.current_epoch - 1  # super()._post_epoch incremented
+        final = completed == self.max_epochs or self._stop_requested or self._preempt_exit
+        if completed % every != 0 and not final:
+            return
+        metrics = None
+        best_metric = self.checkpoint_best_metric()
+        if best_metric is not None:
+            hist = self.tracker[best_metric] if best_metric in self.tracker else []
+            val = hist[-1] if hist else None
+            if val is None:
+                self.logger.warning(f"checkpoint_best_metric {best_metric!r} has no value for epoch {completed}; "
+                                    "this save is unranked (retained only while it is the newest)")
+            else:
+                metrics = {best_metric: float(val)}
+        # single flight: a save still committing is waited out (as stall)
+        # before the new one dispatches; the dispatch itself costs the copy to
+        # host memory (async) or the whole write (sync)
+        t0 = time.perf_counter()
+        with self._stall.measure():
+            self._stall.block(self.device)
+            ckpt.wait_until_finished(scope=self.name)
+            ckpt.save_state(completed, self.state.state_dict(), scope=self.name, metrics=metrics)
+        self._last_save_latency_s = time.perf_counter() - t0
+        if is_root():
+            from .utils.serialization import to_jsonable
+
+            try:
+                tracker_state = to_jsonable(self.tracker.state_dict())
+            except TypeError as e:
+                # a non-numeric tracked value must not kill the run at save time
+                # (only the root would die; the others would hang)
+                self.logger.warning(f"Metric tracker state is not JSON-encodable ({e}); saving resume "
+                                    "metadata without metric history")
+                tracker_state = None
+            self._write_resume_sidecar(
+                self.name, completed, {"epoch": completed, "stopped": self._stop_requested, "tracker": tracker_state}
+            )
+
+    def _write_resume_sidecar(self, scope: str, key: int, payload: dict) -> None:
+        """Root-side atomic sidecar write plus cleanup in lockstep with the
+        COMMITTED saves: while an async save is in flight, the previous save is
+        the newest restorable one, so its sidecar stays."""
+        ckpt = self.pipeline.checkpoint_dir
+        meta_dir = ckpt.path / "meta" / scope
+        meta_dir.mkdir(parents=True, exist_ok=True)
+        ckpt_lib.atomic_write_text(meta_dir / f"{key}.json", json.dumps(payload))
+        kept = set(ckpt.state_manager(scope).all_steps()) | {key}
+        for f in meta_dir.glob("*.json"):
+            if f.stem.isdigit() and int(f.stem) not in kept:
+                f.unlink(missing_ok=True)
+
+    def _save_step_state(self, epoch_step: int) -> None:
+        """Collective mid-epoch save keyed by the GLOBAL optimizer step, with a
+        root-written sidecar recording where inside which epoch it landed and
+        under which world size."""
+        ckpt = self.pipeline.checkpoint_dir
+        t0 = time.perf_counter()
+        with self._stall.measure():
+            self._stall.block(self.device)
+            ckpt.wait_until_finished(scope=self._steps_scope)
+            gstep = int(self.state.step)
+            ckpt.save_state(gstep, self.state.state_dict(), scope=self._steps_scope)
+        self._last_save_latency_s = time.perf_counter() - t0
+        if is_root():
+            payload = {"epoch": self.current_epoch, "step_in_epoch": epoch_step, "world_size": runtime.world_size()}
+            self._write_resume_sidecar(self._steps_scope, gstep, payload)
+
+    def _read_step_resume_meta(self, gstep: int) -> dict | None:
+        """Root only: the step-save sidecar, or None (degrade to epoch resume)."""
+        meta_file = self.pipeline.checkpoint_dir.path / "meta" / self._steps_scope / f"{gstep}.json"
+        try:
+            raw = json.loads(meta_file.read_text())
+            return {"epoch": int(raw["epoch"]), "step_in_epoch": int(raw["step_in_epoch"]),
+                    "world_size": int(raw.get("world_size", runtime.world_size()))}
+        except Exception:
+            self.logger.warning(f"No usable step-resume metadata at {meta_file}; falling back (last completed "
+                                "epoch if one exists, else weights-only step restore)")
+            return None
+
+    def _read_resume_meta(self, step: int) -> dict | None:
+        """Root only: read and validate the JSON resume sidecar of epoch save
+        ``step``; None (with a warning) on a missing, corrupt or ill-typed
+        file, and the caller degrades to a state-only resume."""
+        from .utils.serialization import from_jsonable
+
+        meta_file = self.pipeline.checkpoint_dir.path / "meta" / self.name / f"{step}.json"
+        try:
+            raw = json.loads(meta_file.read_text())
+            meta = {"epoch": int(raw["epoch"]), "stopped": bool(raw["stopped"]),
+                    "tracker": from_jsonable(raw["tracker"])}
+            if meta["tracker"] is not None:
+                # validate on a throwaway tracker: an incomplete sidecar degrades
+                # here instead of crashing the real restore
+                MetricTracker().load_state_dict(meta["tracker"])
+            return meta
+        except FileNotFoundError:
+            self.logger.warning(f"No resume metadata at {meta_file}; continuing from the saved state alone "
+                                "(metric history and early-stop flag are lost)")
+        except Exception:
+            self.logger.warning(f"Corrupt resume metadata {meta_file}; continuing from the saved state alone "
+                                "(metric history and early-stop flag are lost)")
+        return None
+
+    def _restore_tree(self, scope: str, key: int) -> None:
+        """Restore the state from ``scope``/``key`` in place, tolerating the
+        one legitimate structure drift: ``ema_decay()`` toggled since the save.
+        Any other mismatch raises."""
+        ckpt = self.pipeline.checkpoint_dir
+        template = self.state.state_dict()
+        saved_ema = any(k.startswith("ema.") for k in ckpt.state_manager(scope).keys(key))
+        if "ema" in template and not saved_ema:
+            self.logger.warning(f"Checkpoint {key} for scope '{scope}' has no EMA tree (ema_decay() was enabled "
+                                "after it was written); the shadow restarts from the restored params")
+            del template["ema"]
+        elif saved_ema and "ema" not in template:
+            self.logger.warning(f"Checkpoint {key} for scope '{scope}' carries an EMA tree but ema_decay() is "
+                                "now 0; the shadow is dropped")
+        ckpt.restore_state(key, template=template, scope=scope)
+        self.state.load_state_dict(template)
+        if self.state.ema is not None and not saved_ema:
+            # EMA newly enabled on a resumed run: average from the restored
+            # params, not from the initialisation
+            self.state.ema = ema_like(self.state.model)
+
+    def _restore_state(self):
+        ckpt = self.pipeline.checkpoint_dir
+        if ckpt is None or self.state is None:
+            return
+        # manual epoch checkpointing (checkpoint_every() == 0) owns its scope's
+        # keys, so only step saves are considered for automatic resume then
+        latest = ckpt.latest_step(scope=self.name) if int(self.checkpoint_every()) > 0 else None
+        # a step save mid-epoch may be fresher than the last completed epoch
+        step_meta = step_latest = None
+        if int(self.checkpoint_every_steps()) > 0:
+            step_latest = ckpt.latest_step(scope=self._steps_scope)
+            if step_latest is not None:
+                sm = self._read_step_resume_meta(step_latest) if is_root() else None
+                sm = runtime.broadcast_object(sm)
+                if sm is not None and sm["epoch"] > (latest or 0):
+                    step_meta = sm
+        # no epoch save to fall back on, but a step save with unusable position
+        # metadata: restore the WEIGHTS rather than silently train from scratch
+        blind_step = latest is None and step_meta is None and step_latest is not None
+        if latest is None and step_meta is None and not blind_step:
+            return  # e.g. a crash before this stage's first save
+        if step_meta is not None or blind_step:
+            self._restore_tree(self._steps_scope, step_latest)
+        else:
+            self._restore_tree(self.name, latest)
+        # the root alone reads the sidecar and broadcasts the result: ranks
+        # that read different files would diverge, then deadlock
+        meta = None
+        if latest is not None:
+            meta = runtime.broadcast_object(self._read_resume_meta(latest) if is_root() else None)
+        if meta is not None:
+            if meta["tracker"] is not None:
+                self.tracker.load_state_dict(meta["tracker"])
+            self.current_epoch = meta["epoch"] + 1
+            # a stage that had already stopped early must not re-train
+            self._stop_requested = meta["stopped"]
+        elif latest is not None:
+            self.current_epoch = latest + 1
+        if step_meta is not None:
+            self.current_epoch = step_meta["epoch"]
+            # the sidecar's batch count is per rank UNDER THE SAVED world size:
+            # re-derive this run's per-rank skip from the global count
+            saved_ws, ws = int(step_meta["world_size"]), runtime.world_size()
+            global_batches = step_meta["step_in_epoch"] * saved_ws
+            skip, rem = divmod(global_batches, ws)
+            if rem:
+                self.logger.warning(f"mid-epoch resume: {global_batches} globally-consumed batches do not divide "
+                                    f"the new world size {ws}; rounding down (up to {ws - 1} global batch(es) replay)")
+            self._resume_skip_steps = skip
+            # the restored tracker may trail the resumed epoch: pad the gap
+            self.tracker.fast_forward(self.current_epoch)
+            self.logger.info(
+                f"Restored stage '{self.name}' from mid-epoch step save (global step {step_latest}); continuing "
+                f"epoch {self.current_epoch} at batch {skip}"
+                + (f" (resharded from world size {saved_ws})" if saved_ws != ws else "")
+            )
+        elif blind_step:
+            self.logger.warning(f"Restored stage '{self.name}' WEIGHTS from step save {step_latest} but its position "
+                                f"metadata was unusable: the epoch loop restarts at epoch {self.current_epoch} on the "
+                                "restored state")
+        else:
+            self.logger.info(f"Restored stage '{self.name}' state from epoch {latest}; continuing at epoch "
+                             f"{self.current_epoch}")
+
+    # -- epochs -------------------------------------------------------------
     def run_epoch(self):
         self.train_epoch()
+        if self._mid_epoch_exit:
+            return  # preempted at a step save: no validation of a partial epoch
         self.val_epoch()
 
     def _feed(self, ds):
@@ -383,6 +760,14 @@ class TrainValStage(Stage):
         train_ds = self.train_dataset()
         if hasattr(train_ds, "set_epoch"):
             train_ds.set_epoch(self.current_epoch)
+
+        # mid-epoch resume: skip the batches the interrupted run consumed, on
+        # the host (no step runs and no copy reaches the device for them)
+        skipped, self._resume_skip_steps = self._resume_skip_steps, 0
+        if skipped:
+            train_ds = itertools.islice(iter(train_ds), skipped, None)
+            self.logger.info(f"mid-epoch resume: skipping the first {skipped} batches of epoch {self.current_epoch}")
+        every_steps = int(self.checkpoint_every_steps()) if self.pipeline.checkpoint_dir is not None else 0
 
         live = self.table.live_target() is not None
         log_every = int(self.log_every())
@@ -408,10 +793,18 @@ class TrainValStage(Stage):
             # misc/train_step_avg_ms for the synchronised per-step average)
             self.track_reduce("misc/step_dispatch_ms", (step_end - step_start) / 1e6, prefixed=False)
             steps_done += 1
-
             loss_val = metrics.get(loss_name)
             if loss_val is not None:
                 self.train_losses.append(loss_val)
+
+            if every_steps and (skipped + steps_done) % every_steps == 0:
+                self._save_step_state(skipped + steps_done)
+                if self.pipeline._preemption_coordinated():
+                    # the save just above is the resume point: cut the epoch
+                    # here (Stage.run handles the exit)
+                    self._mid_epoch_exit = True
+                    break
+
             if log_every > 0 and steps_done % log_every == 0 and self.train_losses:
                 # two steps behind: already computed, so the read barely waits
                 v = self._stall.fetch(self.train_losses[max(0, len(self.train_losses) - 3)])
@@ -432,6 +825,8 @@ class TrainValStage(Stage):
 
         # the epoch's one sync point: every queued step has run past this line
         self._stall.block(self.device)
+        if self._mid_epoch_exit:
+            return  # partial epoch: the resumed run finishes it and reduces its metrics
         train_elapsed = time.perf_counter() - epoch_t0
         if steps_done:
             self.track("misc/train_step_avg_ms", train_elapsed / steps_done * 1e3, prefixed=False)

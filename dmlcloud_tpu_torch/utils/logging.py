@@ -1,9 +1,13 @@
-"""Logging handlers, the experiment header and the run-start diagnostics.
+"""Logging handlers, the ``log.txt`` tee, the experiment header and the
+run-start diagnostics.
 
-Counterpart of ``dmlcloud_tpu/utils/logging.py``: rank-aware log handlers, the
-banner, and the reproducibility block, whose accelerator section reports the
-CUDA device (``torch.cuda.get_device_name``, the CUDA and torch versions, and
-``nvidia-smi --query-gpu=name,power.limit``) in place of the TPU topology.
+Counterpart of ``dmlcloud_tpu/utils/logging.py``: rank-aware log handlers,
+``IORedirector`` (stdout/stderr teed into the checkpoint directory's
+``log.txt``), the banner, and the reproducibility block, whose accelerator
+section reports the CUDA device (``torch.cuda.get_device_name``, the CUDA and
+torch versions, and ``nvidia-smi --query-gpu=name,power.limit``) in place of the
+TPU topology. The tee writes local paths only: the reference's remote
+(``gs://``) log file has no counterpart here yet.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import sys
 from pathlib import Path
 
 import torch
+
+from .git import git_hash
 
 logger = logging.getLogger("dmlcloud_tpu_torch")
 
@@ -30,6 +36,67 @@ BANNER = r"""
 
 #: modules whose versions the diagnostics report when they are imported
 ML_MODULES = ["torch", "numpy", "triton", "einops", "scipy"]
+
+
+class IORedirector:
+    """Tee ``sys.stdout``/``sys.stderr`` into a log file while still writing
+    to the original streams. Installed root-only once the checkpoint dir
+    exists; ``uninstall`` restores the originals."""
+
+    class _Tee(io.TextIOBase):
+        def __init__(self, parent: "IORedirector", stream):
+            self.parent = parent
+            self.stream = stream
+
+        def write(self, s) -> int:
+            n = self.stream.write(s)
+            if self.parent.file is not None:
+                try:
+                    self.parent.file.write(s)
+                except ValueError:  # file already closed
+                    pass
+            return n
+
+        def flush(self) -> None:
+            self.stream.flush()
+            if self.parent.file is not None:
+                try:
+                    self.parent.file.flush()
+                except ValueError:
+                    pass
+
+        @property
+        def encoding(self):
+            return getattr(self.stream, "encoding", "utf-8")
+
+        def isatty(self) -> bool:
+            return self.stream.isatty()
+
+        def fileno(self) -> int:
+            return self.stream.fileno()
+
+    def __init__(self, log_file: str | Path):
+        self.log_path = Path(log_file)
+        self.file = None
+        self._orig_stdout = None
+        self._orig_stderr = None
+
+    def install(self) -> None:
+        if self.file is not None:
+            return
+        self.file = open(self.log_path, "a", buffering=1)
+        self._orig_stdout = sys.stdout
+        self._orig_stderr = sys.stderr
+        sys.stdout = IORedirector._Tee(self, self._orig_stdout)
+        sys.stderr = IORedirector._Tee(self, self._orig_stderr)
+
+    def uninstall(self) -> None:
+        if self.file is None:
+            return
+        sys.stdout = self._orig_stdout
+        sys.stderr = self._orig_stderr
+        self.file.close()
+        self.file = None
 
 
 class DevNullIO(io.TextIOBase):
@@ -79,9 +146,9 @@ def experiment_header(name: str | None, checkpoint_path: str | None, start_time)
     return "\n".join(lines)
 
 
-def _run(cmd: list[str], cwd: Path | None = None) -> str | None:
+def _run(cmd: list[str]) -> str | None:
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=cwd, timeout=30)
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=30)
     except (OSError, subprocess.TimeoutExpired):
         return None
     return proc.stdout.strip() if proc.returncode == 0 else None
@@ -116,9 +183,9 @@ def general_diagnostics() -> str:
         lines.append(f"    - user: {getpass.getuser()}")
     except (OSError, KeyError):
         pass
-    git_hash = _run(["git", "rev-parse", "--verify", "HEAD"], cwd=Path(__file__).resolve().parent)
-    if git_hash:
-        lines.append(f"    - git-hash: {git_hash}")
+    h = git_hash()
+    if h:
+        lines.append(f"    - git-hash: {h}")
     lines.append(f"    - python: {sys.version.split()[0]}")
 
     lines.append("* ACCELERATORS:")

@@ -62,7 +62,9 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["loaded"] == []
     assert "dmlcloud_tpu_torch.ops.flash_attention" in result["modules"]
-    assert "dmlcloud_tpu_torch.stage" in result["modules"]
+    for name in ("stage", "checkpoint", "parallel.runtime", "utils.slurm", "utils.tcp", "utils.serialization",
+                 "utils.git", "utils.project"):
+        assert f"dmlcloud_tpu_torch.{name}" in result["modules"], name
     assert result["loss"] == result["loss"] and result["loss"] > 0  # finite, trained
     for name, did_raise in result["raised"].items():
         assert did_raise, f"{name} without a device ran on the CPU instead of raising"
