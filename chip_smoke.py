@@ -21,21 +21,34 @@ Phases, each fatal on failure:
    against the dot path, on the same weights (2 layers, also on packed rows,
    and all 24 layers);
 5. train: ``dmlcloud_tpu_torch.examples.train_lm.main`` trains the 1b model for
-   7 steps and validates on 1 batch through the port's ``TrainingPipeline``;
+   7 steps and validates on 1 batch through the port's ``TrainingPipeline``,
+   fed by ``device_iterator`` at depth 2 (pinned copies on a copy stream);
    every kernel's launch count is read around this run, the main path, and
    must show the tensor-core K1-K3 and no CUDA-core kernel;
 6. steady: three more synchronised train steps, and one under
    ``torch.profiler`` for the split of the step's device time;
 7. resume: phase 5's run again with ``--ema 0.999 --save-every-steps 4``,
    three times: uninterrupted (C); with a checkpoint directory and preemption
-   handling, sending itself SIGUSR1 after step 3 so that it drains at the
-   step-4 save (P); and resumed from P's directory (R), which must skip 4
+   handling, sending itself SIGUSR1 once its feed has read past batch 3, so
+   that it drains at the step-4 save (P); and resumed from P's directory (R), which must skip 4
    batches, launch only the tensor-core K1-K3, and end with the step, the
    parameters, the EMA shadow, the AdamW moments and count, and the losses of
    steps 5-7 and of validation bitwise equal to C's. It prints the state bytes
    per save, the disk, the seconds and GB/s of each save (the blocking part
    and the background commit) and of the restore, and the EMA pass's time per
-   step. Its directories live under a ``tempfile.mkdtemp()`` that it removes.
+   step. Its directories live under a ``tempfile.mkdtemp()`` that it removes;
+8. stage: phase 5's run again through ``examples.train_lm.build``, with the
+   stage's knobs set on the instance: (a) with ``device_prefetch() = 0`` and
+   with ``host_prefetch() = 2``, each bitwise equal to phase 5 in every
+   step's loss and ``val/loss`` (what a missing stream wait would break), and
+   one batch's host-to-device copy timed from pageable and from pinned
+   memory; (b) with ``gradient_accumulation() = 2``, ``--mfu`` and the flight
+   recorder armed: exact launch counts, the step-1 loss within 1e-2 of phase
+   5's, peak memory under phase 5's bound, the steady step, and the gradients
+   of one step with 2 microbatches against 1 within ``REL_TOL`` bf16 in norm;
+   (c) ``misc/mfu`` against the formula recomputed here; (d) the journal,
+   its Chrome trace, ``goodput.json``, the goodput buckets, no forensics
+   dump, and the recorder's host cost per step.
 
 The last line of standard output is one JSON object with ``"ok": true``. With no
 card, or without the package beside it, the script exits non-zero and prints no
@@ -501,24 +514,24 @@ def _device_us(event) -> float:
     return float(getattr(event, "self_device_time_total", 0.0) or getattr(event, "self_cuda_time_total", 0.0))
 
 
-def phase_steady(torch, stage) -> None:
-    """Three more steps of the trained stage on one of its batches, each
-    synchronised, then one under torch.profiler (after the main path's launch
-    counts were read)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    batch = next(iter(stage._feed(stage.train_dataset())))
+def steady_ms(torch, stage, batch, steps: int = 3) -> tuple[float, list[float]]:
+    """Median device time of ``steps`` more train steps of ``stage`` on
+    ``batch``, each synchronised (CUDA events), and the single times."""
     times = []
-    for _ in range(3):
+    for _ in range(steps):
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         stage._train_step(batch)
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop))
-    step_ms = statistics.median(times)
-    log(f"[steady] 1b train step (B=4, T=2048): {step_ms:.1f} ms median of {[round(t, 1) for t in times]} "
-        f"= {4 * 2048 / step_ms * 1e3:.0f} tokens/s")
+    return statistics.median(times), times
+
+
+def profile_step(torch, stage, batch) -> tuple[float, float, list]:
+    """One train step of ``stage`` under torch.profiler: its wall time and
+    device busy time in µs, and the device-side events."""
+    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -533,10 +546,22 @@ def phase_steady(torch, stage) -> None:
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
               and "Command Buffer" not in e.key]
-    busy_us = sum(_device_us(e) for e in events)
+    return wall_us, sum(_device_us(e) for e in events), events
+
+
+def phase_steady(torch, stage) -> float:
+    """Three more steps of the trained stage on one of its batches, each
+    synchronised, then one under torch.profiler (after the main path's launch
+    counts were read)."""
+    batch = next(iter(stage._feed(stage.train_dataset())))
+    step_ms, times = steady_ms(torch, stage, batch)
+    log(f"[steady] 1b train step (B=4, T=2048): {step_ms:.1f} ms median of {[round(t, 1) for t in times]} "
+        f"= {4 * 2048 / step_ms * 1e3:.0f} tokens/s")
+
+    wall_us, busy_us, events = profile_step(torch, stage, batch)
     if busy_us == 0:
         log("[steady] profiler recorded no device time: breakdown not measured")
-        return
+        return step_ms
     groups = {"flash_fwd_tc (K1)": "flash_fwd_tc_kernel", "flash_bwd_dq_tc (K2)": "flash_bwd_dq_tc_kernel",
               "flash_bwd_dkv_tc (K3)": "flash_bwd_dkv_tc_kernel", "flash_fwd (K1, CUDA cores)": "flash_fwd_kernel",
               "flash_bwd_dq (K2, CUDA cores)": "flash_bwd_dq_kernel",
@@ -552,6 +577,7 @@ def phase_steady(torch, stage) -> None:
     top = sorted(events, key=_device_us, reverse=True)[:16]
     for e in top:
         log(f"[steady]   top: {_device_us(e) / 1e3:8.1f} ms  x{e.count:<4} {e.key[:90]}")
+    return step_ms
 
 
 # ---------------------------------------------------------------------------
@@ -559,7 +585,8 @@ def phase_steady(torch, stage) -> None:
 # ---------------------------------------------------------------------------
 
 RESUME_ARGV = TRAIN_ARGV + ["--ema", "0.999", "--save-every-steps", "4"]
-#: SIGUSR1 arrives after this many train steps; the drain lands at the next save
+#: SIGUSR1 arrives once the feed has read past this many batches (it reads
+#: ahead of the step); the drain lands at the next save
 SIGNAL_AFTER = 3
 SAVE_STEP = 4
 TRAIN_STEPS = 7
@@ -727,6 +754,248 @@ def phase_resume(torch, fa, smi: str) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the stage's knobs on the 1b run (feed, accumulation, MFU, recorder)
+# ---------------------------------------------------------------------------
+
+ACCUM = 2
+
+
+def _build(argv, telemetry=None, **knobs):
+    """``examples.train_lm.build`` with the stage's knobs set on the instance."""
+    from dmlcloud_tpu_torch.examples.train_lm import build
+
+    pipe, stage = build(argv, telemetry=telemetry)
+    for name, value in knobs.items():
+        setattr(stage, name, (lambda v: lambda: v)(value))
+    return pipe, stage
+
+
+def _losses(stage) -> tuple[list[float], float]:
+    return [float(x) for x in stage.train_losses], float(stage.tracker["val/loss"][-1])
+
+
+def _free(torch) -> None:
+    gc.collect()  # stage and pipeline reference each other
+    torch.cuda.empty_cache()
+
+
+def _h2d_times(torch, host) -> dict:
+    """One host batch's copy to the card: from pageable memory, from pinned
+    memory (CUDA events, median of 10), and the host time of pinning it."""
+    src = torch.from_numpy(host)
+    pageable = cuda_ms(torch, lambda: src.to("cuda"))
+    pinned_src = src.pin_memory()
+    pinned = cuda_ms(torch, lambda: pinned_src.to("cuda", non_blocking=True))
+    pin = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        src.pin_memory()
+        pin.append((time.perf_counter() - t0) * 1e3)
+    return {"bytes": src.numel() * src.element_size(), "pageable_ms": pageable, "pinned_ms": pinned,
+            "pin_ms": statistics.median(pin)}
+
+
+def _grad_rel_err(torch, stage, batch) -> float:
+    """``||g2 - g1|| / ||g1||`` over all parameters, where g1 and g2 are the
+    gradients of one step on ``batch`` from the example's initial weights
+    (seed 0) with 1 and with ``ACCUM`` microbatches, both through the
+    stage's ``_backward``."""
+    from dmlcloud_tpu_torch.examples.train_lm import PRESETS
+    from dmlcloud_tpu_torch.models.transformer import DecoderLM, TransformerConfig
+    from dmlcloud_tpu_torch.train_state import TrainState
+
+    cfg = TransformerConfig(vocab_size=32000, max_seq_len=2048, attn_impl="flash", **PRESETS["1b"])
+    stage.state = TrainState(model=DecoderLM(cfg, device="cuda"), optimizer=None)
+    params = list(stage.state.model.parameters())
+    stage._backward(batch, 1)
+    g1 = [p.grad for p in params]
+    for p in params:
+        p.grad = None
+    stage._backward(batch, ACCUM)
+    diff = sum(float((p.grad.float() - g.float()).square().sum()) for p, g in zip(params, g1))
+    norm = sum(float(g.float().square().sum()) for g in g1)
+    stage.state = None
+    return math.sqrt(diff / norm)
+
+
+def _recorder_cost_us(journal_mod, watchdog_mod, root: str, steps: int = 2000) -> float:
+    """Host µs per train step of what the armed recorder adds to the step
+    loop: the timed ``next()`` with its ``data_wait`` span, the ``h2d`` span
+    and the ``step_dispatch`` span, each notifying the watchdog."""
+    j = journal_mod.SpanJournal(os.path.join(root, "recorder_cost"))
+    wd = watchdog_mod.HangWatchdog(os.path.join(root, "recorder_cost_forensics"), journal=j)
+    j.on_emit = wd.notify
+    journal_mod.activate(j)
+    try:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            a = time.perf_counter()
+            with journal_mod.span("h2d", prefetch=2):
+                pass
+            journal_mod.emit("data_wait", a, time.perf_counter())
+            b = time.perf_counter_ns()
+            journal_mod.emit("step_dispatch", b / 1e9, time.perf_counter_ns() / 1e9, step=i + 1)
+        cost = (time.perf_counter() - t0) / steps * 1e6
+    finally:
+        journal_mod.deactivate()
+        j.close()
+    return cost
+
+
+def phase_stage(torch, fa, smi: str, p5: dict) -> dict:
+    """Phase 8. ``p5``: phase 5's per-step losses and val/loss, and phase 6's
+    steady step in ms."""
+    from dmlcloud_tpu_torch.telemetry import journal as journal_mod
+    from dmlcloud_tpu_torch.telemetry import ledger_from_tracker, load_journals, to_chrome_trace
+    from dmlcloud_tpu_torch.telemetry import watchdog as watchdog_mod
+    from dmlcloud_tpu_torch.utils.profiling import PEAK_BF16_FLOPS, peak_flops_for_kind
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) the feed: synchronous and host-prefetched runs bitwise equal to phase 5
+    for what, knobs in (("device_prefetch 0", dict(device_prefetch=0)),
+                        ("host_prefetch 2 at depth 2", dict(host_prefetch=2))):
+        t0 = time.perf_counter()
+        pipe, stage = _build(TRAIN_ARGV, **knobs)
+        pipe.run()
+        torch.cuda.synchronize()
+        losses, val = _losses(stage)
+        log(f"[stage] (a) {what}: 7 steps + 1 val batch in {time.perf_counter() - t0:.1f} s wall; "
+            f"losses {[round(x, 4) for x in losses]}, val/loss {val:.6f}, "
+            f"train step avg {float(stage.tracker['misc/train_step_avg_ms'][-1]):.1f} ms")
+        if losses != p5["losses"] or val != p5["val"]:
+            raise AssertionError(f"(a) {what}: losses {losses} / val {val} are not bitwise phase 5's "
+                                 f"{p5['losses']} / {p5['val']}")
+        if "h2d" not in out:
+            host = next(iter(stage.train_dataset()))
+            out["h2d"] = h2d = _h2d_times(torch, host)
+            log(f"[stage] (a) one batch's host-to-device copy ({h2d['bytes']} bytes, [4, 2048] int32): pageable "
+                f"{h2d['pageable_ms'] * 1e3:.1f} us, pinned {h2d['pinned_ms'] * 1e3:.1f} us (CUDA events); "
+                f"pinning it {h2d['pin_ms'] * 1e3:.1f} us of host time [{smi}]")
+            batch = next(iter(stage._feed(stage.train_dataset())))
+            out["a_steady_ms"], times = steady_ms(torch, stage, batch)
+            log(f"[stage] (a) steady step {out['a_steady_ms']:.1f} ms median of {[round(t, 1) for t in times]}")
+        del pipe, stage
+        _free(torch)
+    log("[stage] (a) both feeds bitwise equal to phase 5: every step's loss and val/loss")
+
+    # (b) accumulation, with --mfu and the flight recorder armed
+    root = tempfile.mkdtemp(prefix="chip_smoke_stage_")
+    try:
+        tdir = os.path.join(root, "telemetry")
+        pipe, stage = _build(TRAIN_ARGV + ["--mfu"], telemetry=tdir, gradient_accumulation=ACCUM)
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()  # counted around this run alone
+        t0 = time.perf_counter()
+        pipe.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        losses, val = _losses(stage)
+        steps = len(losses)
+        want = {"flash_fwd_tc": 24 * (ACCUM * steps + 1), "flash_bwd_dq_tc": 24 * ACCUM * steps,
+                "flash_bwd_dkv_tc": 24 * ACCUM * steps, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        log(f"[stage] (b) gradient_accumulation {ACCUM}: {steps} steps + 1 val batch in {wall:.1f} s wall; losses "
+            f"{[round(x, 4) for x in losses]}, val/loss {val:.4f}; launches {launches}")
+        if steps != 7 or launches != want:
+            raise AssertionError(f"(b) {steps} steps, launches {launches}; want 7 and {want}")
+        if not all(math.isfinite(x) for x in losses + [val]):
+            raise AssertionError("(b) non-finite loss")
+        if abs(losses[0] - p5["losses"][0]) > 1e-2:
+            raise AssertionError(f"(b) step-1 loss {losses[0]:.4f} is not within 1e-2 of phase 5's {p5['losses'][0]:.4f}")
+        if peak >= PR1_PEAK_GIB * 2**30:
+            raise AssertionError(f"(b) peak memory {peak / 2**30:.2f} GiB not under {PR1_PEAK_GIB} GiB")
+        tracker = stage.tracker
+        n_params = sum(p.numel() for p in stage.state.model.parameters())
+        step_avg_ms = float(tracker["misc/train_step_avg_ms"][-1])
+        batch = next(iter(stage._feed(stage.train_dataset())))
+        b_steady, times = steady_ms(torch, stage, batch)
+        log(f"[stage] (b) step-1 loss {losses[0]:.4f} (phase 5: {p5['losses'][0]:.4f}, the mean of two half-batch "
+            f"means); peak memory {peak / 2**30:.2f} GiB (phase 5 bound {PR1_PEAK_GIB} GiB); steady step "
+            f"{b_steady:.1f} ms median of {[round(t, 1) for t in times]} (phase 6: {p5['steady_ms']:.1f} ms, "
+            f"(a): {out['a_steady_ms']:.1f} ms); train step avg {step_avg_ms:.1f} ms [{smi}]")
+        out.update(b_steady_ms=b_steady, peak_gib=peak / 2**30, launches=launches)
+        # where the accumulated step's extra time goes: one profiled step of
+        # each kind, on the same weights and batch, in turns
+        for accum in (1, ACCUM, ACCUM, 1):
+            stage.gradient_accumulation = (lambda a: lambda: a)(accum)
+            wall_us, busy_us, events = profile_step(torch, stage, batch)
+            gemm = sum(_device_us(e) for e in events if re.search(r"gemm|xmma|cutlass|nvjet|sm90_", e.key, re.I))
+            log(f"[stage] (b) profiled step with {accum} microbatch(es): wall {wall_us / 1e3:.1f} ms, device busy "
+                f"{busy_us / 1e3:.1f} ms (idle share {max(0.0, 1 - busy_us / wall_us):.3f}), matmuls "
+                f"{gemm / 1e3:.1f} ms, {sum(e.count for e in events)} device events")
+        stage.gradient_accumulation = lambda: ACCUM
+
+        # (c) MFU against the formula, recomputed here
+        name = torch.cuda.get_device_name(0)
+        peak_flops = peak_flops_for_kind(name)
+        key = next((k for k in sorted(PEAK_BF16_FLOPS, key=len, reverse=True) if k in name.lower()), None)
+        if peak_flops is None:
+            raise AssertionError(f"(c) no bf16 peak for {name!r} in PEAK_BF16_FLOPS")
+        flops = 6 * n_params * stage.config.batch_size * stage.config.seq_len  # 6 N B T, B 4, T 2048
+        mfu = float(tracker["misc/mfu"][-1])
+        want_mfu = flops / (step_avg_ms / 1e3) / peak_flops
+        if not math.isclose(mfu, want_mfu, rel_tol=1e-6):
+            raise AssertionError(f"(c) misc/mfu {mfu!r} is not 6*N*B*T/step/peak = {want_mfu!r}")
+        steady_mfu = flops / (b_steady / 1e3) / peak_flops
+        log(f"[stage] (c) {name!r} matched peak key {key!r} = {peak_flops / 1e12:.1f} TFLOP/s; N = {n_params} "
+            f"parameters, {flops:.4g} FLOP per step; misc/mfu (epoch, step 1's warm-up included) {mfu:.4f} = the "
+            f"formula at {step_avg_ms:.1f} ms; at the steady {b_steady:.1f} ms: {steady_mfu:.4f} [{smi}]")
+        out.update(mfu=mfu, steady_mfu=steady_mfu)
+
+        # (d) the flight recorder's output
+        records = load_journals(tdir)
+        files = sorted(f for f in os.listdir(tdir) if f.startswith("journal-rank0") and f.endswith(".jsonl"))
+        kinds = {}
+        for r in records:
+            kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+        missing = [k for k in ("run", "stage", "epoch", "step_dispatch", "data_wait", "h2d") if not kinds.get(k)]
+        if not files or missing or kinds.get("step_dispatch") != steps:
+            raise AssertionError(f"(d) journal {files}: span kinds {kinds}, missing {missing}, "
+                                 f"want {steps} step_dispatch spans")
+        trace = to_chrome_trace(records)
+        json.dumps(trace)
+        if not os.path.exists(os.path.join(tdir, "goodput.json")):
+            raise AssertionError("(d) goodput.json was not written")
+        gp = float(tracker["misc/goodput"][-1])
+        epoch_s = float(tracker["misc/epoch_time"][-1])
+        data_wait_ms = float(tracker["misc/data_wait_ms"][-1])
+        stall_ms = float(tracker["misc/host_stall_ms"][-1])
+        gap = gp * epoch_s + (data_wait_ms + stall_ms) / 1e3 - epoch_s
+        if not (0.0 < gp <= 1.0) or abs(gap) > 1e-3:
+            raise AssertionError(f"(d) goodput {gp}, buckets off the epoch time by {gap:.3g} s")
+        if os.path.exists(os.path.join(root, "forensics", "rank0.json")):
+            raise AssertionError("(d) the watchdog dumped forensics on a healthy run")
+        log(f"[stage] (d) journal {files}: {len(records)} spans {kinds}; Chrome trace of "
+            f"{len(trace['traceEvents'])} events; goodput {gp:.4f}: data_wait {data_wait_ms:.1f} ms + host stall "
+            f"{stall_ms:.1f} ms + productive {gp * epoch_s:.3f} s = epoch {epoch_s:.3f} s (off by {gap:.2g} s); "
+            f"no forensics dump")
+        for line in ledger_from_tracker(tracker).format_table().splitlines():
+            log(f"[stage] (d) {line}")
+        cost_us = _recorder_cost_us(journal_mod, watchdog_mod, root)
+        log(f"[stage] (d) the recorder's host cost: {cost_us:.1f} us per step (3 spans and the timed next()), "
+            f"{cost_us / 1e3 / b_steady:.2e} of the steady step; steady step with accumulation {b_steady:.1f} ms "
+            f"(the recorder's run) against (a)'s {out['a_steady_ms']:.1f} ms [{smi}]")
+        out.update(goodput=gp, recorder_us=cost_us)
+
+        # (b) the gradients of 2 microbatches against 1, from the initial weights
+        rel = _grad_rel_err(torch, stage, batch)
+        log(f"[stage] (b) one step from the initial weights: gradients with {ACCUM} microbatches against 1, "
+            f"norm-relative error {rel:.3g} (bound {REL_TOL['bfloat16']})")
+        if not rel <= REL_TOL["bfloat16"]:
+            raise AssertionError(f"(b) accumulated gradients off by {rel:.3g} in norm")
+        out["grad_rel"] = rel
+        del pipe, stage, batch
+        _free(torch)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[stage] phase 8 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+
 def main() -> None:
     try:
         import torch
@@ -747,11 +1016,12 @@ def main() -> None:
     launches, stage = phase_train(torch, fa)
     for row in rows.values():
         row["launches"] = launches[row["name"]]
-    phase_steady(torch, stage)
+    losses, val = _losses(stage)
+    p5 = {"losses": losses, "val": val, "steady_ms": phase_steady(torch, stage)}
     del stage
-    gc.collect()  # stage and pipeline reference each other
-    torch.cuda.empty_cache()
+    _free(torch)
     phase_resume(torch, fa, dev["smi"])
+    phase_stage(torch, fa, dev["smi"], p5)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(dev["smi"])

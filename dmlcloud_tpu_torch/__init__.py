@@ -8,7 +8,8 @@ nvcc at first use. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``.
 """
 
-from . import data, metrics, optim, parallel, utils
+from . import data, metrics, optim, parallel, telemetry, utils
+from .checkpoint import CheckpointDir, find_slurm_checkpoint, generate_checkpoint_path
 from .metrics import MetricReducer, MetricTracker, Reduction
 from .pipeline import TrainingPipeline
 from .stage import DatasetNotFoundError, Stage, TrainValStage
@@ -19,7 +20,11 @@ __all__ = [
     "metrics",
     "optim",
     "parallel",
+    "telemetry",
     "utils",
+    "CheckpointDir",
+    "find_slurm_checkpoint",
+    "generate_checkpoint_path",
     "MetricReducer",
     "MetricTracker",
     "Reduction",

@@ -1,13 +1,17 @@
-"""Sequence packing for the port's data path.
+"""Sequence packing and the background host reader of the port's data path.
 
-Only ``pack_sequences`` of ``dmlcloud_tpu/data/datasets.py`` is ported so far
-(the ``--pack`` flag of the LM example needs it); it is a verbatim numpy copy,
-so both packages pack a corpus into identical rows.
+Of ``dmlcloud_tpu/data/datasets.py`` two pieces are ported so far:
+``pack_sequences`` (the ``--pack`` flag of the LM example needs it), a
+verbatim numpy copy, so both packages pack a corpus into identical rows; and
+``_prefetch_iter`` (:828), the bounded-queue reader behind
+``device_iterator(host_prefetch=...)``.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Iterator, Sequence
+import queue as _queue
+import threading
+from typing import Any, Iterable, Iterator, Sequence
 
 import numpy as np
 
@@ -82,3 +86,51 @@ def _pack_sequences_iter(examples, seq_len, split_long):
             yield flush()
     if fill:
         yield flush()
+
+
+def _prefetch_iter(src: Iterator, num_elements: int, name: str = "dml-host-prefetch") -> Iterator:
+    """Read ``src`` ahead on a background thread through a queue of
+    ``num_elements``. An exception in the source re-raises in the consumer;
+    closing or abandoning the consumer generator stops the producer, which
+    otherwise would block forever on a full queue, pinning the thread, its
+    queued batches and the source. ``name`` labels the producer thread."""
+    q: _queue.Queue = _queue.Queue(maxsize=max(num_elements, 1))
+    stop = threading.Event()
+    _END, _ERR = object(), object()
+
+    def put(item: Any) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except _queue.Full:
+                continue
+        return False
+
+    def produce() -> None:
+        try:
+            for item in src:
+                if not put(item):
+                    return
+        except BaseException as e:  # noqa: BLE001 - re-raised on the consumer's side
+            put((_ERR, e))
+            return
+        put(_END)
+
+    # daemon, so that a leaked consumer can never pin process exit
+    thread = threading.Thread(target=produce, daemon=True, name=name)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _END:
+                return
+            if isinstance(item, tuple) and len(item) == 2 and item[0] is _ERR:
+                raise item[1]
+            yield item
+    finally:
+        stop.set()
+        try:  # free one slot, so that a producer blocked in put sees the stop
+            q.get_nowait()
+        except _queue.Empty:
+            pass

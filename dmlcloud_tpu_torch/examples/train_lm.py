@@ -1,7 +1,7 @@
 """Decoder-LM pretraining through the port's pipeline — the counterpart of
 ``examples/train_lm.py``, with the same presets and the flags of the ported
 paths (``--attn dot|flash``, ``--pack``, ``--window``, ``--checkpoint-dir``,
-``--save-every-steps``, ``--ema``).
+``--save-every-steps``, ``--ema``, ``--mfu``).
 
 Run on one GPU (``--device cpu`` runs on the CPU with the kernels' plain
 PyTorch versions):
@@ -16,8 +16,9 @@ reference's example does. To resume one, build the same pipeline with
 ``build(argv, resume=True)``, where ``--checkpoint-dir`` names the run
 directory itself (or its root, under a requeued Slurm job), and run it.
 
-``main(argv)`` returns the stage, so callers can read its tracked metrics and
-per-step losses.
+``build(argv, telemetry=...)`` arms the flight recorder
+(``TrainingPipeline(telemetry=...)``). ``main(argv)`` returns the stage, so
+callers can read its tracked metrics and per-step losses.
 """
 
 from __future__ import annotations
@@ -100,6 +101,18 @@ class LMStage(dml.TrainValStage):
     def checkpoint_every_steps(self):
         return int(self.config.get("save_every_steps", 0))
 
+    def step_flops(self):
+        # 6 * params * tokens per global batch (the JAX example's count: every
+        # parameter, embedding and head included); tracked as misc/mfu
+        if not self.config.get("mfu", False):
+            return 0.0
+        n_params = sum(p.numel() for p in self.state.model.parameters())
+        return 6.0 * n_params * self.config.batch_size * self.config.seq_len
+
+    def segment_ids_of(self, batch):
+        # --pack rows are [B, 2, T]: tokens, then segment ids
+        return batch[:, 1] if self.config.get("pack", False) else None
+
     def step(self, state, batch):
         if self.config.get("pack", False):
             toks, segs = batch[:, 0], batch[:, 1]
@@ -109,10 +122,13 @@ class LMStage(dml.TrainValStage):
         return lm_loss(logits, toks, segment_ids=segs)
 
 
-def build(argv: list[str] | None = None, resume: bool = False) -> tuple[dml.TrainingPipeline, LMStage]:
+def build(
+    argv: list[str] | None = None, resume: bool = False, telemetry=None
+) -> tuple[dml.TrainingPipeline, LMStage]:
     """The pipeline and stage that ``argv`` describes, not yet run; with
     ``resume``, a valid ``--checkpoint-dir`` is continued instead of a fresh
-    run directory being created under it."""
+    run directory being created under it; ``telemetry`` is passed to
+    ``TrainingPipeline``."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--preset", choices=sorted(PRESETS), default="tiny")
     parser.add_argument("--epochs", type=int, default=2)
@@ -129,6 +145,7 @@ def build(argv: list[str] | None = None, resume: bool = False) -> tuple[dml.Trai
     parser.add_argument("--checkpoint-dir", type=str, default=None)
     parser.add_argument("--ema", type=float, default=0.0, help="param EMA decay (0 off); validation uses the average")
     parser.add_argument("--save-every-steps", type=int, default=0, help="mid-epoch step saves (resumable mid-epoch)")
+    parser.add_argument("--mfu", action="store_true", help="track misc/mfu from the 6ND estimate")
     parser.add_argument("--device", default="cuda", help='"cuda" (default) or "cpu"')
     args = parser.parse_args(argv)
 
@@ -147,9 +164,10 @@ def build(argv: list[str] | None = None, resume: bool = False) -> tuple[dml.Trai
         "pack": args.pack,
         "ema": args.ema,
         "save_every_steps": args.save_every_steps,
+        "mfu": args.mfu,
         "seed": 0,
     }
-    pipeline = dml.TrainingPipeline(config, name=f"lm-{args.preset}", device=args.device)
+    pipeline = dml.TrainingPipeline(config, name=f"lm-{args.preset}", device=args.device, telemetry=telemetry)
     if args.checkpoint_dir:
         pipeline.enable_checkpointing(args.checkpoint_dir, resume=resume)
     stage = LMStage()

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..telemetry import journal as _journal
 from ..utils import slurm as _slurm
 from ..utils.tcp import find_free_port, get_local_ips
 
@@ -316,6 +317,7 @@ def barrier(tag: str = "", timeout: float = _DEFAULT_TIMEOUT) -> None:
     _barrier_state.update({"tag": tag, "id": barrier_id, "rank": rank(), "status": "waiting",
                            "entered_at": time.strftime("%Y-%m-%dT%H:%M:%S"), "timeout_s": timeout})
     keys = [f"{barrier_id}/arrived/{src}" for src in range(world_size())]
+    t0 = _journal.now()
     # Arrival keys are NOT deleted when their own barrier completes: a rank
     # whose timer expired in the same instant could then misreport arrived
     # ranks as stragglers. The root deletes them one completed barrier later,
@@ -328,10 +330,12 @@ def barrier(tag: str = "", timeout: float = _DEFAULT_TIMEOUT) -> None:
         if "timeout" in msg or "timed out" in msg or "deadline" in msg:
             stragglers = [src for src, key in enumerate(keys) if not store.check([key])]
             _barrier_state.update({"status": "timeout", "stragglers": stragglers})
+            _journal.emit("barrier", t0, label=tag, status="timeout", stragglers=stragglers)
             raise BarrierTimeout(tag, timeout, stragglers) from e
         _barrier_state["status"] = "error"
         raise  # not a timeout (e.g. the store's connection was lost)
     _barrier_state["status"] = "completed"
+    _journal.emit("barrier", t0, label=tag, status="completed")
     if is_root():
         for done_id in _gc_barrier_ids:
             for src in range(world_size()):

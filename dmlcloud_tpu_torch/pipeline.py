@@ -11,13 +11,19 @@ passes another; no card and no explicit CPU request raises).
 Checkpointing (``enable_checkpointing`` :364, the run directory of
 ``checkpoint.py`` with ``config.yaml`` and the ``log.txt`` tee) and preemption
 handling (``enable_preemption_handling`` :487, the requeue verdict of
-``run``/``_post_run``/``_teardown``) follow the reference. Wandb, tensorboard
-and meshes over many GPUs come in later slices.
+``run``/``_post_run``/``_teardown``) follow the reference, and so do the
+flight recorder that ``telemetry=`` arms (:115-150; ``_arm_telemetry`` :711,
+``_telemetry_ledger`` :775, ``_disarm_telemetry`` :801, with the ``"hang"``
+verdict that ``completed`` supersedes, :857-860) and the per-epoch metric
+sinks ``enable_wandb`` and ``enable_tensorboard`` (:386-434). Meshes over many
+GPUs come in a later slice.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 import re
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -32,6 +38,7 @@ from .parallel import runtime
 from .stage import Stage
 from .utils.config import Config, as_config
 from .utils.logging import IORedirector, add_log_handlers, experiment_header, general_diagnostics
+from .utils.wandb import wandb, wandb_is_initialized, wandb_set_startup_timeout
 
 
 @dataclass
@@ -41,7 +48,32 @@ class ModelEntry:
 
 
 class TrainingPipeline:
-    def __init__(self, config: Any = None, name: Optional[str] = None, device: str | torch.device | None = None):
+    def __init__(
+        self,
+        config: Any = None,
+        name: Optional[str] = None,
+        device: str | torch.device | None = None,
+        telemetry: Any = None,
+    ):
+        """``telemetry`` arms the flight recorder (``dmlcloud_tpu_torch.telemetry``):
+        a per-process span journal (JSONL), the goodput ledger (``misc/goodput``
+        and its buckets, a root-only end-of-run table and ``goodput.json``) and
+        the hang watchdog (a forensics dump and a ``"hang"`` requeue verdict when
+        span progress stops). ``True`` journals into ``<run dir>/telemetry``
+        (``./telemetry`` without checkpointing); a path selects the directory; a
+        dict configures ``{"dir", "hang_threshold_s" (default 600),
+        "watchdog_interval_s" (10), "ring_size" (1024)}``. Forensics go to
+        ``<run dir>/forensics``, else beside the journal directory. None/False
+        (default): off, and each instrumentation point is one attribute read."""
+        if telemetry is not None and not isinstance(telemetry, (bool, str, dict)) and not hasattr(
+            telemetry, "__fspath__"
+        ):
+            raise ValueError(f"telemetry must be None/bool, a directory path, or a config dict, got {telemetry!r}")
+        self._telemetry_cfg = telemetry
+        self.telemetry_dir: str | None = None
+        self._journal = None
+        self._watchdog = None
+        self._run_span_t0: float | None = None
         self.config: Config = as_config(config)
         self.name = name
         self.device = runtime.resolve_device(device)
@@ -61,12 +93,24 @@ class TrainingPipeline:
         self.schedulers: dict[str, Callable[[int], float]] = {}
         self._optimizer_model: dict[str, str | None] = {}
 
+        self.wandb = False
+        self._wandb_opts: dict | None = None
+        self._wandb_timeout = 360
+        self._tensorboard_dir: str | None = None
+        self._tb_writer = None
+
         self._preemption = runtime.PreemptionGuard(signals=())
         self._verdict_written = False
+        self._verdict_kind: Optional[str] = None
 
     @property
     def checkpointing_enabled(self) -> bool:
         return self.checkpoint_dir is not None
+
+    @property
+    def telemetry_armed(self) -> bool:
+        """True between telemetry arming at run start and the teardown."""
+        return self._journal is not None
 
     # -------------------------------------------------------- checkpointing
     def enable_checkpointing(self, root: str, resume: bool = False):
@@ -86,6 +130,42 @@ class TrainingPipeline:
             path = runtime.broadcast_object(generate_checkpoint_path(root=root, name=self.name))
             self.resumed = False
         self.checkpoint_dir = CheckpointDir(path)
+
+    # ------------------------------------------------------- metric sinks
+    def enable_wandb(
+        self,
+        project: str | None = None,
+        entity: str | None = None,
+        group: str | None = None,
+        tags: list[str] | None = None,
+        startup_timeout: int = 360,
+        **kwargs,
+    ):
+        """Send the tracker's per-epoch metrics to Weights & Biases. Only
+        stores the options here (a missing ``wandb`` raises ``ImportError``
+        now); the root process opens the run at run start. Extra ``kwargs``
+        pass through to ``wandb.init``."""
+        import wandb as _wandb  # noqa: F401 - a missing install surfaces at call time
+
+        self._wandb_opts = dict(entity=entity, project=project or self.name, group=group, tags=tags, **kwargs)
+        self._wandb_timeout = startup_timeout
+        self.wandb = True
+
+    def enable_tensorboard(self, logdir: str | None = None):
+        """Write the per-epoch tracker scalars as TensorBoard event files
+        (root only; needs ``tensorboardX``). Default logdir:
+        ``<checkpoint_dir>/tb``, resolved at run start."""
+        import tensorboardX  # noqa: F401 - a missing install surfaces at call time
+
+        self._tensorboard_dir = logdir if logdir is not None else "__checkpoint__"
+        return self
+
+    @runtime.root_only
+    def _start_wandb(self):
+        import wandb as _wandb
+
+        wandb_set_startup_timeout(self._wandb_timeout)
+        _wandb.init(config=self.config.to_dict(resolve=True), name=self.name, **self._wandb_opts)
 
     # ----------------------------------------------------------- preemption
     def enable_preemption_handling(self, signals: tuple[str, ...] | None = ("SIGTERM",)):
@@ -110,18 +190,21 @@ class TrainingPipeline:
         """Whether ANY rank caught a preemption signal."""
         return self._preemption.coordinated()
 
-    def _write_requeue_verdict(self, requeue: bool, kind: str, reason: str, **extra) -> None:
+    def _write_requeue_verdict(self, requeue: bool, kind: str, reason: str, force: bool = False, **extra) -> None:
         """Root-only, first-writer-wins requeue verdict of this run (a
-        preemption verdict must not be overwritten by the teardown's generic
-        classification). No-op without a checkpoint dir: there is nowhere
+        preemption or hang verdict must not be overwritten by the teardown's
+        generic classification; ``force`` is for the one legitimate
+        supersession: a run that recovered from a stall the watchdog flagged
+        and completed). No-op without a checkpoint dir: there is nowhere
         durable to resume from."""
-        if self._verdict_written or self.checkpoint_dir is None or not runtime.is_root():
+        if (self._verdict_written and not force) or self.checkpoint_dir is None or not runtime.is_root():
             return
         try:
             if not self.checkpoint_dir.exists:
                 return  # e.g. the run failed before _init_checkpointing created it
             write_requeue_verdict(self.checkpoint_dir.path, requeue, reason, kind, **extra)
             self._verdict_written = True
+            self._verdict_kind = kind
             self.logger.info("requeue verdict: requeue=%s (%s) — %s", requeue, kind, reason)
         except Exception:
             self.logger.warning("could not write requeue verdict", exc_info=True)
@@ -298,12 +381,28 @@ class TrainingPipeline:
         if len(self.stages) == 0:
             raise ValueError("No stages defined. Use append_stage() to add stages to the pipeline.")
         self._verdict_written = False
+        self._verdict_kind = None
         if not runtime.is_initialized():
             runtime.init_auto(self.device)
         # no process creates the directory before every process looked for it
         self.barrier()
         if self.checkpointing_enabled:
             self._init_checkpointing()
+        self._arm_telemetry()
+        if self.wandb:
+            self._start_wandb()
+        if self._tensorboard_dir is not None and runtime.is_root():
+            from .utils.tensorboard import TensorBoardWriter
+
+            tb_dir = self._tensorboard_dir
+            if tb_dir == "__checkpoint__":
+                if self.checkpoint_dir is None:
+                    raise ValueError(
+                        "enable_tensorboard() without a logdir needs checkpointing enabled "
+                        "(the default logdir is <checkpoint_dir>/tb); pass an explicit logdir"
+                    )
+                tb_dir = str(self.checkpoint_dir.path / "tb")
+            self._tb_writer = TensorBoardWriter(tb_dir)
         self.barrier()
         self.start_time = datetime.now()
         add_log_handlers(self.logger)
@@ -329,6 +428,96 @@ class TrainingPipeline:
         self.io_redirector = IORedirector(self.checkpoint_dir.log_file)
         self.io_redirector.install()
 
+    def _arm_telemetry(self):
+        """Start the flight recorder: journal, goodput ledger, hang watchdog.
+        Every process journals and watches; only the root prints the ledger."""
+        cfg = self._telemetry_cfg
+        if cfg is None or cfg is False:
+            return
+        from .telemetry import journal as journal_mod
+        from .telemetry.watchdog import HangWatchdog
+
+        opts = dict(cfg) if isinstance(cfg, dict) else {}
+        tdir = opts.get("dir")
+        if tdir is None and not isinstance(cfg, (bool, dict)):
+            tdir = os.fspath(cfg)
+        if tdir is None:
+            tdir = str(self.checkpoint_dir.path / "telemetry") if self.checkpoint_dir is not None else "telemetry"
+        self.telemetry_dir = os.path.abspath(tdir)
+        self._journal = journal_mod.SpanJournal(self.telemetry_dir, rank=runtime.rank(),
+                                                ring_size=int(opts.get("ring_size", 1024)))
+        journal_mod.activate(self._journal)
+        self._journal.start()
+        if self.checkpoint_dir is not None:
+            forensics_dir = str(self.checkpoint_dir.path / "forensics")
+        else:
+            forensics_dir = os.path.normpath(os.path.join(self.telemetry_dir, os.pardir, "forensics"))
+        self._watchdog = HangWatchdog(
+            forensics_dir,
+            rank=runtime.rank(),
+            world_size=runtime.world_size(),
+            threshold_s=float(opts.get("hang_threshold_s", 600.0)),
+            interval_s=float(opts.get("watchdog_interval_s", 10.0)),
+            journal=self._journal,
+        )
+        self._journal.on_emit = self._watchdog.notify
+
+        def hang_verdict(reason: str) -> None:
+            # a hang is transient by default: requeue, and name the stragglers
+            extra = {}
+            stragglers = runtime.barrier_state().get("stragglers")
+            if stragglers:
+                extra["stragglers"] = stragglers
+            self._write_requeue_verdict(True, "hang", reason, **extra)
+
+        self._watchdog.on_dump = hang_verdict
+        self._watchdog.start()
+        self._run_span_t0 = journal_mod.now()
+        if runtime.is_root():
+            self.logger.info("telemetry armed: journal %s, forensics %s (hang threshold %.0fs)",
+                             self.telemetry_dir, self._watchdog.dump_dir, self._watchdog.threshold_s)
+
+    def _telemetry_ledger(self):
+        """The end-of-run goodput ledger: the ``run`` span, then on the root
+        the table, the advice lines and ``goodput.json`` beside the journals."""
+        from .telemetry import journal as journal_mod
+        from .telemetry.goodput import ledger_from_tracker
+
+        if self._run_span_t0 is not None:
+            journal_mod.emit("run", self._run_span_t0, label=self.name or "run")
+        if not runtime.is_root():
+            return
+        ledger = ledger_from_tracker(self.tracker)
+        if ledger.rows:
+            self.logger.info("\n%s", ledger.format_table())
+            for line in ledger.advise():
+                self.logger.warning("goodput advisor: %s", line)
+        try:
+            with open(os.path.join(self.telemetry_dir, "goodput.json"), "w", encoding="utf-8") as f:
+                json.dump(ledger.to_dict(), f)
+        except OSError:
+            self.logger.warning("could not write %s/goodput.json", self.telemetry_dir, exc_info=True)
+
+    def _disarm_telemetry(self, exc: BaseException | None = None):
+        """The teardown half of ``_arm_telemetry``, on every exit path. An
+        uncaught exception first leaves a forensics dump."""
+        from .telemetry import journal as journal_mod
+
+        if self._watchdog is not None:
+            if exc is not None and not isinstance(exc, KeyboardInterrupt):
+                try:
+                    path = self._watchdog.dump(f"uncaught exception: {type(exc).__name__}: {exc}")
+                    self.logger.info("forensics dumped to %s", path)
+                except Exception:
+                    self.logger.warning("forensics dump failed", exc_info=True)
+            self._watchdog.stop()
+            self._watchdog = None
+        if self._journal is not None:
+            if journal_mod.active_journal() is self._journal:
+                journal_mod.deactivate()
+            self._journal.close()
+            self._journal = None
+
     def _resume_run(self):
         self.logger.info(f"Resuming training from checkpoint: {self.checkpoint_dir}")
         self.resume_run()
@@ -337,13 +526,28 @@ class TrainingPipeline:
         self.stop_time = datetime.now()
         if self.checkpoint_dir is not None:
             self.checkpoint_dir.wait_until_finished()
+        if self.telemetry_armed:
+            self._telemetry_ledger()
         self.logger.info(f"Finished training in {self.stop_time - self.start_time} ({self.stop_time})")
         if self.checkpointing_enabled:
             self.logger.info(f"Outputs have been saved to {self.checkpoint_dir}")
         # a run that got here without a preemption verdict finished for real:
-        # the requeue wrapper stands down
-        self._write_requeue_verdict(False, "completed", "run finished all stages")
+        # the requeue wrapper stands down. A survived watchdog stall is the one
+        # verdict that completion supersedes (the run recovered).
+        self._write_requeue_verdict(False, "completed", "run finished all stages",
+                                    force=(self._verdict_kind == "hang"))
         self.post_run()
+
+    def _post_epoch(self):
+        """Send the finished epoch's values to wandb and TensorBoard (root only)."""
+        if not ((self.wandb or self._tb_writer is not None) and runtime.is_root()):
+            return
+        metrics = {name: self.tracker[name][-1] for name in self.tracker if self.tracker[name]}
+        if self.wandb:
+            wandb.log(metrics)
+        if self._tb_writer is not None:
+            # the stage's _reduce_metrics has advanced the tracker already
+            self._tb_writer.log_epoch(metrics, epoch=self.tracker.epoch - 1)
 
     def _teardown(self, exc: BaseException | None) -> None:
         """Runs whether the stages finished, raised or were interrupted; the
@@ -356,6 +560,10 @@ class TrainingPipeline:
             # first writer wins: a preemption verdict of this run stays
             requeue, kind, reason = self._classify_failure(exc)
             self._write_requeue_verdict(requeue, kind, reason)
+        try:
+            self._disarm_telemetry(exc)
+        except Exception:
+            self.logger.warning("telemetry teardown failed", exc_info=True)
         if self.checkpoint_dir is not None:
             # a failed or interrupted run may still have an async save in
             # flight: let it commit (or log its own error) rather than orphan
@@ -364,6 +572,11 @@ class TrainingPipeline:
                 self.checkpoint_dir.wait_until_finished()
             except Exception:
                 self.logger.warning("pending async checkpoint save failed during teardown", exc_info=True)
+        if self.wandb and wandb_is_initialized():
+            wandb.finish(exit_code=0 if exc is None else 1)
+        if self._tb_writer is not None:
+            self._tb_writer.close()
+            self._tb_writer = None
         if self.io_redirector is not None:
             self.io_redirector.uninstall()
         # restore process-wide signal dispositions: a stale handler would make

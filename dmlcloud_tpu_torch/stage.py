@@ -17,8 +17,19 @@ What carries over unchanged:
   epoch-end reduction — no ``.item()`` per step;
 - the tracked metric names: ``{train,val}/loss``,
   ``misc/total_{train,val}_batches``, ``misc/worker_{train,val}_batches``,
-  ``misc/step_dispatch_ms``, ``misc/train_step_avg_ms``, ``misc/host_stall_ms``
-  and ``misc/lr_<name>``;
+  ``misc/step_dispatch_ms``, ``misc/train_step_avg_ms``, ``misc/host_stall_ms``,
+  ``misc/lr_<name>`` and, with ``step_flops()``, ``misc/mfu``;
+- ``deferred_metrics()``: ``False`` reads every step's metrics to the host
+  (the eager path the reference keeps for bisection) and runs the NaN guard
+  every step;
+- gradient accumulation (stage.py:419, :733-780 of the reference): the batch
+  is split along dim 0 into ``gradient_accumulation()`` microbatches run one
+  after another, each mean loss backpropagated unscaled, the gradients summed
+  in fp32 and divided once at the end, then one clip, one optimizer update
+  and one EMA update;
+- the feed: ``data.device_iterator`` with ``prefetch_depth()`` pinned copies
+  in flight on a copy stream and optionally ``host_prefetch()`` batches read
+  on a background thread;
 - validation under ``torch.no_grad()``;
 - the EMA shadow (``ema_decay``), updated after each optimizer step and used
   by validation (``val_with_ema``) through ``torch.func.functional_call``,
@@ -28,10 +39,14 @@ What carries over unchanged:
   ``<name>.steps`` with the coordinated preemption poll, JSON resume sidecars
   under ``meta/<scope>/``, and restore at stage start of a resumed pipeline,
   mid-epoch included (the skipped batches are neither run nor copied to the
-  device).
+  device);
+- the flight recorder's side (``TrainingPipeline(telemetry=...)``):
+  ``stage``, ``epoch``, ``step_dispatch`` and ``data_wait`` spans, and the
+  goodput buckets ``misc/data_wait_ms``, ``misc/ckpt_ms``, ``misc/goodput``
+  and ``misc/pad_fraction``.
 
-Gradient accumulation, int8 training, precompile/verify/lint and the
-telemetry journal come in later slices.
+Int8 training, precompile/buckets and the lint/verify/sanitize arms come in
+later slices.
 """
 
 from __future__ import annotations
@@ -48,12 +63,14 @@ import numpy as np
 import torch
 
 from . import checkpoint as ckpt_lib
+from .data.device import device_iterator
 from .metrics import MetricTracker, Reduction
 from .parallel import runtime
 from .parallel.runtime import is_root
+from .telemetry import journal as _journal
 from .train_state import TrainState, ema_like
 from .utils.logging import DevNullIO, flush_log_handlers
-from .utils.profiling import StallTimer
+from .utils.profiling import StallTimer, device_kind, peak_flops_for_kind
 from .utils.table import ProgressTable
 
 __all__ = ["Stage", "TrainValStage", "DatasetNotFoundError"]
@@ -81,6 +98,8 @@ class Stage:
         self._preempt_exit = False
         self.metric_prefix = None
         self.table = None
+        self._stage_span_t0 = 0.0
+        self._epoch_span_t0 = 0.0
 
     @property
     def tracker(self) -> MetricTracker:
@@ -182,6 +201,7 @@ class Stage:
 
     def _pre_stage(self):
         self.start_time = datetime.now()
+        self._stage_span_t0 = _journal.now()
         self.table = ProgressTable(file=sys.stdout if is_root() else DevNullIO())
         self._setup_table()
         if len(self.pipeline.stages) > 1:
@@ -195,18 +215,22 @@ class Stage:
         self.post_stage()
         self.pipeline.barrier()
         self.stop_time = datetime.now()
+        _journal.emit("stage", self._stage_span_t0, label=self.name, epochs=self.current_epoch - 1)
         if len(self.pipeline.stages) > 1:
             self.logger.info(f"Finished stage in {self.stop_time - self.start_time}")
 
     def _pre_epoch(self):
         self.epoch_start_time = datetime.now()
+        self._epoch_span_t0 = _journal.now()
         self.table["Epoch"] = self.current_epoch
         self.pre_epoch()
 
     def _post_epoch(self):
         self.epoch_stop_time = datetime.now()
+        _journal.emit("epoch", self._epoch_span_t0, label=self.name, epoch=self.current_epoch)
         self._reduce_metrics()
         self.post_epoch()
+        self.pipeline._post_epoch()
         self._update_table()
         self.current_epoch += 1
 
@@ -256,18 +280,34 @@ class Stage:
         return metrics
 
 
-def _to_device(batch: Any, device: torch.device) -> Any:
-    """Move a host batch (numpy arrays or tensors, possibly in a dict, list
-    or tuple) onto ``device``."""
-    if isinstance(batch, np.ndarray):
-        return torch.from_numpy(batch).to(device, non_blocking=True)
-    if isinstance(batch, torch.Tensor):
-        return batch.to(device, non_blocking=True)
-    if isinstance(batch, dict):
-        return {k: _to_device(v, device) for k, v in batch.items()}
-    if isinstance(batch, (list, tuple)):
-        return type(batch)(_to_device(v, device) for v in batch)
-    return batch
+def _split_batch(batch: Any, accum: int) -> list:
+    """``batch`` as ``accum`` microbatches: every tensor leaf (in a dict, tuple
+    or list) split along dim 0 into equal views, other leaves shared. Raises
+    ``ValueError`` before anything runs when a leaf's dim 0 is not divisible."""
+
+    def check(x):
+        if isinstance(x, torch.Tensor):
+            if x.dim() == 0 or x.shape[0] % accum:
+                n = x.shape[0] if x.dim() else "a scalar"
+                raise ValueError(f"gradient_accumulation()={accum} must divide the batch dimension, got {n}")
+        elif isinstance(x, dict):
+            for v in x.values():
+                check(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                check(v)
+
+    def part(x, i):
+        if isinstance(x, torch.Tensor):
+            return x.chunk(accum)[i]
+        if isinstance(x, dict):
+            return {k: part(v, i) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(part(v, i) for v in x)
+        return x
+
+    check(batch)
+    return [part(batch, i) for i in range(accum)]
 
 
 class _Reparametrized:
@@ -318,6 +358,16 @@ class TrainValStage(Stage):
         #: run_epoch skips validation and Stage.run exits without treating the
         #: partial epoch as complete
         self._mid_epoch_exit = False
+        #: True exactly while the step loop of train_epoch runs: the window in
+        #: which no metric is read to the host under ``deferred_metrics()``
+        self._in_step_loop = False
+        #: goodput accounting (telemetry armed only): ns the host spent in the
+        #: feed's next() this epoch, and the padding and token slots of its
+        #: host batches (``misc/pad_fraction``)
+        self._gp_data_wait_ns = 0
+        self._gp_pad_slots = 0
+        self._gp_token_slots = 0
+        self._warned_mfu_peak = False
 
     # -- overridables -------------------------------------------------------
     def train_dataset(self):
@@ -349,6 +399,53 @@ class TrainValStage(Stage):
         """Global-norm clip threshold; 0 disables."""
         return 0.0
 
+    def gradient_accumulation(self) -> int:
+        """Microbatches per optimizer step (1 disables). Each batch is split
+        along dim 0 into that many equal microbatches (tensors in a dict,
+        tuple or list are split alike; other leaves go to every microbatch),
+        which run one after another: each microbatch's mean loss is
+        backpropagated unscaled, the gradients are summed in fp32 and divided
+        by the count once at the end, as the reference does. Losses and step
+        metrics are averaged in fp32, so ``step`` should return mean-reduced
+        values. In-place module buffers see the microbatches in order. Clip,
+        the optimizer update and the EMA update then run once, and
+        ``state.step`` and ``misc/total_train_batches`` count one step."""
+        return 1
+
+    def step_flops(self) -> float:
+        """FLOPs of one optimizer step over all processes (forward and
+        backward of the global batch; a multiply-add counts as 2). A positive
+        value makes the stage track ``misc/mfu`` each epoch, ``flops * steps /
+        train_elapsed / (peak * world_size)``, against the card's dense bf16
+        peak (``utils.profiling.PEAK_BF16_FLOPS``); a device without an entry
+        there (the CPU) gets a warning and no metric. 0 (default) disables.
+        Rule of thumb for a transformer: ``6 * params * tokens per batch``."""
+        return 0.0
+
+    def device_prefetch(self) -> int:
+        """Batches whose host-to-device copies are in flight ahead of the step
+        (``data.device_iterator``): 2 (default) overlaps the copy of batch
+        N+1 with step N; 0 copies each batch when the step asks for it."""
+        return 2
+
+    def prefetch_depth(self) -> int:
+        """The reference's name for the device prefetch depth; defaults to
+        ``device_prefetch()``, so overrides of either work."""
+        return int(self.device_prefetch())
+
+    def host_prefetch(self) -> int:
+        """Host batches read ahead on a background thread before the copies
+        (0, the default, reads them on the training thread)."""
+        return 0
+
+    def deferred_metrics(self) -> bool:
+        """Whether per-step metrics stay on the device until the epoch-end
+        reduction (default True; the loop then reads a trailing loss only
+        every ``log_every()`` steps). False reads every step's metrics to the
+        host under ``StallTimer`` (``metric_readback``) and runs the NaN guard
+        every step: the same epoch values, more host stalls."""
+        return True
+
     def ema_decay(self) -> float:
         """Per-step decay of an exponential moving average of the parameters,
         kept as an fp32 shadow on the state and updated after every optimizer
@@ -364,14 +461,21 @@ class TrainValStage(Stage):
 
     def log_every(self) -> int:
         """Steps between host reads of a (trailing) loss inside the training
-        loop; each read feeds the NaN/inf guard and the live table. 0
-        disables the periodic read."""
+        loop when ``deferred_metrics()`` is on; each read feeds the NaN/inf
+        guard and the live table. 0 disables the periodic read."""
         return 50
 
     def nan_guard(self) -> bool:
-        """Whether the periodic read raises ``FloatingPointError`` on a
-        non-finite loss."""
+        """Whether a non-finite loss raises ``FloatingPointError``: at the
+        periodic read under deferred metrics, at every step under eager ones."""
         return True
+
+    def segment_ids_of(self, batch) -> np.ndarray | None:
+        """The segment ids of a HOST batch (0 marks padding), for
+        ``misc/pad_fraction`` when telemetry is armed: by default the
+        ``"segment_ids"`` entry of a dict batch, the reference's contract.
+        Override for other layouts; None counts nothing."""
+        return batch.get("segment_ids") if isinstance(batch, dict) else None
 
     def async_checkpoint(self) -> bool:
         """Whether this stage's saves commit on a background writer (the call
@@ -440,9 +544,17 @@ class TrainValStage(Stage):
     # -- the steps ----------------------------------------------------------
     @staticmethod
     def _unpack(out) -> tuple[torch.Tensor, dict]:
-        if isinstance(out, tuple):
-            return out[0], dict(out[1])
-        return out, {}
+        if not isinstance(out, tuple):
+            return out, {}
+        if len(out) == 3:
+            raise TypeError(
+                "step() returned a 3-tuple (loss, metrics, new_extras): the reference threads auxiliary state "
+                "through the step's return value, but here the auxiliary state is the module's in-place buffers "
+                "(e.g. BatchNorm running stats), which step() updates as it runs; return (loss, metrics)"
+            )
+        if len(out) != 2:
+            raise TypeError(f"step() must return loss or (loss, metrics), got a {len(out)}-tuple")
+        return out[0], dict(out[1])
 
     def _clip_gradients(self, grads: list[torch.Tensor], clip: float) -> None:
         """Scale ``grads`` in place by ``min(1, clip * rsqrt(max(sum g^2, 1e-12)))``,
@@ -451,12 +563,50 @@ class TrainValStage(Stage):
         scale = torch.clamp(clip * torch.rsqrt(torch.clamp(sq, min=1e-12)), max=1.0)
         torch._foreach_mul_(grads, scale)
 
+    def _backward(self, batch, accum: int) -> tuple[torch.Tensor, dict]:
+        """Leave the step's gradients on the parameters (``p.grad``) and return
+        its loss and metrics: one forward and backward, or ``accum``
+        microbatches whose gradients are summed in fp32 and divided by
+        ``accum`` once at the end (the reference's ``_accumulate``). An fp32
+        parameter's ``p.grad`` is that fp32 sum itself (autograd adds into
+        it); any other dtype gets an fp32 accumulator and is cast back after
+        the division."""
+        state = self.state
+        if accum == 1:
+            loss, metrics = self._unpack(self.train_step(state, batch))
+            loss.backward()
+            return loss, metrics
+        micro = _split_batch(batch, accum)
+        low = [p for p in state.model.parameters() if p.requires_grad and p.dtype != torch.float32]
+        acc: dict[torch.nn.Parameter, torch.Tensor] = {}
+        loss_sum, metric_sums = None, {}
+        for mb in micro:
+            loss, metrics = self._unpack(self.train_step(state, mb))
+            loss.backward()
+            for p in low:
+                if p.grad is not None:
+                    g = p.grad.float()
+                    acc[p] = g if p not in acc else acc[p].add_(g)
+                    p.grad = None
+            # fp32 sums, as the reference's scan carries them
+            loss = loss.detach().float()
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+            for name, value in metrics.items():
+                value = torch.as_tensor(value).detach().float()
+                metric_sums[name] = value if name not in metric_sums else metric_sums[name] + value
+        with torch.no_grad():
+            for p in state.model.parameters():
+                if p in acc:
+                    p.grad = acc[p].div_(accum).to(p.dtype)
+                elif p.grad is not None:
+                    p.grad.div_(accum)
+        return loss_sum / accum, {name: v / accum for name, v in metric_sums.items()}
+
     def _train_step(self, batch) -> dict:
         state = self.state
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = self._unpack(self.train_step(state, batch))
-        loss.backward()
+        loss, metrics = self._backward(batch, int(self.gradient_accumulation()))
         clip = float(self.gradient_clip())
         if clip > 0.0:
             grads = [p.grad for p in state.model.parameters() if p.grad is not None]
@@ -529,10 +679,31 @@ class TrainValStage(Stage):
 
     def _pre_epoch(self):
         self._stall.reset()  # misc/host_stall_ms is a per-epoch total
+        self._gp_data_wait_ns = 0
+        self._gp_pad_slots = 0
+        self._gp_token_slots = 0
         super()._pre_epoch()
+
+    @property
+    def _telemetry_armed(self) -> bool:
+        return self.pipeline.telemetry_armed
 
     def _reduce_metrics(self):
         self.track("misc/host_stall_ms", round(self._stall.ms, 3), prefixed=False)
+        if self._telemetry_armed and self.epoch_stop_time is not None:
+            # the goodput ledger's buckets, disjoint by construction: data_wait
+            # is timed outside the stall timer, ckpt is the timer's
+            # "checkpoint" share, productive is the rest
+            epoch_s = (self.epoch_stop_time - self.epoch_start_time).total_seconds()
+            data_wait_ms = self._gp_data_wait_ns / 1e6
+            productive_s = max(epoch_s - (data_wait_ms + self._stall.ms) / 1e3, 0.0)
+            self.track_reduce("misc/data_wait_ms", round(data_wait_ms, 3), prefixed=False)
+            self.track_reduce("misc/ckpt_ms", round(self._stall.label_ms("checkpoint"), 3), prefixed=False)
+            self.track_reduce("misc/goodput", round(productive_s / epoch_s, 6) if epoch_s > 0 else 0.0,
+                              prefixed=False)
+            if self._gp_token_slots:
+                self.track_reduce("misc/pad_fraction", round(self._gp_pad_slots / self._gp_token_slots, 6),
+                                  prefixed=False)
         super()._reduce_metrics()
 
     def _post_epoch(self):
@@ -573,7 +744,7 @@ class TrainValStage(Stage):
         # before the new one dispatches; the dispatch itself costs the copy to
         # host memory (async) or the whole write (sync)
         t0 = time.perf_counter()
-        with self._stall.measure():
+        with self._stall.measure(label="checkpoint"):
             self._stall.block(self.device)
             ckpt.wait_until_finished(scope=self.name)
             ckpt.save_state(completed, self.state.state_dict(), scope=self.name, metrics=metrics)
@@ -612,7 +783,7 @@ class TrainValStage(Stage):
         under which world size."""
         ckpt = self.pipeline.checkpoint_dir
         t0 = time.perf_counter()
-        with self._stall.measure():
+        with self._stall.measure(label="checkpoint"):
             self._stall.block(self.device)
             ckpt.wait_until_finished(scope=self._steps_scope)
             gstep = int(self.state.step)
@@ -751,8 +922,46 @@ class TrainValStage(Stage):
         self.val_epoch()
 
     def _feed(self, ds):
-        device = self.device
-        return (_to_device(batch, device) for batch in ds)
+        """The device feed: ``data.device_iterator`` with ``prefetch_depth()``
+        copies in flight and ``host_prefetch()`` host batches read ahead."""
+        if self._telemetry_armed:
+            ds = self._count_padding(ds)
+        return device_iterator(ds, self.device, prefetch=int(self.prefetch_depth()),
+                               host_prefetch=int(self.host_prefetch()))
+
+    def _count_padding(self, ds):
+        """Count padding slots (segment id 0, from ``segment_ids_of``) of the
+        HOST batches, before any copy: ``misc/pad_fraction``. Only numpy
+        segment ids count, so no device value is read."""
+        for batch in ds:
+            seg = self.segment_ids_of(batch)
+            if isinstance(seg, np.ndarray) and seg.size:
+                self._gp_pad_slots += int(np.count_nonzero(seg == 0))
+                self._gp_token_slots += int(seg.size)
+            yield batch
+
+    def _timed_feed(self, ds):
+        """``_feed`` with each ``next()`` timed into the goodput ledger's
+        data_wait bucket and journalled as a ``data_wait`` span."""
+        it = iter(self._feed(ds))
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                t1 = time.perf_counter()
+                self._gp_data_wait_ns += int((t1 - t0) * 1e9)
+                _journal.emit("data_wait", t0, t1)
+                yield batch
+        finally:
+            # a break out of the loop (the preemption drain) shuts the feed's
+            # reader down now, not when the generator is collected
+            it.close()
+
+    def _feed_for_epoch(self, ds):
+        return self._timed_feed(ds) if self._telemetry_armed else self._feed(ds)
 
     def train_epoch(self):
         self.is_train = True
@@ -770,6 +979,7 @@ class TrainValStage(Stage):
         every_steps = int(self.checkpoint_every_steps()) if self.pipeline.checkpoint_dir is not None else 0
 
         live = self.table.live_target() is not None
+        deferred = bool(self.deferred_metrics())
         log_every = int(self.log_every())
         guard = bool(self.nan_guard())
         loss_name = self.loss_metric_name()
@@ -779,49 +989,68 @@ class TrainValStage(Stage):
         epoch_t0 = time.perf_counter()
         last_render = 0.0
 
-        for batch in self._feed(train_ds):
-            step_start = time.perf_counter_ns()
-            metrics = self._train_step(batch)
-            step_end = time.perf_counter_ns()
-            for mname, mval in metrics.items():
-                self.track_reduce(mname, mval)
-            self.track_reduce("misc/total_train_batches", 1, reduction=Reduction.SUM, prefixed=False)
-            self.track_reduce(
-                "misc/worker_train_batches", 1, reduction=Reduction.SUM, reduce_globally=False, prefixed=False
-            )
-            # host enqueue time of the step, not device time (see
-            # misc/train_step_avg_ms for the synchronised per-step average)
-            self.track_reduce("misc/step_dispatch_ms", (step_end - step_start) / 1e6, prefixed=False)
-            steps_done += 1
-            loss_val = metrics.get(loss_name)
-            if loss_val is not None:
-                self.train_losses.append(loss_val)
+        def guard_loss(v: float) -> None:
+            if guard and not np.isfinite(v):
+                raise FloatingPointError(
+                    f"non-finite loss ({v}) detected at step {steps_done} of epoch "
+                    f"{self.current_epoch} (stage {self.name!r})"
+                )
 
-            if every_steps and (skipped + steps_done) % every_steps == 0:
-                self._save_step_state(skipped + steps_done)
-                if self.pipeline._preemption_coordinated():
-                    # the save just above is the resume point: cut the epoch
-                    # here (Stage.run handles the exit)
-                    self._mid_epoch_exit = True
-                    break
+        feed = self._feed_for_epoch(train_ds)
+        self._in_step_loop = True
+        try:
+            for batch in feed:
+                step_start = time.perf_counter_ns()
+                metrics = self._train_step(batch)
+                step_end = time.perf_counter_ns()
+                _journal.emit("step_dispatch", step_start / 1e9, step_end / 1e9, step=steps_done + 1)
+                if not deferred:
+                    # the eager path: this step's metrics on the host now
+                    metrics = self._stall.fetch(metrics)
+                for mname, mval in metrics.items():
+                    self.track_reduce(mname, mval)
+                self.track_reduce("misc/total_train_batches", 1, reduction=Reduction.SUM, prefixed=False)
+                self.track_reduce(
+                    "misc/worker_train_batches", 1, reduction=Reduction.SUM, reduce_globally=False, prefixed=False
+                )
+                # host enqueue time of the step, not device time (see
+                # misc/train_step_avg_ms for the synchronised per-step average)
+                self.track_reduce("misc/step_dispatch_ms", (step_end - step_start) / 1e6, prefixed=False)
+                steps_done += 1
+                loss_val = metrics.get(loss_name)
+                if loss_val is not None:
+                    self.train_losses.append(loss_val)
 
-            if log_every > 0 and steps_done % log_every == 0 and self.train_losses:
-                # two steps behind: already computed, so the read barely waits
-                v = self._stall.fetch(self.train_losses[max(0, len(self.train_losses) - 3)])
-                loss_ema = v if loss_ema is None else 0.98 * loss_ema + 0.02 * v
-                if guard and not np.isfinite(v):
-                    raise FloatingPointError(
-                        f"non-finite loss ({v}) detected at step {steps_done} of epoch "
-                        f"{self.current_epoch} (stage {self.name!r})"
-                    )
-            if live:
-                now = time.perf_counter()
-                if now - last_render > 0.25:
-                    self.table.live(
-                        {"Epoch": self.current_epoch, "[Train] Loss": loss_ema,
-                         "it/s": steps_done / max(now - epoch_t0, 1e-9)}
-                    )
-                    last_render = now
+                if every_steps and (skipped + steps_done) % every_steps == 0:
+                    self._save_step_state(skipped + steps_done)
+                    if self.pipeline._preemption_coordinated():
+                        # the save just above is the resume point: cut the epoch
+                        # here (Stage.run handles the exit)
+                        self._mid_epoch_exit = True
+                        break
+
+                if not deferred:
+                    if loss_val is not None:
+                        v = float(loss_val)  # already on the host
+                        loss_ema = v if loss_ema is None else 0.98 * loss_ema + 0.02 * v
+                        guard_loss(v)
+                elif log_every > 0 and steps_done % log_every == 0 and self.train_losses:
+                    # two steps behind: already computed, so the read barely waits
+                    v = float(self._stall.fetch(self.train_losses[max(0, len(self.train_losses) - 3)]))
+                    loss_ema = v if loss_ema is None else 0.98 * loss_ema + 0.02 * v
+                    guard_loss(v)
+                if live:
+                    now = time.perf_counter()
+                    if now - last_render > 0.25:
+                        self.table.live(
+                            {"Epoch": self.current_epoch, "[Train] Loss": loss_ema,
+                             "it/s": steps_done / max(now - epoch_t0, 1e-9)}
+                        )
+                        last_render = now
+        finally:
+            self._in_step_loop = False
+            # a break (the preemption drain) stops the feed's reader now
+            feed.close()
 
         # the epoch's one sync point: every queued step has run past this line
         self._stall.block(self.device)
@@ -830,10 +1059,28 @@ class TrainValStage(Stage):
         train_elapsed = time.perf_counter() - epoch_t0
         if steps_done:
             self.track("misc/train_step_avg_ms", train_elapsed / steps_done * 1e3, prefixed=False)
+            self._track_mfu(steps_done, train_elapsed)
         self.table["it/s"] = steps_done / max(train_elapsed, 1e-9)
         step_count = self.state.step if self.state is not None else 0
         for name, schedule in self.pipeline.schedulers.items():
             self.track(f"misc/lr_{name}", float(schedule(step_count)), prefixed=False)
+
+    def _track_mfu(self, steps: int, train_elapsed: float) -> None:
+        """``misc/mfu = flops * steps / train_elapsed / (peak * world_size)``,
+        the reference's formula; skipped, with one warning, on a device the
+        peak table does not know."""
+        flops = float(self.step_flops())
+        if flops <= 0:
+            return
+        kind = device_kind(self.device)
+        peak = peak_flops_for_kind(kind)
+        if peak is None:
+            if not self._warned_mfu_peak:
+                self._warned_mfu_peak = True
+                self.logger.warning(f"device kind {kind!r} is not in the bf16 peak table; "
+                                    "misc/mfu will not be tracked on this device")
+            return
+        self.track("misc/mfu", flops * steps / train_elapsed / (peak * runtime.world_size()), prefixed=False)
 
     def val_epoch(self):
         self.is_train = False
@@ -842,9 +1089,12 @@ class TrainValStage(Stage):
             val_ds = self.val_dataset()
         except DatasetNotFoundError:
             return  # validation is optional
+        deferred = bool(self.deferred_metrics())
         batches = 0
-        for batch in self._feed(val_ds):
+        for batch in self._feed_for_epoch(val_ds):
             metrics = self._val_step(batch)
+            if not deferred:
+                metrics = self._stall.fetch(metrics)
             for mname, mval in metrics.items():
                 self.track_reduce(mname, mval)
             self.track_reduce("misc/total_val_batches", 1, reduction=Reduction.SUM, prefixed=False)

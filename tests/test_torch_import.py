@@ -2,7 +2,8 @@
 
 A subprocess blocks ``jax``, ``jaxlib``, ``flax``, ``optax``, ``orbax`` and
 ``dmlcloud_tpu`` before anything else is imported, imports every module of
-``dmlcloud_tpu_torch``, trains the tiny model for an epoch on ``device="cpu"``,
+``dmlcloud_tpu_torch``, trains the tiny model for an epoch on ``device="cpu"``
+(and once more with the flight recorder, two microbatches and the host reader),
 and checks that none of those modules was loaded — and that, on a machine
 without CUDA, entry points called without a device raise instead of running
 on the CPU.
@@ -35,6 +36,15 @@ _SCRIPT = textwrap.dedent(
     from dmlcloud_tpu_torch.models import DecoderLM, TransformerConfig
     stage = main(["--device", "cpu", "--epochs", "1", "--n-seqs", "40", "--seq-len", "32", "--attn", "flash"])
     loss = float(stage.tracker["train/loss"][-1])
+    # the flight recorder, accumulation and the host reader, through the API
+    import tempfile
+    from dmlcloud_tpu_torch.examples.train_lm import build
+    pipe, accum = build(["--device", "cpu", "--epochs", "1", "--n-seqs", "40", "--seq-len", "32", "--mfu"],
+                        telemetry=tempfile.mkdtemp() + "/telemetry")
+    accum.gradient_accumulation = lambda: 2
+    accum.host_prefetch = lambda: 2
+    pipe.run()
+    goodput = float(accum.tracker["misc/goodput"][-1])
 
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in BLOCKED)
@@ -49,7 +59,7 @@ _SCRIPT = textwrap.dedent(
                 raised[name] = False
             except RuntimeError:
                 raised[name] = True
-    print(json.dumps({"modules": modules, "loaded": loaded, "loss": loss, "raised": raised}))
+    print(json.dumps({"modules": modules, "loaded": loaded, "loss": loss, "goodput": goodput, "raised": raised}))
     """
 )
 
@@ -63,8 +73,11 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
     assert result["loaded"] == []
     assert "dmlcloud_tpu_torch.ops.flash_attention" in result["modules"]
     for name in ("stage", "checkpoint", "parallel.runtime", "utils.slurm", "utils.tcp", "utils.serialization",
-                 "utils.git", "utils.project"):
+                 "utils.git", "utils.project", "telemetry", "telemetry.journal", "telemetry.goodput",
+                 "telemetry.watchdog", "data.device", "data.datasets", "utils.profiling", "utils.tensorboard",
+                 "utils.wandb", "utils.argparse_ext"):
         assert f"dmlcloud_tpu_torch.{name}" in result["modules"], name
     assert result["loss"] == result["loss"] and result["loss"] > 0  # finite, trained
+    assert 0 < result["goodput"] <= 1
     for name, did_raise in result["raised"].items():
         assert did_raise, f"{name} without a device ran on the CPU instead of raising"

@@ -26,7 +26,7 @@ from dmlcloud_tpu import checkpoint as jckpt
 from dmlcloud_tpu.models import transformer as jtr
 from dmlcloud_tpu.train_state import TrainState as JTrainState
 from dmlcloud_tpu_torch import checkpoint as tckpt
-from dmlcloud_tpu_torch import stage as tstage_mod
+from dmlcloud_tpu_torch.data import device as tdevice
 from dmlcloud_tpu_torch.examples import train_lm
 from dmlcloud_tpu_torch.models import transformer as ttr
 from dmlcloud_tpu_torch.train_state import TrainState, ema_like
@@ -118,8 +118,8 @@ def test_mid_epoch_resume_neither_runs_nor_copies_the_skipped_batches(tmp_path, 
     argv = ARGV + ["--epochs", "1", "--save-every-steps", "3"]
     pipe1, _ = _run(argv, root=tmp_path, resume=True, signal_after=2)
     copies, steps = [], []
-    real_to_device = tstage_mod._to_device
-    monkeypatch.setattr(tstage_mod, "_to_device", lambda b, d: (copies.append(b), real_to_device(b, d))[1])
+    real_put = tdevice._HostCopier.put
+    monkeypatch.setattr(tdevice._HostCopier, "put", lambda self, b: (copies.append(b), real_put(self, b))[1])
     real_step = train_lm.LMStage.train_step
     monkeypatch.setattr(train_lm.LMStage, "train_step", lambda self, s, b: (steps.append(1), real_step(self, s, b))[1])
     _, stage2 = _run(argv, root=pipe1.checkpoint_dir.path, resume=True)
