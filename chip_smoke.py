@@ -48,7 +48,17 @@ Phases, each fatal on failure:
    of one step with 2 microbatches against 1 within ``REL_TOL`` bf16 in norm;
    (c) ``misc/mfu`` against the formula recomputed here; (d) the journal,
    its Chrome trace, ``goodput.json``, the goodput buckets, no forensics
-   dump, and the recorder's host cost per step.
+   dump, and the recorder's host cost per step;
+9. mnist: ``dmlcloud_tpu_torch.examples.mnist`` for 2 epochs at batch 32 on
+   the synthetic digits, on the card and then on the CPU: every step's loss
+   within ``MNIST_LOSS_TOL`` of the CPU's, validation accuracy above
+   ``MNIST_MIN_ACC``, the steady samples/s;
+10. nccl: a one-rank NCCL process group from the port's ``init_auto`` over
+   env://; the data-parallel gradient average (``reduce_gradient_buckets``)
+   on the 1b model's gradients after one backward and the coalesced parameter
+   broadcast (``broadcast_buckets``) on its parameters, each bitwise unchanged
+   (an average or a broadcast over one rank) and timed against its bound by
+   bytes; the group is torn down before the result line.
 
 The last line of standard output is one JSON object with ``"ok": true``. With no
 card, or without the package beside it, the script exits non-zero and prints no
@@ -481,7 +491,7 @@ def phase_train(torch, fa) -> dict:
     steps = len(stage.train_losses)
     losses = [float(x) for x in stage.train_losses]
     train_loss, val_loss = float(tracker["train/loss"][-1]), float(tracker["val/loss"][-1])
-    log(f"[train] per-step losses {[round(x, 4) for x in losses]}; train/loss {train_loss:.4f}, val/loss {val_loss:.4f}")
+    log(f"[train] per-step losses {losses}; train/loss {train_loss!r}, val/loss {val_loss!r}")
     if steps != 7:
         raise AssertionError(f"expected 7 train steps, ran {steps}")
     if not all(math.isfinite(x) for x in losses + [train_loss, val_loss]):
@@ -528,15 +538,15 @@ def steady_ms(torch, stage, batch, steps: int = 3) -> tuple[float, list[float]]:
     return statistics.median(times), times
 
 
-def profile_step(torch, stage, batch) -> tuple[float, float, list]:
-    """One train step of ``stage`` under torch.profiler: its wall time and
-    device busy time in µs, and the device-side events."""
+def profile_call(torch, fn) -> tuple[float, float, list]:
+    """One call of ``fn`` under torch.profiler: its wall time and device busy
+    time in µs, and the device-side events."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        stage._train_step(batch)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side activity only (kernels, copies): host ops also carry the
@@ -547,6 +557,18 @@ def profile_step(torch, stage, batch) -> tuple[float, float, list]:
               if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
               and "Command Buffer" not in e.key]
     return wall_us, sum(_device_us(e) for e in events), events
+
+
+def profile_step(torch, stage, batch) -> tuple[float, float, list]:
+    """One train step of ``stage`` under torch.profiler (``profile_call``)."""
+    return profile_call(torch, lambda: stage._train_step(batch))
+
+
+def log_profile(tag: str, what: str, wall_us: float, busy_us: float, events: list, top: int = 6) -> None:
+    log(f"[{tag}] profiled {what}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms (idle share "
+        f"{max(0.0, 1 - busy_us / wall_us):.3f}), {sum(e.count for e in events)} device events")
+    for e in sorted(events, key=_device_us, reverse=True)[:top]:
+        log(f"[{tag}]   top: {_device_us(e) / 1e3:8.3f} ms  x{e.count:<4} {e.key[:90]}")
 
 
 def phase_steady(torch, stage) -> float:
@@ -995,6 +1017,159 @@ def phase_stage(torch, fa, smi: str, p5: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the MNIST example on the card, against the same run on the CPU
+# ---------------------------------------------------------------------------
+
+MNIST_ARGV = ["--epochs", "2", "--batch-size", "32"]
+#: the card's per-step losses against the CPU's, |card - cpu| <= atol + rtol *
+#: |cpu| at each of both epochs' 256 steps: both run fp32 (TF32 off, phase 1),
+#: but cuDNN's and the CPU's convolutions and reductions round differently and
+#: 256 Adam steps carry that forward (two CPU runs that differ only in their
+#: thread count drift by up to 1.7e-4 relative, where the loss is ~1e-4); the
+#: atol covers the last steps, where the loss is ~1e-5
+MNIST_LOSS_TOL = dict(rtol=1e-2, atol=1e-4)
+#: the synthetic digits' chance level is 0.1
+MNIST_MIN_ACC = 0.5
+
+
+def _mnist_run(argv: list[str]):
+    """``examples.mnist`` through its ``build``: the stage, every train step's
+    loss over all epochs, and the wall time of the run."""
+    from dmlcloud_tpu_torch.examples import mnist
+
+    pipe, stage = mnist.build(argv)
+    losses = []
+    stage.post_epoch = lambda: losses.extend(float(x) for x in stage.train_losses)
+    t0 = time.perf_counter()
+    pipe.run()
+    return stage, losses, time.perf_counter() - t0
+
+
+def phase_mnist(torch, smi: str) -> dict:
+    t_phase = time.perf_counter()
+    card, card_losses, card_wall = _mnist_run(MNIST_ARGV)
+    torch.cuda.synchronize()
+    cpu, cpu_losses, cpu_wall = _mnist_run(MNIST_ARGV + ["--device", "cpu"])
+    if not card_losses or len(card_losses) != len(cpu_losses):
+        raise AssertionError(f"mnist: {len(card_losses)} card steps against {len(cpu_losses)} on the CPU")
+    if not all(math.isfinite(x) for x in card_losses):
+        raise AssertionError("mnist: non-finite loss on the card")
+    diff = [abs(a - b) for a, b in zip(card_losses, cpu_losses)]
+    rel = [d / abs(b) for d, b in zip(diff, cpu_losses)]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    outside = [i + 1 for i, (d, b) in enumerate(zip(diff, cpu_losses))
+               if d > MNIST_LOSS_TOL["atol"] + MNIST_LOSS_TOL["rtol"] * abs(b)]
+    acc, cpu_acc = float(card.tracker["val/accuracy"][-1]), float(cpu.tracker["val/accuracy"][-1])
+    # epoch 2's average step is steady: no first-call warm-up in it
+    step_ms = float(card.tracker["misc/train_step_avg_ms"][-1])
+    samples_s = 32 / step_ms * 1e3
+    log(f"[mnist] examples.mnist {' '.join(MNIST_ARGV)} on the card: {len(card_losses)} steps in {card_wall:.1f} s "
+        f"wall; epoch-2 step {step_ms:.3f} ms = {samples_s:.0f} samples/s (steady, batch 32); val/accuracy {acc:.4f} "
+        f"[{smi}]")
+    log(f"[mnist] the same on the CPU: {cpu_wall:.1f} s wall, epoch-2 step "
+        f"{float(cpu.tracker['misc/train_step_avg_ms'][-1]):.3f} ms, val/accuracy {cpu_acc:.4f}")
+    log(f"[mnist] per-step losses, card against CPU: max abs difference {max(diff):.3g}, max relative {rel[worst]:.3g} "
+        f"at step {worst + 1} ({card_losses[worst]:.6g} / {cpu_losses[worst]:.6g}); step 1 {rel[0]:.3g}, step 2 "
+        f"{rel[1]:.3g}, last step {rel[-1]:.3g}; losses step 1 {card_losses[0]:.6f}, last {card_losses[-1]:.3g} "
+        f"(bound {MNIST_LOSS_TOL})")
+    if outside:
+        raise AssertionError(f"mnist: card losses outside {MNIST_LOSS_TOL} of the CPU's at steps {outside[:10]}")
+    if not acc > MNIST_MIN_ACC:
+        raise AssertionError(f"mnist: val/accuracy {acc:.4f} on the card, not above {MNIST_MIN_ACC}")
+    # where a step's time goes: more synchronised steps (CUDA events), then one under the profiler
+    batch = next(iter(card._feed(card.train_dataset())))
+    event_ms, times = steady_ms(torch, card, batch, steps=20)
+    log(f"[mnist] one step between CUDA events: {event_ms:.3f} ms median of 20 (epoch-2 average {step_ms:.3f} ms)")
+    log_profile("mnist", "train step (batch 32)", *profile_call(torch, lambda: card._train_step(batch)), top=10)
+    del card, cpu, batch
+    _free(torch)
+    log(f"[mnist] phase 9 in {time.perf_counter() - t_phase:.1f} s")
+    return {"samples_s": samples_s, "step_ms": step_ms, "acc": acc, "max_rel": rel[worst], "max_abs": max(diff)}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the data-parallel collectives on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+def phase_nccl(torch, smi: str) -> dict:
+    """The gradient average and the parameter broadcast of
+    ``parallel.data_parallel`` through NCCL, on the 1b model's tensors: a
+    one-rank group (the machine has one card) from the port's own
+    ``init_auto`` over env://. At world 1 the stage skips the reduction, so
+    the bucket paths are called directly; an average or a broadcast over one
+    rank must give every tensor back bitwise."""
+    import torch.distributed as dist
+
+    from dmlcloud_tpu_torch.examples.train_lm import PRESETS
+    from dmlcloud_tpu_torch.models.transformer import DecoderLM, TransformerConfig, lm_loss
+    from dmlcloud_tpu_torch.parallel import data_parallel, runtime
+    from dmlcloud_tpu_torch.utils.tcp import find_free_port
+
+    t_phase = time.perf_counter()
+    runtime.deinitialize()  # the earlier phases ran as a single process without a group
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(find_free_port()), "RANK": "0", "WORLD_SIZE": "1",
+           "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    out = {}
+    try:
+        backend = runtime.init_auto("cuda")
+        if backend != "nccl" or dist.get_backend() is None or runtime.world_size() != 1:
+            raise AssertionError(f"init_auto over env:// gave backend {backend!r}, world {runtime.world_size()}")
+        cfg = TransformerConfig(vocab_size=32000, max_seq_len=2048, attn_impl="flash", **PRESETS["1b"])
+        model = DecoderLM(cfg, device="cuda")
+        tokens = torch.randint(0, 32000, (1, 2048), generator=torch.Generator(device="cuda").manual_seed(0),
+                               device="cuda")
+        lm_loss(model(tokens), tokens).backward()
+        grads = [p.grad for p in model.parameters()]
+        n = sum(g.numel() for g in grads)
+        want = [g.clone() for g in grads]
+        data_parallel.reduce_gradient_buckets(grads, world=1)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(grads, want)):
+            raise AssertionError("the one-rank NCCL gradient average changed a gradient")
+        del want
+        buckets = math.ceil(n * 4 / data_parallel.BUCKET_BYTES)
+        reduce_ms = cuda_ms(torch, lambda: data_parallel.reduce_gradient_buckets(grads, world=1), reps=5)
+        # least time: read every fp32 gradient once and write it once
+        reduce_bound = 2 * 4 * n / HBM_BYTES_PER_S * 1e3
+        log(f"[nccl] backend {dist.get_backend()} (init_auto over env://, world 1); gradient average of the 1b "
+            f"model ({n / 1e9:.4f} B fp32 gradients, {buckets} buckets of {data_parallel.BUCKET_BYTES >> 20} MiB = "
+            f"{buckets} all_reduce calls per step): bitwise unchanged; {reduce_ms:.3f} ms per call against a bound of "
+            f"{reduce_bound:.3f} ms by bytes ({reduce_bound / reduce_ms:.1%}) [{smi}]")
+        log_profile("nccl", "gradient average", *profile_call(
+            torch, lambda: data_parallel.reduce_gradient_buckets(grads, world=1)))
+        tensors = [p.data for p in model.parameters()] + list(model.buffers())
+        want = [t.clone() for t in tensors]
+        data_parallel.broadcast_buckets(tensors, src=0)
+        torch.cuda.synchronize()
+        if not all(torch.equal(t, w) for t, w in zip(tensors, want)):
+            raise AssertionError("the one-rank NCCL parameter broadcast changed a tensor")
+        del want
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        bcast_ms = cuda_ms(torch, lambda: data_parallel.broadcast_buckets(tensors, src=0), reps=5)
+        bcast_bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"[nccl] coalesced parameter broadcast ({nbytes / 1e9:.3f} GB of parameters and buffers): bitwise "
+            f"unchanged; {bcast_ms:.3f} ms per call against a bound of {bcast_bound:.3f} ms by bytes "
+            f"({bcast_bound / bcast_ms:.1%}) [{smi}]")
+        log_profile("nccl", "parameter broadcast", *profile_call(
+            torch, lambda: data_parallel.broadcast_buckets(tensors, src=0)))
+        out.update(reduce_ms=reduce_ms, reduce_bound_ms=reduce_bound, buckets=buckets, bcast_ms=bcast_ms,
+                   bcast_bound_ms=bcast_bound)
+        del model, grads, tensors
+    finally:
+        runtime.deinitialize()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    _free(torch)
+    log(f"[nccl] phase 10 in {time.perf_counter() - t_phase:.1f} s; process group torn down")
+    return out
+
+
 
 def main() -> None:
     try:
@@ -1022,6 +1197,8 @@ def main() -> None:
     _free(torch)
     phase_resume(torch, fa, dev["smi"])
     phase_stage(torch, fa, dev["smi"], p5)
+    phase_mnist(torch, dev["smi"])
+    phase_nccl(torch, dev["smi"])
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(dev["smi"])

@@ -21,7 +21,10 @@ plus a ``.metadata`` file that DCP renames into place last, which marks the
 save as committed).
 
 A save is collective (every process writes its shards into the step
-directory); the contract files and retention are root-only. Async saves
+directory; DCP stores a tensor that every rank holds, a replicated model's,
+once); its collectives run on the runtime's ``side_group``, so an async save's
+writer thread never interleaves them with the training loop's collectives on
+the default group. The contract files and retention are root-only. Async saves
 (``dcp.async_save``) copy the state to host memory before the call returns,
 so the next optimizer step may mutate the live tensors at once; the write
 runs on a background thread, and each scope has at most one save in flight.
@@ -292,14 +295,15 @@ class StateManager:
         info = {"step": int(step), "bytes": _nbytes(state_dict), "async": self.async_save, "commit_s": None}
         t0 = time.perf_counter()
         if self.async_save:
-            ret = dcp.async_save(state_dict, checkpoint_id=path, no_dist=_no_dist())
+            ret = dcp.async_save(state_dict, checkpoint_id=path, no_dist=_no_dist(),
+                                 process_group=runtime.side_group())
             future = getattr(ret, "upload_completion", ret)  # AsyncSaveResponse on newer torch
             t1 = time.perf_counter()
             committed = threading.Event()  # result() may return before the callback ran
             future.add_done_callback(lambda _f: (info.update(commit_s=time.perf_counter() - t1), committed.set()))
             self._pending = (int(step), future, committed, metrics)
         else:
-            dcp.save(state_dict, checkpoint_id=path, no_dist=_no_dist())
+            dcp.save(state_dict, checkpoint_id=path, no_dist=_no_dist(), process_group=runtime.side_group())
             t1 = time.perf_counter()
         info["blocking_s"] = t1 - t0
         self.last_save = info
@@ -360,7 +364,8 @@ class StateManager:
 
     def restore(self, step: int, state_dict: dict) -> dict:
         """Fill the tensors of ``state_dict`` in place from ``step``."""
-        dcp.load(state_dict, checkpoint_id=self.root / str(int(step)), no_dist=_no_dist())
+        dcp.load(state_dict, checkpoint_id=self.root / str(int(step)), no_dist=_no_dist(),
+                 process_group=runtime.side_group())
         return state_dict
 
     def close(self) -> None:

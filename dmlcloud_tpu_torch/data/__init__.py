@@ -1,5 +1,5 @@
-from .datasets import pack_sequences
+from .datasets import DataPipeline, ShardedSequenceDataset, pack_sequences
 from .device import device_iterator
 from .synthetic import markov_tokens
 
-__all__ = ["device_iterator", "markov_tokens", "pack_sequences"]
+__all__ = ["DataPipeline", "ShardedSequenceDataset", "device_iterator", "markov_tokens", "pack_sequences"]

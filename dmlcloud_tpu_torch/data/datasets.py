@@ -1,21 +1,124 @@
-"""Sequence packing and the background host reader of the port's data path.
+"""Sequence packing, rank-sharded index datasets and the background host
+reader of the port's data path.
 
-Of ``dmlcloud_tpu/data/datasets.py`` two pieces are ported so far:
+Of ``dmlcloud_tpu/data/datasets.py`` these pieces are ported so far:
 ``pack_sequences`` (the ``--pack`` flag of the LM example needs it), a
-verbatim numpy copy, so both packages pack a corpus into identical rows; and
-``_prefetch_iter`` (:828), the bounded-queue reader behind
-``device_iterator(host_prefetch=...)``.
+verbatim numpy copy, so both packages pack a corpus into identical rows;
+``DataPipeline`` with only its ``from_sequence`` source, and the
+``ShardedSequenceDataset`` shim over it (the MNIST example's per-rank,
+per-epoch shuffled indices); ``_effective_rank_world`` (:50), which sub-shards
+across torch ``DataLoader`` workers; and ``_prefetch_iter`` (:828), the
+bounded-queue reader behind ``device_iterator(host_prefetch=...)``.
 """
 
 from __future__ import annotations
 
 import queue as _queue
 import threading
-from typing import Any, Iterable, Iterator, Sequence
+from typing import Any, Callable, Iterable, Iterator, Sequence
 
 import numpy as np
+from torch.utils.data import IterableDataset, get_worker_info
 
-__all__ = ["pack_sequences"]
+from ..parallel import runtime
+from .sharding import shard_sequence
+
+__all__ = ["DataPipeline", "ShardedSequenceDataset", "pack_sequences"]
+
+
+def _effective_rank_world(rank: int, world_size: int) -> tuple[int, int]:
+    """Sub-shard across DataLoader workers: each (rank, worker) pair becomes a
+    distinct effective rank, ``rank * num_workers + worker_id``."""
+    info = get_worker_info()
+    if info is None:
+        return rank, world_size
+    return rank * info.num_workers + info.id, world_size * info.num_workers
+
+
+class DataPipeline(IterableDataset):
+    """An epoch-aware host-data source, built from a ``make_iter(epoch) ->
+    iterator`` factory; each pass calls the factory with the epoch last given
+    to ``set_epoch`` (None before the first call), so one pipeline is iterated
+    once per epoch. Of the reference's combinators only the ``from_sequence``
+    source is ported."""
+
+    def __init__(self, make_iter: Callable[[int | None], Iterator], length_fn: Callable[[], int] | None = None):
+        self._make_iter = make_iter
+        self._length_fn = length_fn
+        self.epoch: int | None = None
+
+    def set_epoch(self, epoch: int) -> None:
+        """Re-seed the shuffle for this epoch (``DistributedSampler.set_epoch``'s
+        counterpart)."""
+        self.epoch = epoch
+
+    def __iter__(self) -> Iterator:
+        return self._make_iter(self.epoch)
+
+    def __len__(self) -> int:
+        if self._length_fn is None:
+            raise TypeError(f"{type(self).__name__} has no length")
+        return self._length_fn()
+
+    @classmethod
+    def from_sequence(
+        cls,
+        sequence: Sequence,
+        shuffle: bool = False,
+        even_shards: bool = True,
+        seed: int = 0,
+        rank: int | None = None,
+        world_size: int | None = None,
+    ) -> "DataPipeline":
+        """This process's share of ``sequence``, reshuffled per epoch with seed
+        ``seed + epoch``; the shard is computed lazily at iteration time so
+        torch DataLoader workers sub-shard correctly."""
+        rank = runtime.rank() if rank is None else rank
+        world_size = runtime.world_size() if world_size is None else world_size
+
+        def make(epoch: int | None) -> Iterator:
+            r, w = _effective_rank_world(rank, world_size)
+            e = 0 if epoch is None else epoch
+            return iter(shard_sequence(sequence, r, w, shuffle=shuffle, even_shards=even_shards, seed=seed + e))
+
+        def length() -> int:
+            if even_shards:
+                return len(sequence) // world_size
+            n, rem = divmod(len(sequence), world_size)
+            return n + (1 if rank < rem else 0)
+
+        return cls(make, length)
+
+
+class ShardedSequenceDataset(DataPipeline):
+    """``DataPipeline.from_sequence`` under the reference's class name. It
+    pickles (DataLoader workers receive the dataset by pickle) by its
+    constructor arguments and epoch, since the pipeline holds closures."""
+
+    def __init__(
+        self,
+        sequence: Sequence,
+        shuffle: bool = False,
+        even_shards: bool = True,
+        seed: int = 0,
+        rank: int | None = None,
+        world_size: int | None = None,
+    ):
+        rank = runtime.rank() if rank is None else rank
+        world_size = runtime.world_size() if world_size is None else world_size
+        self._ctor_args = (sequence, shuffle, even_shards, seed, rank, world_size)
+        p = DataPipeline.from_sequence(
+            sequence, shuffle=shuffle, even_shards=even_shards, seed=seed, rank=rank, world_size=world_size
+        )
+        super().__init__(p._make_iter, p._length_fn)
+        self.sequence = sequence
+
+    def __getstate__(self):
+        return {"args": self._ctor_args, "epoch": self.epoch}
+
+    def __setstate__(self, state):
+        self.__init__(*state["args"])
+        self.epoch = state["epoch"]
 
 
 def pack_sequences(

@@ -88,7 +88,7 @@ class LMStage(dml.TrainValStage):
 
         self.pipeline.register_dataset("train", loader(tokens[n_val:]))
         self.pipeline.register_dataset("val", loader(tokens[:n_val]))
-        self.pipeline.register_model("lm", model)
+        self.pipeline.register_model("lm", model, sharding="replicate")
         schedule = warmup_cosine_decay_schedule(0.0, cfg.lr, 20, 2000)
         self.pipeline.register_optimizer("adamw", adamw(schedule), scheduler=schedule)
 

@@ -12,7 +12,10 @@ Counterpart of ``dmlcloud_tpu/metrics.py`` (``Reduction`` :43,
    it with a single ``all_reduce`` (``runtime.all_gather_array``); at world
    size 1 there is no collective at all.
 
-The ragged-tracking consensus error (some ranks tracked a metric, some did not)
+The reference's smaller API is kept too: ``reduce_tensor``, the reducer's
+list protocol (``+=``, indexing), ``reduce_and_append``, the standalone
+``reduce_globally`` (two object exchanges) and ``MetricTracker.bump``. The
+ragged-tracking consensus error (some ranks tracked a metric, some did not)
 is kept, and so are the resume hooks: ``state_dict``/``load_state_dict`` of the
 tracker and its reducers (JSON-encodable, the resume sidecar's ``tracker``) and
 ``MetricTracker.fast_forward``.
@@ -46,6 +49,18 @@ class Reduction(Enum):
         if self is Reduction.MAX:
             return stacked.max(axis=axis)
         raise ValueError(f"unknown reduction {self}")
+
+
+def reduce_tensor(tensor: Any, reduction: Reduction, dim: int | list[int] | None = None) -> np.ndarray:
+    """Reduce an array or tensor over ``dim`` (all dims if None), on the host."""
+    arr = _to_host(tensor)
+    if dim is None:
+        axis: Any = tuple(range(arr.ndim))
+    elif isinstance(dim, int):
+        axis = (dim,)
+    else:
+        axis = tuple(dim)
+    return reduction.combine(arr, axis)
 
 
 def _to_host(value: Any) -> np.ndarray:
@@ -91,6 +106,19 @@ class MetricReducer:
         for v in values:
             self.append(v)
 
+    def __iadd__(self, value: Any) -> "MetricReducer":
+        self.append(value)
+        return self
+
+    def __setitem__(self, idx: int, value: Any) -> None:
+        self.values[idx] = value
+
+    def __getitem__(self, idx: int) -> Any:
+        return self.values[idx]
+
+    def __delitem__(self, idx: int) -> None:
+        del self.values[idx]
+
     def __len__(self) -> int:
         return len(self.values)
 
@@ -100,6 +128,10 @@ class MetricReducer:
     def clear(self) -> None:
         self.values.clear()
 
+    def reduce_and_append(self, value: Any) -> None:
+        """Append ``value`` already reduced over ``dim`` (on the host)."""
+        self.values.append(reduce_tensor(value, self.reduction, dim=self.dim))
+
     def reduce_locally(self) -> np.ndarray | None:
         """Stack buffered values and reduce on this process only."""
         if len(self.values) == 0:
@@ -107,6 +139,23 @@ class MetricReducer:
         stacked = _stack_host(self.values)
         axis = tuple(range(stacked.ndim)) if self.dim is None else tuple([0] + [d + 1 for d in self.dim])
         return self.reduction.combine(stacked, axis)
+
+    def reduce_globally(self) -> np.ndarray | None:
+        """Reduce across all processes (the standalone path: ``MetricTracker``
+        uses the packed exchange instead). Raises if ranks disagree on whether
+        this metric was tracked."""
+        if self.globally:
+            empty = runtime.all_gather_object(len(self.values) == 0)
+            if any(empty):
+                if len(empty) > 1 and not all(empty):
+                    raise ValueError("Some workers tracked values this epoch and some did not. This is likely a bug.")
+                return None
+        elif len(self.values) == 0:
+            return None
+        local = self.reduce_locally()
+        if self.globally and runtime.world_size() > 1:
+            local = _combine_across(runtime.all_gather_object(local), self.reduction)
+        return local
 
     # -- serialization ------------------------------------------------------
     def state_dict(self) -> dict:
@@ -240,6 +289,14 @@ class MetricTracker:
             reducer.append(value)
         else:
             self.histories[name].append(_to_host(value) if isinstance(value, torch.Tensor) else value)
+
+    def bump(self, name: str, value: int | float = 1, globally: bool = True) -> None:
+        """Epoch-scoped event counter: registered as a SUM reduction on first
+        use, ``value`` added. With ``globally`` the epoch total sums across
+        processes; safe to call any number of times per epoch."""
+        if name not in self:
+            self.register_metric(name, Reduction.SUM, globally=globally)
+        self.track(name, value)
 
     def reduce_all(self, prefix: str | None = None, strict: bool = True) -> None:
         """Reduce all (or prefix-filtered) metrics and append to histories.

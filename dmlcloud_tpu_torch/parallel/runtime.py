@@ -6,8 +6,12 @@ objects, which ``torch.distributed.checkpoint.async_save`` needs), gloo on the
 CPU. The ``init_auto`` ladder is env:// -> Slurm -> MPI -> single process; the
 reference's Cloud TPU pod rung has no counterpart. Around it: the rank
 accessors and root helpers, ``barrier`` with a timeout that names the ranks
-that never arrived (over the process group's c10d store), and
-``PreemptionGuard``, the signal-driven drain flag of preemption-safe training.
+that never arrived (over the process group's c10d store), the object
+collectives ``broadcast_object``/``all_gather_object``/``gather_object`` over
+the same store (small pickled payloads, matched by a per-process sequence
+number and checked by the caller's file:line, ``CollectiveMismatchError``),
+and ``PreemptionGuard``, the signal-driven drain flag of preemption-safe
+training.
 
 Entry points of the port run on ``cuda`` unless the caller asks for the CPU
 (``resolve_device``): with no card and no explicit CPU request they raise
@@ -20,6 +24,8 @@ import datetime
 import functools
 import logging
 import os
+import pickle
+import sys
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -62,6 +68,10 @@ class _WorkerInfo:
     node: int = 0
     initialized: bool = False
     backend: str = "single"
+    #: a gloo group of its own for collectives that run beside the training
+    #: loop's (an async checkpoint save's, on its writer thread); None at
+    #: world size 1 without a process group
+    side_group: Any = None
 
 
 _info = _WorkerInfo()
@@ -117,6 +127,13 @@ def local_node() -> int:
 
 def is_root() -> bool:
     return rank() == 0
+
+
+def side_group():
+    """The gloo group for collectives issued off the training thread (the
+    async checkpoint writer's), so they never interleave with the default
+    group's; None without a process group."""
+    return _info.side_group
 
 
 # ---------------------------------------------------------------------------
@@ -186,7 +203,7 @@ def _init_group(device, init_method: str, rank_: int, world: int, local: int, lo
     )
     _info = _WorkerInfo(
         rank=rank_, world_size=world, local_rank=local, local_world_size=local_world, node=node,
-        initialized=True, backend="nccl" if nccl else "gloo",
+        initialized=True, backend="nccl" if nccl else "gloo", side_group=dist.new_group(backend="gloo"),
     )
 
 
@@ -258,7 +275,7 @@ def deinitialize() -> None:
     if _info.initialized and _info.backend != "single" and dist.is_initialized():
         dist.destroy_process_group()
     _info = _WorkerInfo()
-    _seq["barrier"] = 0
+    _seq.update(barrier=0, obj=0)
     _gc_barrier_ids.clear()
     _barrier_state.clear()
 
@@ -271,7 +288,7 @@ def _collective_device() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device()) if _info.backend == "nccl" else torch.device("cpu")
 
 
-_seq = {"barrier": 0}
+_seq = {"barrier": 0, "obj": 0}
 
 #: ids of the last completed barrier, whose arrival keys the root deletes at
 #: the NEXT successful barrier (see ``barrier``)
@@ -347,20 +364,136 @@ def barrier(tag: str = "", timeout: float = _DEFAULT_TIMEOUT) -> None:
     _gc_barrier_ids.append(barrier_id)
 
 
-def broadcast_object(obj: Any, src: int = 0) -> Any:
-    if world_size() == 1:
+class CollectiveMismatchError(RuntimeError):
+    """Two processes paired up object collectives issued from DIFFERENT call
+    sites.
+
+    The object collectives match messages by a per-process sequence counter,
+    which assumes every process issues the identical sequence of collective
+    calls. A rank-conditional extra (or skipped) call would silently pair
+    call N on one rank with a different call N on another and deliver the
+    wrong object; the call-site tag carried inside every payload turns that
+    into this error whenever the misaligned pair spans two different call
+    sites. (A misalignment that pairs the SAME line with itself, e.g. one rank
+    running an extra loop iteration of one collective, is not detectable from
+    the tag alone.)"""
+
+    def __init__(self, kind: str, seq: int, local_tag: str, remote_tag: str, src: int):
+        self.local_tag, self.remote_tag = local_tag, remote_tag
+        super().__init__(
+            f"control-plane {kind} #{seq}: this process called from {local_tag} but "
+            f"rank {src} published from {remote_tag} — the ranks' collective call "
+            "sequences have diverged (a rank-conditional collective call?). If the "
+            "differing call sites are intentional, pass the same explicit tag= on "
+            "both sides."
+        )
+
+
+def _call_site_tag() -> str:
+    """``dir/file.py:lineno`` of the first frame outside this module: the
+    user call site, fingerprinting WHICH collective call this is. Two path
+    components are kept, because a bare basename collides across packages."""
+    f = sys._getframe(1)
+    while f is not None and f.f_code.co_filename == __file__:
+        f = f.f_back
+    if f is None:  # pragma: no cover - interpreter entry
+        return "?"
+    parts = f.f_code.co_filename.replace(os.sep, "/").rsplit("/", 2)
+    return f"{'/'.join(parts[-2:])}:{f.f_lineno}"
+
+
+def _obj_key(kind: str, seq: int, src: int) -> str:
+    return f"dmlcloud_tpu/obj/{kind}/{seq}/{src}"
+
+
+def _publish(store, kind: str, seq: int, obj: Any, tag: str) -> None:
+    store.set(_obj_key(kind, seq, rank()), pickle.dumps((tag, obj)))
+
+
+def _fetch(store, kind: str, seq: int, srcs: list[int], timeout: float, tag: str) -> list[Any]:
+    """The objects ``srcs`` published for collective ``seq``, each checked
+    against this call's tag: a blocking wait for every key (the store's
+    timeout error names the missing ones), then one get each."""
+    keys = [_obj_key(kind, seq, src) for src in srcs]
+    store.wait(keys, datetime.timedelta(seconds=timeout))
+    objs = []
+    for src, key in zip(srcs, keys):
+        remote_tag, obj = pickle.loads(store.get(key))
+        if remote_tag != tag:
+            raise CollectiveMismatchError(kind, seq, tag, remote_tag, src)
+        objs.append(obj)
+    return objs
+
+
+def _release(store, kind: str, seq: int, srcs: list[int], readers: int) -> None:
+    """Count this process's read of collective ``seq``; the last of its
+    ``readers`` deletes the payload keys, so a key never goes before every
+    reader has it."""
+    if store.add(f"dmlcloud_tpu/obj/{kind}/{seq}/reads", 1) < readers:
+        return
+    for key in [_obj_key(kind, seq, src) for src in srcs] + [f"dmlcloud_tpu/obj/{kind}/{seq}/reads"]:
+        try:
+            store.delete_key(key)
+        except Exception:  # best effort: a missed delete only costs store memory
+            pass
+
+
+def _next_obj_seq() -> int:
+    _seq["obj"] += 1
+    return _seq["obj"]
+
+
+def broadcast_object(obj: Any = None, root: int = 0, timeout: float = _DEFAULT_TIMEOUT,
+                     tag: str | None = None) -> Any:
+    """Broadcast a picklable object from ``root`` to all processes, over the
+    process group's c10d store: small payloads, no device memory.
+
+    Every payload carries a call-site tag (default: the caller's file:line)
+    that receivers verify, so rank-divergent call sequences fail with
+    :class:`CollectiveMismatchError` instead of silently delivering the wrong
+    object. Pass an explicit shared ``tag`` when matching calls legitimately
+    come from different lines (e.g. an if/else on ``is_root()``)."""
+    if world_size() <= 1:
         return obj
-    box = [obj]
-    dist.broadcast_object_list(box, src=src)
-    return box[0]
+    tag = tag or _call_site_tag()
+    seq, store = _next_obj_seq(), dist.distributed_c10d._get_default_store()
+    if rank() == root:
+        _publish(store, "broadcast_object", seq, obj, tag)
+        return obj
+    (obj,) = _fetch(store, "broadcast_object", seq, [root], timeout, tag)
+    _release(store, "broadcast_object", seq, [root], world_size() - 1)
+    return obj
 
 
-def all_gather_object(obj: Any) -> list:
-    if world_size() == 1:
+def all_gather_object(obj: Any, timeout: float = _DEFAULT_TIMEOUT, tag: str | None = None) -> list:
+    """One picklable object from every process, returned to all ranks ordered
+    by rank. Call-site-tag verified, see :func:`broadcast_object`."""
+    if world_size() <= 1:
         return [obj]
-    out = [None] * world_size()
-    dist.all_gather_object(out, obj)
-    return out
+    tag = tag or _call_site_tag()
+    seq, store = _next_obj_seq(), dist.distributed_c10d._get_default_store()
+    _publish(store, "all_gather_object", seq, obj, tag)
+    srcs = list(range(world_size()))
+    objs = _fetch(store, "all_gather_object", seq, srcs, timeout, tag)
+    _release(store, "all_gather_object", seq, srcs, world_size())
+    return objs
+
+
+def gather_object(obj: Any, root: int = 0, timeout: float = _DEFAULT_TIMEOUT,
+                  tag: str | None = None) -> list | None:
+    """Objects of every process, ordered by rank, on ``root`` only; other
+    ranks get None. Call-site-tag verified, see :func:`broadcast_object`."""
+    if world_size() <= 1:
+        return [obj]
+    tag = tag or _call_site_tag()
+    seq, store = _next_obj_seq(), dist.distributed_c10d._get_default_store()
+    _publish(store, "gather_object", seq, obj, tag)
+    if rank() != root:
+        return None
+    srcs = list(range(world_size()))
+    objs = _fetch(store, "gather_object", seq, srcs, timeout, tag)
+    _release(store, "gather_object", seq, srcs, 1)
+    return objs
 
 
 def all_gather_array(vec: np.ndarray) -> np.ndarray:

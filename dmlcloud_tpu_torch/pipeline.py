@@ -15,8 +15,9 @@ handling (``enable_preemption_handling`` :487, the requeue verdict of
 flight recorder that ``telemetry=`` arms (:115-150; ``_arm_telemetry`` :711,
 ``_telemetry_ledger`` :775, ``_disarm_telemetry`` :801, with the ``"hang"``
 verdict that ``completed`` supersedes, :857-860) and the per-epoch metric
-sinks ``enable_wandb`` and ``enable_tensorboard`` (:386-434). Meshes over many
-GPUs come in a later slice.
+sinks ``enable_wandb`` and ``enable_tensorboard`` (:386-434). Models are
+replicated over the processes (``register_model(sharding="replicate")``, data
+parallelism); meshes with sharded models come in a later slice.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch
 from .checkpoint import CheckpointDir, find_slurm_checkpoint, generate_checkpoint_path, write_requeue_verdict
 from .metrics import MetricTracker, Reduction
 from .parallel import runtime
+from .parallel.data_parallel import broadcast_parameters
 from .stage import Stage
 from .utils.config import Config, as_config
 from .utils.logging import IORedirector, add_log_handlers, experiment_header, general_diagnostics
@@ -45,6 +47,8 @@ from .utils.wandb import wandb, wandb_is_initialized, wandb_set_startup_timeout
 class ModelEntry:
     name: str
     module: torch.nn.Module
+    #: the parameter policy; only "replicate" (data parallelism) is ported
+    sharding: str = "replicate"
 
 
 class TrainingPipeline:
@@ -225,17 +229,36 @@ class TrainingPipeline:
         return False, "exception", f"{type(exc).__name__}: {exc}"
 
     # ----------------------------------------------------------- registries
-    def register_model(self, name: str, model: torch.nn.Module, verbose: bool = True):
-        """Register a module; its parameters are moved to the pipeline's device."""
+    def register_model(self, name: str, model: torch.nn.Module, sharding: Any = "replicate", verbose: bool = True):
+        """Register a module; its parameters are moved to the pipeline's device.
+
+        ``sharding="replicate"`` (the default, the reference's DDP semantics)
+        keeps a whole copy of the model on every process: at world size > 1
+        rank 0's parameters and buffers are broadcast to every rank here, and
+        the stage averages the gradients over the ranks every step
+        (``parallel.data_parallel``), so each process feeds its own per-rank
+        batch and the replicas stay equal. Any other policy (``"fsdp"``, rule
+        lists, callables) raises ``NotImplementedError``."""
         if name in self.models:
             raise ValueError(f"Model with name {name} already exists")
         if not isinstance(model, torch.nn.Module):
             raise ValueError("register_model needs a torch.nn.Module")
+        if not (isinstance(sharding, str) and sharding == "replicate"):
+            raise NotImplementedError(
+                f"register_model(sharding={sharding!r}): only 'replicate' (data parallelism) is ported; FSDP and "
+                "rule-based sharding are ROADMAP Queue 1 item 2(c)"
+            )
         model.to(self.device)
-        self.models[name] = ModelEntry(name=name, module=model)
+        if not runtime.is_initialized():
+            # a model registered before run() must see the world size too, or
+            # it would skip the broadcast and train from per-rank weights
+            runtime.init_auto(self.device)
+        broadcast_parameters(model)
+        self.models[name] = ModelEntry(name=name, module=model, sharding=sharding)
         if verbose:
             n_params = sum(p.numel() for p in model.parameters())
-            self.logger.info(f'Model "{name}":\n    - Parameters: {n_params / 1e6:.1f} M\n    - Device: {self.device}')
+            self.logger.info(f'Model "{name}":\n    - Parameters: {n_params / 1e6:.1f} M\n    - Device: {self.device}'
+                             f'\n    - Sharding: {sharding} over {runtime.world_size()} process(es)')
 
     def register_optimizer(self, name: str, optimizer: Callable, scheduler=None, model: str | None = None):
         """Register an optimizer factory (``optim.adamw(...)``, bound to the
@@ -339,9 +362,10 @@ class TrainingPipeline:
             self.tracker.register_metric(name)
         self.tracker.track(name, value)
 
-    def barrier(self):
-        """All-process barrier with a timeout that names stragglers."""
-        runtime.barrier("pipeline")
+    def barrier(self, timeout: float | None = None):
+        """All-process barrier with a timeout (600 s by default) that names
+        stragglers."""
+        runtime.barrier("pipeline", timeout if timeout is not None else 600.0)
 
     # ------------------------------------------------------------ lifecycle
     def run(self):

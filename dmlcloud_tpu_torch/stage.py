@@ -30,6 +30,10 @@ What carries over unchanged:
 - the feed: ``data.device_iterator`` with ``prefetch_depth()`` pinned copies
   in flight on a copy stream and optionally ``host_prefetch()`` batches read
   on a background thread;
+- data parallelism (the reference's ``sharding="replicate"``): at world
+  size > 1 every process runs the step on its own per-rank batch and the
+  gradients are averaged over the processes after the backward (and the
+  microbatch divide), before the clip;
 - validation under ``torch.no_grad()``;
 - the EMA shadow (``ema_decay``), updated after each optimizer step and used
   by validation (``val_with_ema``) through ``torch.func.functional_call``,
@@ -66,6 +70,7 @@ from . import checkpoint as ckpt_lib
 from .data.device import device_iterator
 from .metrics import MetricTracker, Reduction
 from .parallel import runtime
+from .parallel.data_parallel import all_reduce_gradients
 from .parallel.runtime import is_root
 from .telemetry import journal as _journal
 from .train_state import TrainState, ema_like
@@ -98,6 +103,9 @@ class Stage:
         self._preempt_exit = False
         self.metric_prefix = None
         self.table = None
+        #: seconds the stage-start and stage-end barriers wait (None: the
+        #: pipeline's default)
+        self.barrier_timeout = None
         self._stage_span_t0 = 0.0
         self._epoch_span_t0 = 0.0
 
@@ -208,12 +216,12 @@ class Stage:
             self.logger.info(f"\n========== STAGE: {self.name} ==========")
         self.pre_stage()
         flush_log_handlers(self.logger)
-        self.pipeline.barrier()
+        self.pipeline.barrier(self.barrier_timeout)
 
     def _post_stage(self):
         self.table.close()
         self.post_stage()
-        self.pipeline.barrier()
+        self.pipeline.barrier(self.barrier_timeout)
         self.stop_time = datetime.now()
         _journal.emit("stage", self._stage_span_t0, label=self.name, epochs=self.current_epoch - 1)
         if len(self.pipeline.stages) > 1:
@@ -558,10 +566,15 @@ class TrainValStage(Stage):
 
     def _clip_gradients(self, grads: list[torch.Tensor], clip: float) -> None:
         """Scale ``grads`` in place by ``min(1, clip * rsqrt(max(sum g^2, 1e-12)))``,
-        without a host sync."""
+        without a host sync. The fp32 scale is rounded to each gradient's dtype
+        before the multiply, as the reference's ``scale.astype(g.dtype)``."""
         sq = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]).square().sum()
         scale = torch.clamp(clip * torch.rsqrt(torch.clamp(sq, min=1e-12)), max=1.0)
-        torch._foreach_mul_(grads, scale)
+        by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
+        for g in grads:
+            by_dtype.setdefault(g.dtype, []).append(g)
+        for dtype, group in by_dtype.items():
+            torch._foreach_mul_(group, scale.to(dtype))
 
     def _backward(self, batch, accum: int) -> tuple[torch.Tensor, dict]:
         """Leave the step's gradients on the parameters (``p.grad``) and return
@@ -570,12 +583,20 @@ class TrainValStage(Stage):
         ``accum`` once at the end (the reference's ``_accumulate``). An fp32
         parameter's ``p.grad`` is that fp32 sum itself (autograd adds into
         it); any other dtype gets an fp32 accumulator and is cast back after
-        the division."""
+        the division. At world size > 1 the gradients are then averaged over
+        the processes (the replicated model's data parallelism), before the
+        clip sees them, as the reference's global mean gradient is."""
         state = self.state
         if accum == 1:
             loss, metrics = self._unpack(self.train_step(state, batch))
             loss.backward()
-            return loss, metrics
+        else:
+            loss, metrics = self._accumulate(batch, accum)
+        all_reduce_gradients(state.model.parameters())
+        return loss, metrics
+
+    def _accumulate(self, batch, accum: int) -> tuple[torch.Tensor, dict]:
+        state = self.state
         micro = _split_batch(batch, accum)
         low = [p for p in state.model.parameters() if p.requires_grad and p.dtype != torch.float32]
         acc: dict[torch.nn.Parameter, torch.Tensor] = {}
@@ -969,6 +990,9 @@ class TrainValStage(Stage):
         train_ds = self.train_dataset()
         if hasattr(train_ds, "set_epoch"):
             train_ds.set_epoch(self.current_epoch)
+        elif hasattr(getattr(train_ds, "sampler", None), "set_epoch"):
+            # a torch DataLoader: its DistributedSampler reshuffles per epoch
+            train_ds.sampler.set_epoch(self.current_epoch)
 
         # mid-epoch resume: skip the batches the interrupted run consumed, on
         # the host (no step runs and no copy reaches the device for them)

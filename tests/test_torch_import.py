@@ -4,7 +4,9 @@ A subprocess blocks ``jax``, ``jaxlib``, ``flax``, ``optax``, ``orbax`` and
 ``dmlcloud_tpu`` before anything else is imported, imports every module of
 ``dmlcloud_tpu_torch``, trains the tiny model for an epoch on ``device="cpu"``
 (and once more with the flight recorder, two microbatches and the host reader),
-and checks that none of those modules was loaded — and that, on a machine
+trains the MNIST example for an epoch, calls the object collectives and the
+data-parallel helpers at world size 1, and checks that none of those modules
+was loaded — and that, on a machine
 without CUDA, entry points called without a device raise instead of running
 on the CPU.
 """
@@ -45,6 +47,17 @@ _SCRIPT = textwrap.dedent(
     accum.host_prefetch = lambda: 2
     pipe.run()
     goodput = float(accum.tracker["misc/goodput"][-1])
+    # the MNIST example, and the object collectives and data-parallel helpers at world size 1
+    from dmlcloud_tpu_torch.examples import mnist
+    mnist_acc = float(mnist.main(["--device", "cpu", "--epochs", "1", "--batch-size", "512"]).tracker["val/accuracy"][-1])
+    from dmlcloud_tpu_torch.parallel import data_parallel, runtime
+    lin = torch.nn.Linear(2, 2)
+    lin(torch.ones(1, 2)).sum().backward()
+    grad = lin.weight.grad.clone()
+    data_parallel.broadcast_parameters(lin)
+    data_parallel.all_reduce_gradients(lin.parameters())
+    collectives = [runtime.broadcast_object(1, root=0, tag="t"), runtime.all_gather_object(2), runtime.gather_object(3),
+                   bool(torch.equal(grad, lin.weight.grad))]
 
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in BLOCKED)
@@ -53,13 +66,15 @@ _SCRIPT = textwrap.dedent(
         cfg = TransformerConfig(vocab_size=64, num_layers=1, num_heads=2, head_dim=8, hidden_dim=16, mlp_dim=32)
         for name, call in [("DecoderLM", lambda: DecoderLM(cfg)),
                            ("TrainingPipeline", lambda: dmlcloud_tpu_torch.TrainingPipeline()),
-                           ("train_lm.main", lambda: main(["--epochs", "1"]))]:
+                           ("train_lm.main", lambda: main(["--epochs", "1"])),
+                           ("mnist.main", lambda: mnist.main(["--epochs", "1"]))]:
             try:
                 call()
                 raised[name] = False
             except RuntimeError:
                 raised[name] = True
-    print(json.dumps({"modules": modules, "loaded": loaded, "loss": loss, "goodput": goodput, "raised": raised}))
+    print(json.dumps({"modules": modules, "loaded": loaded, "loss": loss, "goodput": goodput, "raised": raised,
+                      "mnist_acc": mnist_acc, "collectives": collectives}))
     """
 )
 
@@ -75,9 +90,12 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
     for name in ("stage", "checkpoint", "parallel.runtime", "utils.slurm", "utils.tcp", "utils.serialization",
                  "utils.git", "utils.project", "telemetry", "telemetry.journal", "telemetry.goodput",
                  "telemetry.watchdog", "data.device", "data.datasets", "utils.profiling", "utils.tensorboard",
-                 "utils.wandb", "utils.argparse_ext"):
+                 "utils.wandb", "utils.argparse_ext", "data.sharding", "models.cnn", "examples.mnist",
+                 "parallel.data_parallel"):
         assert f"dmlcloud_tpu_torch.{name}" in result["modules"], name
     assert result["loss"] == result["loss"] and result["loss"] > 0  # finite, trained
     assert 0 < result["goodput"] <= 1
+    assert result["mnist_acc"] > 0.3  # 8 steps at batch 512: well above the 0.1 of chance
+    assert result["collectives"] == [1, [2], [3], True]
     for name, did_raise in result["raised"].items():
         assert did_raise, f"{name} without a device ran on the CPU instead of raising"

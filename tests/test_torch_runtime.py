@@ -5,7 +5,9 @@ The Slurm parsers are copies and must agree with the reference on a table of
 single; ``PreemptionGuard`` answers like the reference's guard on the same
 signal sequence. Two gloo processes then show the coordinated drain (one rank
 catches the signal, both stop) and a ``barrier`` timeout that names the rank
-that never arrived.
+that never arrived; two more run the object collectives (``root=``, explicit
+and call-site tags, ``CollectiveMismatchError``, the keys' clean-up),
+``pipeline.barrier(timeout)`` and ``Stage.barrier_timeout``.
 """
 
 import json
@@ -215,3 +217,115 @@ def test_two_gloo_processes_drain_together_and_name_the_barrier_straggler():
     assert outs[0]["drain"] is True and outs[1]["drain"] is True  # one signal, both stop
     assert outs[0]["gathers"] == outs[1]["gathers"] == 1  # one all_gather_object per poll
     assert outs[0]["error"] == {"tag": "late", "stragglers": [1], "state": "timeout"}
+
+
+_OBJ_WORKER = textwrap.dedent(
+    """
+    import json, time
+    import torch
+    import dmlcloud_tpu_torch as dml
+    from dmlcloud_tpu_torch.parallel import runtime
+
+    assert runtime.init_auto(device="cpu") == "gloo"
+    rank = runtime.rank()
+    out = {"rank": rank}
+    out["bcast"] = runtime.broadcast_object({"from": rank} if rank == 1 else None, root=1, tag="cfg", timeout=30)
+    out["agather"] = runtime.all_gather_object(rank * 10)
+    out["gather"] = runtime.gather_object({"r": rank}, root=0)
+    # matching calls from different lines pair up under one explicit tag
+    if runtime.is_root():
+        out["same_tag"] = runtime.broadcast_object("root says", tag="split")
+    else:
+        out["same_tag"] = runtime.broadcast_object(tag="split")
+    # ... and without a tag they are a divergence
+    try:
+        if runtime.is_root():
+            runtime.all_gather_object("a")
+        else:
+            runtime.all_gather_object("b")
+        out["mismatch"] = None
+    except runtime.CollectiveMismatchError as e:
+        out["mismatch"] = str(e)
+    # pipeline.barrier(timeout): rank 1 comes 3 s late to a 1 s barrier
+    pipe = dml.TrainingPipeline(device="cpu")
+    if rank == 1:
+        time.sleep(3)
+    try:
+        pipe.barrier(1)
+        out["late"] = None
+    except runtime.BarrierTimeout as e:
+        out["late"] = {"timeout": e.timeout, "stragglers": e.stragglers}
+    runtime.barrier("realign", timeout=60)
+    # the stage's barrier_timeout reaches both stage barriers
+    seen = []
+    barrier = runtime.barrier
+    runtime.barrier = lambda tag="", timeout=600.0: (seen.append([tag, timeout]), barrier(tag, timeout))[1]
+
+    class Stage(dml.TrainValStage):
+        def pre_stage(self):
+            self.pipeline.register_model("m", torch.nn.Linear(2, 1), verbose=False)
+            self.pipeline.register_optimizer("adam", dml.optim.adamw(1e-3))
+            self.pipeline.register_dataset("train", [torch.ones(2, 2)], verbose=False)
+
+        def step(self, state, x):
+            return state.model(x).square().mean()
+
+    stage = Stage()
+    stage.barrier_timeout = 45.0
+    pipe = dml.TrainingPipeline(device="cpu")
+    pipe.append_stage(stage, max_epochs=1)
+    pipe.run()
+    runtime.barrier = barrier
+    out["stage_barriers"] = [t for tag, t in seen if tag == "pipeline"]
+    out["store_keys_left"] = sum(1 for k in range(1, 5) if runtime.dist.distributed_c10d._get_default_store()
+                                 .check([f"dmlcloud_tpu/obj/all_gather_object/{k}/0"]))
+    print(json.dumps(out), flush=True)
+    runtime.barrier("done", timeout=60)
+    runtime.deinitialize()
+    """
+)
+
+
+def test_object_collectives_tags_and_barrier_timeouts_over_two_gloo_processes(tmp_path):
+    port = tcp.find_free_port()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank), WORLD_SIZE="2",
+                   OMP_NUM_THREADS="1", PYTHONPATH=str(REPO))
+        with open(tmp_path / f"log{rank}.txt", "w") as log:  # a full pipe would stall one rank in a collective
+            procs.append(subprocess.Popen([sys.executable, "-c", _OBJ_WORKER], env=env, cwd=tmp_path,
+                                          stdout=log, stderr=subprocess.STDOUT, text=True))
+    try:
+        for p in procs:
+            p.wait(timeout=120)
+    finally:
+        for p in procs:
+            p.kill()
+    outs = {}
+    for rank, p in enumerate(procs):
+        text = (tmp_path / f"log{rank}.txt").read_text()
+        assert p.returncode == 0, text[-3000:]
+        o = json.loads(next(line for line in reversed(text.splitlines()) if line.startswith('{"rank"')))
+        outs[o["rank"]] = o
+    for r in (0, 1):
+        assert outs[r]["bcast"] == {"from": 1}  # root=1
+        assert outs[r]["agather"] == [0, 10]
+        assert outs[r]["same_tag"] == "root says"
+        # each rank names the other's call site, file and line
+        assert "test_torch_runtime" not in outs[r]["mismatch"]  # the worker runs as <string>
+        assert "rank %d published from <string>:" % (1 - r) in outs[r]["mismatch"]
+        # the run's two start barriers at the default, then the stage's start and end
+        assert outs[r]["stage_barriers"] == [600.0, 600.0, 45.0, 45.0]
+    assert outs[0]["gather"] == [{"r": 0}, {"r": 1}] and outs[1]["gather"] is None
+    assert outs[0]["late"] == {"timeout": 1.0, "stragglers": [1]}
+    assert outs[1]["late"] is None  # rank 0's arrival key was already there
+    assert outs[0]["store_keys_left"] == 0  # the last reader deleted the payloads
+
+
+def test_object_collective_signature_matches_the_reference():
+    import inspect
+
+    for name in ("broadcast_object", "all_gather_object", "gather_object"):
+        want = list(inspect.signature(getattr(jruntime, name)).parameters)
+        assert list(inspect.signature(getattr(runtime, name)).parameters) == want, name
+    assert runtime.gather_object(5) == [5]  # world 1: no process group

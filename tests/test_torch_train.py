@@ -293,3 +293,98 @@ def test_env_rung_and_one_all_reduce_per_epoch_over_gloo():
         assert o["loss"] == 0.5  # mean of the per-rank means 0 and 1
         assert o["n"] == 3.0
         assert o["peak"] == 11.0
+
+
+def test_clip_rounds_the_scale_to_each_gradients_dtype():
+    """bf16 gradients are multiplied by the scale rounded to bf16, the
+    reference's ``g * scale.astype(g.dtype)``: bitwise equal to the JAX formula."""
+    g = (np.random.RandomState(4).randn(4096) * 0.05).astype(np.float32)
+    jg = jnp.asarray(g, jnp.bfloat16)
+    sq = jnp.sum(jg.astype(jnp.float32) ** 2)
+    scale = jnp.minimum(1.0, 0.7 * jax.lax.rsqrt(jnp.maximum(sq, 1e-12)))
+    want = np.asarray((jg * scale.astype(jnp.bfloat16)).astype(jnp.float32))
+    unrounded = np.asarray((jg.astype(jnp.float32) * scale).astype(jnp.bfloat16).astype(jnp.float32))
+    assert float(scale) < 1 and (want != unrounded).sum() > 100, "the case would not tell the two formulas apart"
+    grads = [torch.from_numpy(g).to(torch.bfloat16)]
+    tdml.TrainValStage()._clip_gradients(grads, 0.7)
+    np.testing.assert_array_equal(grads[0].float().numpy(), want)
+
+
+def test_reduce_tensor_matches_the_reference():
+    t = np.arange(24.0).reshape(2, 3, 4)
+    for reduction in ("MEAN", "SUM", "MIN", "MAX"):
+        for dim in (None, 1, [0, 2]):
+            got = tmetrics.reduce_tensor(torch.from_numpy(t), tmetrics.Reduction(reduction), dim=dim)
+            want = jmetrics.reduce_tensor(t, jmetrics.Reduction(reduction), dim=dim)
+            np.testing.assert_array_equal(got, want, err_msg=f"{reduction} over {dim}")
+
+
+def test_metric_reducer_api_matches_tests_test_metrics():
+    """tests/test_metrics.py's TestMetricReducer expectations, case for case,
+    with torch tensors in place of jax arrays, at world size 1."""
+    r = tmetrics.MetricReducer(tmetrics.Reduction.MEAN)
+    for v in (1.0, 2.0, 3.0):
+        r.append(v)
+    np.testing.assert_allclose(r.reduce_locally(), 2.0)
+    np.testing.assert_allclose(r.reduce_globally(), 2.0)
+    r = tmetrics.MetricReducer(tmetrics.Reduction.SUM)
+    r.append(torch.tensor(1.5))
+    r.append(torch.tensor(2.5))
+    assert float(r.reduce_globally()) == 4.0
+    assert tmetrics.MetricReducer().reduce_globally() is None
+    # the list protocol
+    r = tmetrics.MetricReducer()
+    r += 1.0
+    r.extend([2.0, 3.0])
+    assert len(r) == 3
+    del r[0]
+    assert len(r) == 2
+    r[0] = 9.0
+    assert r[0] == 9.0
+    r.clear()
+    assert len(r) == 0
+    # reduce_and_append reduces over dim before buffering
+    r = tmetrics.MetricReducer(tmetrics.Reduction.SUM, dim=[1])
+    r.reduce_and_append(torch.arange(6.0).reshape(2, 3))
+    np.testing.assert_array_equal(r[0], [3.0, 12.0])
+
+
+def test_tracker_bump_counts_like_the_reference():
+    trackers = (tmetrics.MetricTracker(), jmetrics.MetricTracker())
+    for tracker in trackers:
+        tracker.bump("retries")
+        tracker.bump("retries", 2)
+        tracker.bump("local", 5, globally=False)
+        tracker.next_epoch()
+    assert [(float(t["retries"][0]), float(t["local"][0]), t.reducers["retries"].reduction.value,
+             t.reducers["local"].globally) for t in trackers] == [(3.0, 5.0, "SUM", False)] * 2
+
+
+def test_worker_and_step_keys_are_deterministic_distinct_generators():
+    from dmlcloud_tpu_torch.utils.seed import seed_all, step_key, worker_key
+
+    root = seed_all(7)
+    draws = {}
+    for name, make in (("w0", lambda: worker_key(root, 0)), ("w1", lambda: worker_key(7, 1)),
+                       ("s0", lambda: step_key(root, 0)), ("s1", lambda: step_key(7, 1))):
+        a, b = make(), make()
+        assert isinstance(a, torch.Generator)
+        draws[name] = torch.rand(4, generator=a)
+        assert torch.equal(draws[name], torch.rand(4, generator=b)), f"{name} is not deterministic"
+    assert len({tuple(d.tolist()) for d in draws.values()}) == 4  # per rank, per step, and apart from each other
+    assert torch.equal(torch.rand(4, generator=worker_key(root)), draws["w0"])  # default index: this rank, 0
+
+
+def test_enable_determinism_sets_the_torch_flags(monkeypatch):
+    from dmlcloud_tpu_torch.utils.seed import enable_determinism
+
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    before = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.benchmark)
+    try:
+        enable_determinism()
+        assert torch.are_deterministic_algorithms_enabled()
+        assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"
+        assert torch.backends.cudnn.benchmark is False
+    finally:
+        torch.use_deterministic_algorithms(before[0])
+        torch.backends.cudnn.benchmark = before[1]
