@@ -16,7 +16,9 @@ Phases, each fatal on failure:
    ``kernel_route`` picks, each held against its plain PyTorch version on the
    card, at the training shapes (there also the CUDA-core K1-K3) and at
    small variants, and timed beside the plain version and
-   ``scaled_dot_product_attention``;
+   ``scaled_dot_product_attention``; then the tensor-core K1-K3 at the mesh
+   slice's shapes (the 8b model's, and the 1b model's heads on one of two
+   tensor-parallel ranks), held and timed the same way;
 4. model: the full-width 1b ``DecoderLM`` forward with the flash kernels
    against the dot path, on the same weights (2 layers, also on packed rows,
    and all 24 layers);
@@ -58,7 +60,14 @@ Phases, each fatal on failure:
    on the 1b model's gradients after one backward and the coalesced parameter
    broadcast (``broadcast_buckets``) on its parameters, each bitwise unchanged
    (an average or a broadcast over one rank) and timed against its bound by
-   bytes; the group is torn down before the result line.
+   bytes; the group is torn down before the result line;
+11. mesh: the mesh path on one card: (a) phase 5's run with ``--mesh fsdp=1``
+   (``fully_shard`` over a one-rank NCCL mesh; losses against phase 5's,
+   launches, peak memory); (b) ``examples.pod_llama_fsdp`` at the 8b model's
+   full width with its depth cut to 2 layers, ``--remat --chunked-loss
+   8192``, 3 steps of one 4096-token sequence (finite losses, step 1 near
+   ln(vocab) + 1/2, K1-K3 launches); (c) ``chunked_lm_loss`` against ``lm_loss`` at
+   vocab 128256, value and gradients at fp32 tolerance.
 
 The last line of standard output is one JSON object with ``"ok": true``. With no
 card, or without the package beside it, the script exits non-zero and prints no
@@ -319,6 +328,70 @@ def _causal_pairs(t: int) -> int:
     return t * (t + 1) // 2
 
 
+def _work(b, t, h, kh, d) -> dict[str, tuple[int, int]]:
+    """(operations, bytes) of K1-K3 on causal bf16 attention: each input read
+    once, each output written once (for the bounds: operations over the bf16
+    tensor-core peak, bytes over HBM bandwidth)."""
+    pairs = b * h * _causal_pairs(t)
+    e = 2  # bytes per bf16 element
+    q_bytes, kv_bytes, stat_bytes = b * t * h * d * e, b * t * kh * d * e, b * h * t * 4
+    return {
+        # QK^T and PV
+        "K1": (4 * d * pairs, 2 * q_bytes + 2 * kv_bytes + stat_bytes),
+        # QK^T, dO V^T, dS K
+        "K2": (6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * stat_bytes),
+        # QK^T, dO V^T, P^T dO, dS^T Q
+        "K3": (8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes),
+    }
+
+
+#: the attention shapes of the mesh slice: the 8b model's (B=1 per card under
+#: fsdp, T=4096, 32/8 heads) and the 1b model's per-rank heads under model=2
+MESH_SHAPES = {"8b train bf16 causal gqa 32->8": dict(b=1, t=4096, h=32, kh=8, d=128),
+               "1b model=2 local heads 8->4": dict(b=4, t=2048, h=8, kh=4, d=128)}
+
+
+def phase_mesh_shapes(torch, fa) -> dict:
+    """K1-K3 (tensor cores) at the mesh slice's shapes: each held against its
+    plain version at TOL/REL_TOL and timed beside the plain version, its bound
+    and ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    out = {}
+    for name, sh in MESH_SHAPES.items():
+        b, t, h, kh, d = sh["b"], sh["t"], sh["h"], sh["kh"], sh["d"]
+        errs, (q, k, v, do, seg, out_p, lse_p, delta) = check_case(torch, fa, name, torch.bfloat16, b, t, h, kh, d,
+                                                                   True, None, False)
+        args = (None, True, 1.0 / math.sqrt(d), None)
+        bwd = (q, k, v, do, lse_p, delta, *args)
+        times = {"K1": (cuda_ms(torch, lambda: fa.attn_fwd_tc(q, k, v, *args)),
+                        cuda_ms(torch, lambda: fa.attn_fwd_plain(q, k, v, *args), reps=5)),
+                 "K2": (cuda_ms(torch, lambda: fa.attn_dq_tc(*bwd)),
+                        cuda_ms(torch, lambda: fa.attn_dq_plain(*bwd), reps=5)),
+                 "K3": (cuda_ms(torch, lambda: fa.attn_dkv_tc(*bwd)),
+                        cuda_ms(torch, lambda: fa.attn_dkv_plain(*bwd), reps=5))}
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        sdpa_fwd = cuda_ms(torch, sdpa)
+        o = sdpa()
+        g = do.transpose(1, 2)
+        sdpa_bwd = cuda_ms(torch, lambda: torch.autograd.grad(o, (qt, kt, vt), g, retain_graph=True))
+        rows = {}
+        for key, (ms, plain_ms) in times.items():
+            flops, nbytes = _work(b, t, h, kh, d)[key]
+            op_ms, byte_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            lib = sdpa_fwd if key == "K1" else sdpa_bwd
+            err = max(e for n, (e, _) in errs.items() if n.startswith(key) and not n.endswith("lse"))
+            rows[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(op_ms, byte_ms),
+                             bound_by="operations" if op_ms >= byte_ms else "bytes", library_ms=lib, max_abs_err=err)
+            log(f"[kernels] {name}: {key} tc {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {max(op_ms, byte_ms):.4f} ms "
+                f"by {rows[key]['bound_by']}, {max(op_ms, byte_ms) / ms:.1%} of it; library {lib:.3f} ms)")
+        out[name] = rows
+        del q, k, v, do, out_p, lse_p, delta, qt, kt, vt, o
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(torch, fa) -> dict:
     import torch.nn.functional as F
 
@@ -352,20 +425,7 @@ def phase_kernels(torch, fa) -> dict:
     g = do.transpose(1, 2)
     sdpa_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(o, (qt, kt, vt), g, retain_graph=True))
 
-    # least time for the same work: operations over the bf16 tensor-core peak,
-    # bytes (each input read once, each output written once) over HBM bandwidth
-    b, t, h, kh, d = sl["b"], sl["t"], sl["h"], sl["kh"], sl["d"]
-    pairs = b * h * _causal_pairs(t)
-    e = 2  # bytes per bf16 element
-    q_bytes, kv_bytes, stat_bytes = b * t * h * d * e, b * t * kh * d * e, b * h * t * 4
-    work = {
-        # QK^T and PV
-        "K1": (4 * d * pairs, 2 * q_bytes + 2 * kv_bytes + stat_bytes),
-        # QK^T, dO V^T, dS K
-        "K2": (6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * stat_bytes),
-        # QK^T, dO V^T, P^T dO, dS^T Q
-        "K3": (8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes),
-    }
+    work = _work(sl["b"], sl["t"], sl["h"], sl["kh"], sl["d"])
     simt_src, tc_src = "dmlcloud_tpu_torch/csrc/flash_attention.cu", "dmlcloud_tpu_torch/csrc/flash_attention_tc.cu"
     k1_site = "dmlcloud_tpu/ops/flash_attention.py:149 (_attn_kernel, pallas_call :773)"
     k2_site = "dmlcloud_tpu/ops/flash_attention.py:229 (_dq_kernel, pallas_call :847)"
@@ -1171,6 +1231,146 @@ def phase_nccl(torch, smi: str) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the mesh path on one card
+# ---------------------------------------------------------------------------
+
+MESH_ARGV = TRAIN_ARGV + ["--mesh", "fsdp=1"]
+#: phase 5's losses against the same run through FSDP2 on a one-rank mesh
+MESH_LOSS_REL = 1e-5
+#: the 8b model at full width, depth cut to 2 layers so one card holds it
+POD_ARGV = ["--mesh", "fsdp=1", "--layers", "2", "--remat", "--chunked-loss", "8192", "--global-batch", "1",
+            "--seq-len", "4096", "--steps-per-epoch", "3"]
+POD_VOCAB = 128256
+#: the step-1 loss at initialisation: the head's logits have unit variance
+#: (RMS-normed hidden, lecun-normal kernel), so the expected cross entropy is
+#: ln(vocab) + 1/2, not ln(vocab) (phase 5's 1b model: 10.861 against
+#: ln(32000) + 1/2 = 10.873)
+POD_FIRST_LOSS = math.log(POD_VOCAB) + 0.5
+POD_FIRST_LOSS_TOL = 0.1
+
+
+def phase_mesh(torch, fa, smi: str, p5: dict) -> dict:
+    """(a) ``examples.train_lm`` at phase 5's argv plus ``--mesh fsdp=1``:
+    ``fully_shard`` over a one-rank NCCL mesh, the losses within
+    ``MESH_LOSS_REL`` of phase 5's (and whether bitwise), the same launches,
+    peak memory; (b) ``examples.pod_llama_fsdp`` at the 8b model's full width
+    (2 of 32 layers) with ``--remat --chunked-loss 8192``, 3 steps of one
+    4096-token sequence: finite losses, step 1 within ``POD_FIRST_LOSS_TOL`` of
+    ``POD_FIRST_LOSS``, K1 twice per layer per step; (c) ``chunked_lm_loss`` against
+    ``lm_loss`` at vocab 128256 on the same hidden states, value and
+    gradients at fp32 tolerance."""
+    from dmlcloud_tpu_torch.examples import pod_llama_fsdp, train_lm
+    from dmlcloud_tpu_torch.models.transformer import chunked_lm_loss, lm_loss
+    from dmlcloud_tpu_torch.parallel import runtime
+    from torch.distributed.tensor import DTensor
+
+    t_phase = time.perf_counter()
+    out = {}
+    runtime.deinitialize()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()  # the mesh path's run starts here ...
+        stage = train_lm.main(MESH_ARGV)
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)  # ... and ends here
+        peak = torch.cuda.max_memory_allocated()
+        plan = stage.pipeline.models["lm"].plan
+        if not (plan.fsdp and plan.axes == {"fsdp": 1} and runtime._info.backend == "nccl"
+                and all(isinstance(p, DTensor) for p in stage.state.model.parameters())):
+            raise AssertionError(f"--mesh fsdp=1 did not run through fully_shard on NCCL: {plan.axes}, "
+                                 f"fsdp {plan.fsdp}, backend {runtime._info.backend}")
+        losses, val = _losses(stage)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses + [val], p5["losses"] + [p5["val"]]))
+        bitwise = losses == p5["losses"] and val == p5["val"]
+        step_ms = float(stage.tracker["misc/train_step_avg_ms"][-1])
+        log(f"[mesh] (a) train_lm 1b --mesh fsdp=1 (fully_shard, one-rank NCCL mesh): losses {losses}, val/loss "
+            f"{val!r}; against phase 5 max relative diff {rel:.3g} ({'bitwise' if bitwise else 'not bitwise'}); "
+            f"step avg {step_ms:.1f} ms (first step included); peak {peak / 2**30:.2f} GiB; "
+            f"launches {launches} [{smi}]")
+        want = {"flash_fwd_tc": 192, "flash_bwd_dq_tc": 168, "flash_bwd_dkv_tc": 168, "flash_fwd": 0,
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        if launches != want:
+            raise AssertionError(f"launches on the mesh path {launches}, want {want}")
+        if len(losses) != 7 or not rel <= MESH_LOSS_REL:
+            raise AssertionError(f"fsdp=1 losses off phase 5's by {rel:.3g} (> {MESH_LOSS_REL})")
+        out["a"] = dict(rel=rel, bitwise=bitwise, peak_gib=peak / 2**30, step_ms=step_ms)
+        del stage, plan
+        runtime.deinitialize()
+        _free(torch)
+
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        stage = pod_llama_fsdp.main(POD_ARGV)
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(x) for x in stage.train_losses]
+        step_ms = float(stage.tracker["misc/train_step_avg_ms"][-1])
+        mfu = float(stage.tracker["misc/mfu"][-1]) if "misc/mfu" in stage.tracker else float("nan")
+        n_params = sum(p.numel() for p in stage.state.model.parameters())
+        t0 = time.perf_counter()
+        batch = torch.from_numpy(stage.pipeline.datasets["train"][0]).cuda()
+        stage._train_step(batch)
+        torch.cuda.synchronize()
+        steady = (time.perf_counter() - t0) * 1e3
+        log(f"[mesh] (b) pod_llama_fsdp 8b width, 2 of 32 layers ({n_params / 1e9:.3f} B params), "
+            f"{' '.join(POD_ARGV)}: "
+            f"losses {losses} (ln {POD_VOCAB} + 1/2 = {POD_FIRST_LOSS:.3f}); step avg {step_ms:.1f} ms (first "
+            f"included), one more step {steady:.1f} ms = {4096 / steady * 1e3:.0f} tokens/s; misc/mfu {mfu:.4f}; "
+            f"peak {peak / 2**30:.2f} GiB; launches {launches} [{smi}]")
+        want = {"flash_fwd_tc": 2 * 2 * 3, "flash_bwd_dq_tc": 2 * 3, "flash_bwd_dkv_tc": 2 * 3, "flash_fwd": 0,
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        if launches != want:
+            raise AssertionError(f"launches on the 8b path {launches}, want {want}")
+        if len(losses) != 3 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"8b losses {losses}")
+        if abs(losses[0] - POD_FIRST_LOSS) > POD_FIRST_LOSS_TOL:
+            raise AssertionError(f"8b step-1 loss {losses[0]:.4f} not within {POD_FIRST_LOSS_TOL} of "
+                                 f"ln({POD_VOCAB}) + 1/2 = {POD_FIRST_LOSS:.4f}")
+        out["b"] = dict(losses=losses, step_ms=steady, mfu=mfu, peak_gib=peak / 2**30)
+        del stage, batch
+        runtime.deinitialize()
+        _free(torch)
+
+        g = torch.Generator(device="cuda").manual_seed(0)
+        t, d = 2048, 4096
+        hidden = torch.randn(1, t, d, generator=g, device="cuda")
+        kernel = torch.randn(d, POD_VOCAB, generator=g, device="cuda") / math.sqrt(d)
+        tokens = torch.randint(0, POD_VOCAB, (1, t), generator=g, device="cuda")
+
+        def run(fn):
+            h, k = hidden.clone().requires_grad_(True), kernel.clone().requires_grad_(True)
+            loss = fn(h, k)
+            loss.backward()
+            return loss.detach(), h.grad, k.grad
+
+        chunked = lambda h, k: chunked_lm_loss(h, k, tokens, vocab_chunk=8192)
+        dense = lambda h, k: lm_loss(h @ k, tokens)
+        torch.cuda.reset_peak_memory_stats()
+        got = run(chunked)
+        torch.cuda.synchronize()
+        peak_c = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        want_ = run(dense)
+        torch.cuda.synchronize()
+        peak_d = torch.cuda.max_memory_allocated()
+        errs = [assert_close(torch, a, b, "float32", f"chunked_lm_loss {what}")
+                for a, b, what in zip(got, want_, ("loss", "d hidden", "d kernel"))]
+        ms_c, ms_d = cuda_ms(torch, lambda: run(chunked), reps=3), cuda_ms(torch, lambda: run(dense), reps=3)
+        log(f"[mesh] (c) chunked_lm_loss (chunk 8192) vs lm_loss at vocab {POD_VOCAB}, hidden [1, {t}, {d}] fp32: "
+            f"loss {float(got[0]):.6f} vs {float(want_[0]):.6f}; (max abs, norm-relative) loss {errs[0]}, d hidden "
+            f"{errs[1]}, d kernel {errs[2]}; forward+backward {ms_c:.2f} vs {ms_d:.2f} ms, peak "
+            f"{peak_c / 2**30:.2f} vs {peak_d / 2**30:.2f} GiB")
+        out["c"] = dict(errs=errs, ms=ms_c, dense_ms=ms_d)
+        del hidden, kernel, got, want_
+    finally:
+        runtime.deinitialize()
+    _free(torch)
+    log(f"[mesh] phase 11 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -1187,6 +1387,7 @@ def main() -> None:
     dev = phase_device(torch)
     phase_build(fa)
     rows = phase_kernels(torch, fa)
+    phase_mesh_shapes(torch, fa)
     phase_model(torch, fa)
     launches, stage = phase_train(torch, fa)
     for row in rows.values():
@@ -1199,6 +1400,7 @@ def main() -> None:
     phase_stage(torch, fa, dev["smi"], p5)
     phase_mnist(torch, dev["smi"])
     phase_nccl(torch, dev["smi"])
+    phase_mesh(torch, fa, dev["smi"], p5)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(dev["smi"])

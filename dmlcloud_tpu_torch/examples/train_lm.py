@@ -1,7 +1,17 @@
 """Decoder-LM pretraining through the port's pipeline — the counterpart of
 ``examples/train_lm.py``, with the same presets and the flags of the ported
 paths (``--attn dot|flash``, ``--pack``, ``--window``, ``--checkpoint-dir``,
-``--save-every-steps``, ``--ema``, ``--mfu``).
+``--save-every-steps``, ``--ema``, ``--mfu``, ``--chunked-loss``, ``--mesh``).
+
+The model registers with ``sharding=llama_partition_rules()``, as the
+reference's example does. Without ``--mesh`` the mesh is ``{data: world}``,
+where those rules shard nothing: every process holds the whole model and
+feeds the whole ``--batch-size`` batch. With ``--mesh`` (e.g.
+``fsdp=4``, ``data=2,fsdp=2``, ``fsdp=2,model=2``; one process per device,
+launched by ``torch.distributed.run``) ``--batch-size`` is the global batch:
+each process feeds the rows of its data-parallel coordinate
+(``parallel.mesh.data_parallel_rank``), the same rows as its tensor-parallel
+peers.
 
 Run on one GPU (``--device cpu`` runs on the CPU with the kernels' plain
 PyTorch versions):
@@ -30,9 +40,11 @@ import numpy as np
 import dmlcloud_tpu_torch as dml
 from dmlcloud_tpu_torch.data import markov_tokens as synthetic_tokens
 from dmlcloud_tpu_torch.data import pack_sequences
-from dmlcloud_tpu_torch.models.transformer import DecoderLM, TransformerConfig, lm_loss
+from dmlcloud_tpu_torch.models.transformer import (DecoderLM, TransformerConfig, chunked_lm_loss, llama_partition_rules,
+                                                   lm_head_kernel, lm_loss)
 from dmlcloud_tpu_torch.optim import adamw, warmup_cosine_decay_schedule
 from dmlcloud_tpu_torch.parallel import init_auto
+from dmlcloud_tpu_torch.parallel.mesh import data_parallel_rank, data_parallel_size, parse_mesh_axes
 
 PRESETS = {
     "tiny": dict(num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16, hidden_dim=64, mlp_dim=160),
@@ -74,12 +86,18 @@ class LMStage(dml.TrainValStage):
                 f"{len(tokens)} rows after packing/splitting leave fewer than one "
                 f"train batch (batch_size={bs}, val={n_val}); raise --n-seqs or lower --batch-size"
             )
+        # with a mesh, each process feeds its data-parallel slice of the batch
+        mesh = self.pipeline.mesh
+        dp, dp_rank = (data_parallel_size(mesh), data_parallel_rank(mesh)) if mesh is not None else (1, 0)
+        if bs % dp:
+            raise ValueError(f"--batch-size {bs} is not divisible by the mesh's data-parallel size {dp}")
+        mine = slice(dp_rank * (bs // dp), (dp_rank + 1) * (bs // dp))
 
         def loader(data):
             class Loader:
                 def __iter__(self):
                     for i in range(0, len(data) - bs + 1, bs):
-                        yield data[i : i + bs]
+                        yield data[i : i + bs][mine]
 
                 def __len__(self):
                     return len(data) // bs
@@ -88,7 +106,7 @@ class LMStage(dml.TrainValStage):
 
         self.pipeline.register_dataset("train", loader(tokens[n_val:]))
         self.pipeline.register_dataset("val", loader(tokens[:n_val]))
-        self.pipeline.register_model("lm", model, sharding="replicate")
+        self.pipeline.register_model("lm", model, sharding=llama_partition_rules())
         schedule = warmup_cosine_decay_schedule(0.0, cfg.lr, 20, 2000)
         self.pipeline.register_optimizer("adamw", adamw(schedule), scheduler=schedule)
 
@@ -118,6 +136,11 @@ class LMStage(dml.TrainValStage):
             toks, segs = batch[:, 0], batch[:, 1]
         else:
             toks, segs = batch, None
+        chunk = int(self.config.get("chunked_loss", 0))
+        if chunk > 0:
+            hidden = state.model(toks, segment_ids=segs, return_hidden=True)
+            kernel, tp = lm_head_kernel(state.model)
+            return chunked_lm_loss(hidden, kernel, toks, vocab_chunk=chunk, segment_ids=segs, tp=tp)
         logits = state.model(toks, segment_ids=segs)
         return lm_loss(logits, toks, segment_ids=segs)
 
@@ -146,6 +169,9 @@ def build(
     parser.add_argument("--ema", type=float, default=0.0, help="param EMA decay (0 off); validation uses the average")
     parser.add_argument("--save-every-steps", type=int, default=0, help="mid-epoch step saves (resumable mid-epoch)")
     parser.add_argument("--mfu", action="store_true", help="track misc/mfu from the 6ND estimate")
+    parser.add_argument("--chunked-loss", type=int, default=0, metavar="CHUNK",
+                        help="vocab chunk for chunked_lm_loss (0 = full logits); big-vocab memory lever")
+    parser.add_argument("--mesh", type=str, default=None, help="e.g. data=2,fsdp=4 (one process per device)")
     parser.add_argument("--device", default="cuda", help='"cuda" (default) or "cpu"')
     args = parser.parse_args(argv)
 
@@ -165,9 +191,12 @@ def build(
         "ema": args.ema,
         "save_every_steps": args.save_every_steps,
         "mfu": args.mfu,
+        "chunked_loss": args.chunked_loss,
         "seed": 0,
     }
     pipeline = dml.TrainingPipeline(config, name=f"lm-{args.preset}", device=args.device, telemetry=telemetry)
+    if args.mesh:
+        pipeline.set_mesh(parse_mesh_axes(args.mesh))
     if args.checkpoint_dir:
         pipeline.enable_checkpointing(args.checkpoint_dir, resume=resume)
     stage = LMStage()

@@ -238,6 +238,11 @@ class MetricTracker:
     def __init__(self):
         self.histories: dict[str, list] = {}
         self.reducers: dict[str, MetricReducer] = {}
+        #: the processes whose values the epoch exchange combines (None: all).
+        #: On a mesh with a ``model`` axis the pipeline sets one process per
+        #: data-parallel coordinate: tensor-parallel peers hold the same
+        #: values and count once.
+        self.ranks: list[int] | None = None
         self.epoch = 1
 
     def __getitem__(self, name: str) -> list:
@@ -327,9 +332,13 @@ class MetricTracker:
             if scalar_names:
                 reductions = {n: self.reducers[n].reduction for n in scalar_names}
                 gathered = runtime.all_gather_array(_pack_scalar_metrics(scalar_names, local))
+                if self.ranks is not None:
+                    gathered = gathered[self.ranks]
                 fused.update(_unpack_scalar_metrics(scalar_names, gathered, reductions))
             if other:
                 gathered_obj = runtime.all_gather_object(other)
+                if self.ranks is not None:
+                    gathered_obj = [gathered_obj[r] for r in self.ranks]
                 for name in other:
                     empties = [g.get(name, (True, None))[0] for g in gathered_obj]
                     if any(empties):

@@ -36,10 +36,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
 from ..parallel.runtime import resolve_device
+from ..parallel.tensor_parallel import ModelGroup, copy_to_model, gather_from_model, local_tensor, reduce_from_model
 
 
 @dataclass(frozen=True)
@@ -87,7 +89,7 @@ class RMSNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         normed = x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + self.eps)
-        return (normed * self.weight).to(x.dtype)
+        return (normed * local_tensor(self.weight)).to(x.dtype)
 
 
 def rope_frequencies(
@@ -168,6 +170,13 @@ def _linear(in_features: int, out_features: int, device) -> nn.Linear:
 
 
 class Attention(nn.Module):
+    """Grouped-query attention. Its head counts come from the local widths of
+    the projections: under tensor parallelism (``tp``, set by
+    ``DecoderLM.apply_tensor_parallel``) each rank runs ``H/model`` query and
+    ``KH/model`` KV heads, contiguous chunks, so query head ``i`` keeps its KV
+    head ``i // (H/KH)``; the output projection's partial sums are then
+    summed over the ``model`` group."""
+
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         self.cfg = cfg
@@ -176,13 +185,19 @@ class Attention(nn.Module):
         self.k_proj = _linear(d, kh * hd, device)
         self.v_proj = _linear(d, kh * hd, device)
         self.o_proj = _linear(h * hd, d, device)
+        self.tp: ModelGroup | None = None
 
     def forward(self, x, cos, sin, seg_info=None):
         cfg = self.cfg
         b, t, _ = x.shape
-        q = _dense(x, self.q_proj.weight, cfg.dtype).view(b, t, cfg.num_heads, cfg.head_dim)
-        k = _dense(x, self.k_proj.weight, cfg.dtype).view(b, t, cfg.kv_heads, cfg.head_dim)
-        v = _dense(x, self.v_proj.weight, cfg.dtype).view(b, t, cfg.kv_heads, cfg.head_dim)
+        hd = cfg.head_dim
+        wq, wk, wv, wo = (local_tensor(m.weight) for m in (self.q_proj, self.k_proj, self.v_proj, self.o_proj))
+        h, kh = wq.shape[0] // hd, wk.shape[0] // hd
+        if self.tp is not None:
+            x = copy_to_model(x, self.tp)
+        q = _dense(x, wq, cfg.dtype).view(b, t, h, hd)
+        k = _dense(x, wk, cfg.dtype).view(b, t, kh, hd)
+        v = _dense(x, wv, cfg.dtype).view(b, t, kh, hd)
         if seg_info is not None:
             # packed rows: positions restart per segment; attention is causal
             # AND same-segment (flash masks from the raw ids, dot from the mask)
@@ -204,22 +219,31 @@ class Attention(nn.Module):
                 out = _dot_attention(q, k, v, mask=(q_pos >= k_pos) & _window_keep(q_pos, k_pos, cfg.sliding_window))
             else:
                 out = _dot_attention(q, k, v, causal=True)
-        out = out.reshape(b, t, cfg.num_heads * cfg.head_dim)
-        return _dense(out, self.o_proj.weight, cfg.dtype)
+        out = _dense(out.reshape(b, t, h * hd), wo, cfg.dtype)
+        return out if self.tp is None else reduce_from_model(out, self.tp)
 
 
 class MLP(nn.Module):
+    """SwiGLU; under tensor parallelism (``tp``) each rank holds a slice of the
+    hidden dim and the down projection's partial sums are summed over the
+    ``model`` group."""
+
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         self.cfg = cfg
         self.gate_proj = _linear(cfg.hidden_dim, cfg.mlp_dim, device)
         self.up_proj = _linear(cfg.hidden_dim, cfg.mlp_dim, device)
         self.down_proj = _linear(cfg.mlp_dim, cfg.hidden_dim, device)
+        self.tp: ModelGroup | None = None
 
     def forward(self, x):
         dt = self.cfg.dtype
-        h = F.silu(_dense(x, self.gate_proj.weight, dt)) * _dense(x, self.up_proj.weight, dt)
-        return _dense(h, self.down_proj.weight, dt)
+        if self.tp is not None:
+            x = copy_to_model(x, self.tp)
+        gate, up = local_tensor(self.gate_proj.weight), local_tensor(self.up_proj.weight)
+        h = F.silu(_dense(x, gate, dt)) * _dense(x, up, dt)
+        out = _dense(h, local_tensor(self.down_proj.weight), dt)
+        return out if self.tp is None else reduce_from_model(out, self.tp)
 
 
 class DecoderBlock(nn.Module):
@@ -259,6 +283,10 @@ class DecoderLM(nn.Module):
         cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta, cfg.rope_scaling, device)
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
+        #: tensor parallelism (``apply_tensor_parallel``): the embedding's
+        #: features and the LM head's vocab split over the ``model`` group
+        self.tp_embed: ModelGroup | None = None
+        self.tp_head: ModelGroup | None = None
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         self.reset_parameters(generator)
@@ -274,7 +302,63 @@ class DecoderLM(nn.Module):
             elif isinstance(module, RMSNorm):
                 module.weight.fill_(1.0)
 
-    def forward(self, tokens: torch.Tensor, segment_ids: torch.Tensor | None = None) -> torch.Tensor:
+    def flax_layout(self) -> list[tuple[tuple[str, ...], str, str]]:
+        """(flax path, parameter name, transform) of every parameter: the
+        layout sharding rules are matched in (``parallel.mesh``)."""
+        return _flax_layout(self.cfg)
+
+    def fsdp_blocks(self) -> list[nn.Module]:
+        """The modules FSDP2 wraps one by one (then the root)."""
+        return list(self.layers)
+
+    def apply_tensor_parallel(self, tp: ModelGroup, dims: dict[str, int]) -> None:
+        """Run the forward on ``model``-axis shards: ``dims`` maps each
+        parameter split over the ``tp`` group to the torch dim it is split on.
+        Accepted: per block, all of q/k/v (dim 0, by heads) with o (dim 1), or
+        none; all of gate/up (dim 0) with down (dim 1), or none; the
+        embedding's features (dim 1); the LM head's vocab (dim 0). Anything
+        else raises a ``ValueError`` naming the parameter."""
+        cfg, m = self.cfg, tp.size
+        dims = dict(dims)
+
+        def split(prefix: str, want: dict[str, int], sizes: dict[str, int]) -> bool:
+            got = {n: dims.pop(prefix + n, None) for n in want}
+            if all(v is None for v in got.values()):
+                return False
+            for n, d in got.items():
+                if d != want[n]:
+                    raise ValueError(f"{prefix}{n}: a 'model' split on dim {d} cannot run here; tensor parallelism "
+                                     f"needs {', '.join(f'{k} on dim {v}' for k, v in want.items())}")
+            for what, size in sizes.items():
+                if size % m:
+                    raise ValueError(f"{prefix}{next(iter(want))}: {what} {size} is not divisible by the 'model' "
+                                     f"axis ({m})")
+            return True
+
+        split_modules: list[nn.Module] = []
+        for i, layer in enumerate(self.layers):
+            p = f"layers.{i}."
+            if split(p + "attn.", {f"{n}_proj.weight": 0 if n != "o" else 1 for n in "qkvo"},
+                     {"num_heads": cfg.num_heads, "num_kv_heads": cfg.kv_heads}):
+                split_modules.append(layer.attn)
+            if split(p + "mlp.", {"gate_proj.weight": 0, "up_proj.weight": 0, "down_proj.weight": 1},
+                     {"mlp_dim": cfg.mlp_dim}):
+                split_modules.append(layer.mlp)
+        embed = split("", {"embed.weight": 1}, {"hidden_dim": cfg.hidden_dim})
+        head = not cfg.tie_embeddings and split("", {"lm_head.weight": 0}, {"vocab_size": cfg.vocab_size})
+        if dims:
+            name, d = next(iter(dims.items()))
+            raise ValueError(f"{name}: a 'model' split on dim {d} cannot run here (norms stay replicated)")
+        # every placement checked: only now switch the forward over
+        for module in split_modules:
+            module.tp = tp
+        self.tp_embed = tp if embed else None
+        self.tp_head = tp if head else None
+
+    def forward(self, tokens: torch.Tensor, segment_ids: torch.Tensor | None = None,
+                return_hidden: bool = False) -> torch.Tensor:
+        """Logits ``[B, T, vocab]`` fp32; with ``return_hidden`` the final
+        hidden states ``[B, T, hidden]`` instead (``chunked_lm_loss``'s input)."""
         cfg = self.cfg
         seg_info = None
         if segment_ids is not None:
@@ -291,15 +375,99 @@ class DecoderLM(nn.Module):
                     pos = torch.arange(t, device=tokens.device)
                     mask = mask & _window_keep(pos[:, None], pos[None, :], cfg.sliding_window)[None]
             seg_info = (positions, mask, segment_ids)
-        x = self.embed(tokens).to(cfg.dtype)
+        x = F.embedding(tokens, local_tensor(self.embed.weight)).to(cfg.dtype)
+        if self.tp_embed is not None:
+            x = gather_from_model(x, self.tp_embed, dim=-1)
         for layer in self.layers:
             if cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(layer, x, self.rope_cos, self.rope_sin, seg_info, use_reentrant=False)
             else:
                 x = layer(x, self.rope_cos, self.rope_sin, seg_info=seg_info)
         x = self.final_norm(x)
-        head = self.embed.weight if cfg.tie_embeddings else self.lm_head.weight
-        return F.linear(x.float(), head.float())
+        if return_hidden:
+            return x
+        if cfg.tie_embeddings:
+            head = local_tensor(self.embed.weight)
+            if self.tp_embed is None:
+                return F.linear(x.float(), head.float())
+            # feature-sharded embedding as the head: partial logits, summed
+            tp = self.tp_embed
+            x = copy_to_model(x, tp).narrow(-1, tp.rank * head.shape[1], head.shape[1])
+            return reduce_from_model(F.linear(x.float(), head.float()), tp)
+        head = local_tensor(self.lm_head.weight)
+        if self.tp_head is None:
+            return F.linear(x.float(), head.float())
+        # vocab-parallel head: each rank's logits slice, gathered into the full
+        # fp32 logits that lm_loss takes
+        return gather_from_model(F.linear(copy_to_model(x, self.tp_head).float(), head.float()), self.tp_head)
+
+
+def lm_head_kernel(model) -> tuple[torch.Tensor, ModelGroup | None]:
+    """The LM head as ``chunked_lm_loss`` takes it, ``[hidden, vocab]`` (a view),
+    and the ``model`` group its vocab is split over (None: the whole vocab).
+    Read it after the forward: under FSDP2 the root's parameters are gathered
+    from then until the backward."""
+    if model.cfg.tie_embeddings:
+        if model.tp_embed is not None:
+            raise ValueError("chunked_lm_loss with tied embeddings split over 'model' (by features) is not supported")
+        return local_tensor(model.embed.weight).t(), None
+    return local_tensor(model.lm_head.weight).t(), model.tp_head
+
+
+def chunked_lm_loss(
+    hidden: torch.Tensor,
+    kernel: torch.Tensor,
+    tokens: torch.Tensor,
+    *,
+    vocab_chunk: int = 8192,
+    segment_ids: torch.Tensor | None = None,
+    tp: ModelGroup | None = None,
+) -> torch.Tensor:
+    """``lm_loss`` without ever materialising the ``[B, T, vocab]`` logits.
+
+    The vocab is streamed in chunks of ``vocab_chunk``: per chunk,
+    ``hidden @ kernel[:, c]`` (fp32) feeds an online log-sum-exp and a gather
+    of the target logit, under ``torch.utils.checkpoint``, so the backward
+    recomputes each chunk's logits instead of storing them; a non-divisible
+    tail is one more, narrower chunk. ``hidden`` is
+    ``DecoderLM(..., return_hidden=True)``'s output, ``kernel`` the
+    ``[hidden, vocab]`` projection (``lm_head_kernel(model)``). With ``tp``,
+    ``kernel`` holds this rank's contiguous slice of the vocab (a
+    vocab-parallel head): the per-rank statistics are gathered over the group
+    and combined, so every rank gets the loss of the whole vocab. Matches
+    ``lm_loss`` to float32 accuracy in value and gradient."""
+    h = hidden[:, :-1].float()
+    targets = tokens[:, 1:].long()
+    if tp is not None:
+        h = copy_to_model(h, tp)
+    v = kernel.shape[1]
+    base = 0 if tp is None else tp.rank * v
+
+    def update(m, s, tl, lo, hi):
+        logits = h @ kernel[:, lo:hi].float()  # [B, T-1, width], the only logits alive
+        new_m = torch.maximum(m, logits.detach().amax(-1))
+        s = s * torch.exp(m - new_m) + torch.exp(logits - new_m[..., None]).sum(-1)
+        in_chunk = (targets >= base + lo) & (targets < base + hi)
+        local = (targets - base - lo).clamp(0, hi - lo - 1)
+        picked = logits.gather(-1, local[..., None])[..., 0]
+        return new_m, s, torch.where(in_chunk, picked, tl)
+
+    shape = h.shape[:-1]
+    # finite sentinel: -inf would NaN the first rescale
+    m = torch.full(shape, -1e30, dtype=torch.float32, device=h.device)
+    s = torch.zeros(shape, dtype=torch.float32, device=h.device)
+    tl = torch.zeros(shape, dtype=torch.float32, device=h.device)
+    for lo in range(0, v, vocab_chunk):
+        m, s, tl = checkpoint(update, m, s, tl, lo, min(lo + vocab_chunk, v), use_reentrant=False)
+    if tp is not None:
+        # [model, 3, B, T-1]: every rank's running max, sum and target logit
+        stats = gather_from_model(torch.stack([m, s, tl])[None], tp, dim=0)
+        m_all, s_all, tl_all = stats[:, 0], stats[:, 1], stats[:, 2]
+        m = m_all.detach().amax(0)
+        s = (s_all * torch.exp(m_all - m)).sum(0)
+        tl = tl_all.sum(0)  # only the owner of the target has it, the others hold 0
+    losses = (m + torch.log(s)) - tl  # logsumexp - target logit
+    return _packed_mean(losses, segment_ids)
 
 
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor, segment_ids: torch.Tensor | None = None) -> torch.Tensor:
@@ -319,6 +487,28 @@ def _packed_mean(losses: torch.Tensor, segment_ids: torch.Tensor | None) -> torc
         return losses.mean()
     w = ((segment_ids[:, 1:] == segment_ids[:, :-1]) & (segment_ids[:, 1:] != 0)).to(losses.dtype)
     return (losses * w).sum() / torch.clamp(w.sum(), min=1)
+
+
+def llama_partition_rules() -> list[tuple[str, tuple]]:
+    """The reference's sharding rules for this model family, matched against
+    the flax paths (``parallel.mesh.make_param_policy``): embeddings and heads
+    over ``model`` (tensor parallel), ``fsdp`` over the other large dim. Axes
+    the mesh lacks are dropped. The reference's list also carries the MoE
+    rules (``moe_partition_rules``); they come with MoE (ROADMAP Queue 1 item 4)."""
+    from ..parallel.mesh import P
+
+    return [
+        # vocab over fsdp, features over model: the token gather never crosses
+        # the model axis (each TP shard gathers its feature slice)
+        ("embed/embedding", P("fsdp", "model")),
+        ("attn/(q|k|v)_proj/kernel", P("fsdp", "model")),
+        ("attn/o_proj/kernel", P("model", "fsdp")),
+        ("mlp/(gate|up)_proj/kernel", P("fsdp", "model")),
+        ("mlp/down_proj/kernel", P("model", "fsdp")),
+        ("lm_head/kernel", P("fsdp", "model")),
+        ("norm", P()),
+        (".*", P()),
+    ]
 
 
 # ---------------------------------------------------------------------------
@@ -375,12 +565,16 @@ def load_flax_params(model: DecoderLM, tree: dict, tensors: dict[str, torch.Tens
 def to_flax_params(model: DecoderLM, tensors: dict[str, torch.Tensor] | None = None) -> dict:
     """The inverse of ``load_flax_params``: a nested dict of float32 numpy
     arrays in the JAX ``DecoderLM``'s layout, from ``model``'s parameters or
-    from ``tensors`` in their layout."""
+    from ``tensors`` in their layout. The parameters of a sharded model are
+    gathered to full tensors (on every rank)."""
     cfg = model.cfg
     params = dict(model.named_parameters() if tensors is None else tensors)
     tree: dict = {}
     for path, name, how in _flax_layout(cfg):
-        arr = params[name].detach().float().cpu().numpy()
+        t = params[name].detach()
+        if isinstance(t, DTensor):
+            t = t.full_tensor()  # a collective: every rank takes the parameters in the same order
+        arr = t.float().cpu().numpy()
         if how == "heads":
             arr = arr.T.reshape(cfg.hidden_dim, -1, cfg.head_dim)
         elif how == "t":

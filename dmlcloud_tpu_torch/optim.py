@@ -26,6 +26,8 @@ from typing import Callable, Iterable
 
 import torch
 
+from .parallel.tensor_parallel import local_tensor
+
 Schedule = Callable[[int], float]
 
 
@@ -109,9 +111,12 @@ class AdamW(torch.optim.Optimizer):
                 continue
             b1, b2, eps, wd = group["b1"], group["b2"], group["eps"], group["weight_decay"]
             lr = self.current_lr(group)
-            grads = [p.grad for p in params]
-            mus = [self.state[p]["mu"] for p in params]
-            nus = [self.state[p]["nu"] for p in params]
+            # a sharded model's parameters, gradients and moments are DTensors:
+            # the update is elementwise, so it runs on the local shards
+            grads = [local_tensor(p.grad) for p in params]
+            mus = [local_tensor(self.state[p]["mu"]) for p in params]
+            nus = [local_tensor(self.state[p]["nu"]) for p in params]
+            params = [local_tensor(p) for p in params]
             # mu = (1 - b1) g + b1 mu ; nu = (1 - b2) g^2 + b2 nu
             torch._foreach_mul_(mus, b1)
             torch._foreach_add_(mus, grads, alpha=1 - b1)

@@ -35,6 +35,8 @@ from typing import Callable, Iterable, Iterator
 import torch
 import torch.distributed as dist
 
+from .tensor_parallel import local_tensor
+
 __all__ = ["BUCKET_BYTES", "all_reduce_gradients", "broadcast_parameters", "reduce_gradient_buckets",
            "broadcast_buckets"]
 
@@ -100,12 +102,18 @@ def reduce_gradient_buckets(grads: list[torch.Tensor], world: int, group=None) -
     _bucketed(grads, torch.float32, mean, BUCKET_BYTES)
 
 
+@torch.no_grad()
 def all_reduce_gradients(params: Iterable[torch.nn.Parameter], group=None) -> None:
     """Average the gradients of ``params`` over the ranks of ``group`` (the
     default process group), in place, without a host sync. A parameter whose
     ``grad`` is None contributes zeros and gets the mean, so every rank packs
     the same layout and ends with the same gradients; parameters that need no
-    gradient are left out on every rank. At world size 1 it does nothing."""
+    gradient are left out on every rank. At world size 1 it does nothing.
+
+    On a mesh whose ``model`` axis splits the parameters (``parallel.mesh``),
+    ``group`` is the data-parallel sub-group and the gradients are DTensors:
+    each rank averages its local shards with the ranks that hold the same
+    shards."""
     world = _group_world(group)
     if world <= 1:
         return
@@ -113,7 +121,7 @@ def all_reduce_gradients(params: Iterable[torch.nn.Parameter], group=None) -> No
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    reduce_gradient_buckets([p.grad for p in params], world, group)
+    reduce_gradient_buckets([local_tensor(p.grad) for p in params], world, group)
 
 
 def broadcast_buckets(tensors: list[torch.Tensor], src: int = 0, group=None) -> None:

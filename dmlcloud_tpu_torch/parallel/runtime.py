@@ -270,6 +270,20 @@ def init_auto(device: str | torch.device | None = None, verbose: bool = False) -
     return _info.backend
 
 
+def ensure_process_group(device: str | torch.device | None = None, timeout: float = _DEFAULT_TIMEOUT) -> None:
+    """Make sure a process group exists: a device mesh needs one even when it
+    spans one process. A single process without a group (``init_single``)
+    gets a one-rank group on ``tcp://127.0.0.1:<free port>`` (NCCL on the
+    card, gloo on the CPU)."""
+    if not _info.initialized:
+        init_auto(device)
+    if dist.is_available() and dist.is_initialized():
+        return
+    if world_size() != 1:
+        raise RuntimeError(f"runtime reports world size {world_size()} but no process group exists")
+    _init_group(device, f"tcp://127.0.0.1:{find_free_port()}", 0, 1, 0, 1, 0, timeout)
+
+
 def deinitialize() -> None:
     global _info
     if _info.initialized and _info.backend != "single" and dist.is_initialized():

@@ -4,9 +4,9 @@ Counterpart of ``dmlcloud_tpu/pipeline.py`` (``TrainingPipeline`` :53):
 config container, registries for models, optimizers, schedules, datasets and
 stages (``register_model`` :210, ``register_optimizer`` :268,
 ``register_dataset`` :278, ``append_stage`` :296) and the run lifecycle
-(``run`` :561) with its run-start diagnostics. Where the JAX pipeline owns a
-device mesh, this one owns one ``torch.device`` (``cuda`` unless the caller
-passes another; no card and no explicit CPU request raises).
+(``run`` :561) with its run-start diagnostics. Each process owns one
+``torch.device`` (``cuda`` unless the caller passes another; no card and no
+explicit CPU request raises).
 
 Checkpointing (``enable_checkpointing`` :364, the run directory of
 ``checkpoint.py`` with ``config.yaml`` and the ``log.txt`` tee) and preemption
@@ -15,9 +15,17 @@ handling (``enable_preemption_handling`` :487, the requeue verdict of
 flight recorder that ``telemetry=`` arms (:115-150; ``_arm_telemetry`` :711,
 ``_telemetry_ledger`` :775, ``_disarm_telemetry`` :801, with the ``"hang"``
 verdict that ``completed`` supersedes, :857-860) and the per-epoch metric
-sinks ``enable_wandb`` and ``enable_tensorboard`` (:386-434). Models are
-replicated over the processes (``register_model(sharding="replicate")``, data
-parallelism); meshes with sharded models come in a later slice.
+sinks ``enable_wandb`` and ``enable_tensorboard`` (:386-434).
+
+The device mesh (``set_mesh`` :200, ``_init_mesh`` :600) is a named
+``DeviceMesh`` over the processes (``parallel.mesh``); ``register_model``
+(:209-256) lays a model out on it under the reference's policies:
+``"replicate"`` (data parallelism), ``"fsdp"``, rule lists such as
+``models.transformer.llama_partition_rules()`` and callables ``(path, leaf) ->
+spec`` on the flax path (FSDP2 for ``fsdp``, tensor parallelism for
+``model``). Without ``set_mesh`` the mesh is ``{data: world}``, under which
+every policy keeps every parameter replicated: plain data parallelism, with
+no ``DeviceMesh`` built.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 
 from .checkpoint import CheckpointDir, find_slurm_checkpoint, generate_checkpoint_path, write_requeue_verdict
 from .metrics import MetricTracker, Reduction
+from .parallel import mesh as mesh_lib
 from .parallel import runtime
 from .parallel.data_parallel import broadcast_parameters
 from .stage import Stage
@@ -47,8 +56,11 @@ from .utils.wandb import wandb, wandb_is_initialized, wandb_set_startup_timeout
 class ModelEntry:
     name: str
     module: torch.nn.Module
-    #: the parameter policy; only "replicate" (data parallelism) is ported
-    sharding: str = "replicate"
+    #: the parameter policy: "replicate", "fsdp", a rule list or a callable
+    sharding: Any = "replicate"
+    #: how ``parallel.mesh.shard_module`` laid it out on the pipeline's mesh
+    #: (None: replicated over the default mesh, plain data parallelism)
+    plan: Optional[mesh_lib.MeshPlan] = None
 
 
 class TrainingPipeline:
@@ -81,6 +93,9 @@ class TrainingPipeline:
         self.config: Config = as_config(config)
         self.name = name
         self.device = runtime.resolve_device(device)
+        #: the named ``DeviceMesh`` of ``set_mesh`` (None: the default
+        #: ``{data: world}``, which needs none)
+        self.mesh = None
         self.logger = logging.getLogger("dmlcloud_tpu_torch")
         self.checkpoint_dir: CheckpointDir | None = None
         self.io_redirector: IORedirector | None = None
@@ -229,36 +244,72 @@ class TrainingPipeline:
         return False, "exception", f"{type(exc).__name__}: {exc}"
 
     # ----------------------------------------------------------- registries
-    def register_model(self, name: str, model: torch.nn.Module, sharding: Any = "replicate", verbose: bool = True):
-        """Register a module; its parameters are moved to the pipeline's device.
+    def set_mesh(self, mesh_or_axes) -> None:
+        """Set the device mesh: a named ``DeviceMesh``, or an axes dict like
+        ``{'data': -1}`` / ``{'fsdp': 2, 'model': 2}`` (one process per device,
+        ``parallel.mesh.create_mesh``; a single process gets a one-rank process
+        group). Default if never called: a single ``data`` axis over all
+        processes. Call it before ``register_model``."""
+        if self.models:
+            raise ValueError("set_mesh() must come before register_model(): the models are laid out already")
+        if isinstance(mesh_or_axes, dict):
+            self.mesh = mesh_lib.create_mesh(mesh_or_axes, device=self.device)
+        else:
+            self.mesh = mesh_or_axes
 
-        ``sharding="replicate"`` (the default, the reference's DDP semantics)
-        keeps a whole copy of the model on every process: at world size > 1
-        rank 0's parameters and buffers are broadcast to every rank here, and
-        the stage averages the gradients over the ranks every step
-        (``parallel.data_parallel``), so each process feeds its own per-rank
-        batch and the replicas stay equal. Any other policy (``"fsdp"``, rule
-        lists, callables) raises ``NotImplementedError``."""
+    def _init_mesh(self) -> None:
+        """The default mesh, ``{data: world}``: nothing on it is sharded, so no
+        ``DeviceMesh`` is built (``register_model`` checks the policy on it)."""
+        if not runtime.is_initialized():
+            runtime.init_auto(self.device)
+
+    def register_model(self, name: str, model: torch.nn.Module, sharding: Any = "replicate", verbose: bool = True):
+        """Register a module, move it to the pipeline's device and lay it out
+        on the mesh under the parameter policy ``sharding``:
+
+        - ``"replicate"`` (default, the reference's DDP semantics): a whole copy
+          on every process; the stage averages the gradients over the
+          data-parallel processes every step;
+        - ``"fsdp"``: the largest divisible dim of each parameter sharded over
+          the ``fsdp`` axis (FSDP2; HSDP with a ``data`` axis);
+        - a rule list ``[(regex, spec), ...]`` on the flax path (e.g.
+          ``llama_partition_rules()``): ``fsdp`` as above, ``model`` as tensor
+          parallelism;
+        - a callable ``(path, leaf) -> spec`` on the flax path.
+
+        First rank 0's parameters and buffers are broadcast to every rank, so
+        all start equal. Each process then feeds the batch of its
+        data-parallel coordinate (``parallel.mesh.data_parallel_rank``);
+        processes that differ only along ``model`` feed the same batch. A
+        ``model`` placement the model cannot execute raises ``ValueError``."""
         if name in self.models:
             raise ValueError(f"Model with name {name} already exists")
         if not isinstance(model, torch.nn.Module):
             raise ValueError("register_model needs a torch.nn.Module")
-        if not (isinstance(sharding, str) and sharding == "replicate"):
-            raise NotImplementedError(
-                f"register_model(sharding={sharding!r}): only 'replicate' (data parallelism) is ported; FSDP and "
-                "rule-based sharding are ROADMAP Queue 1 item 2(c)"
-            )
         model.to(self.device)
-        if not runtime.is_initialized():
-            # a model registered before run() must see the world size too, or
-            # it would skip the broadcast and train from per-rank weights
-            runtime.init_auto(self.device)
+        if self.mesh is None:
+            self._init_mesh()
+        # a model registered before run() must see the world size too, or it
+        # would skip the broadcast and train from per-rank weights
         broadcast_parameters(model)
-        self.models[name] = ModelEntry(name=name, module=model, sharding=sharding)
+        plan = None
+        if self.mesh is not None:
+            plan = mesh_lib.shard_module(model, self.mesh, sharding)
+            self.tracker.ranks = plan.metric_ranks
+            where = f"mesh {plan.axes}"
+        else:
+            # the default mesh: the policy can place nothing there (a split
+            # over 'data' raises)
+            axes = {mesh_lib.DATA: runtime.world_size()}
+            mesh_lib.placements(model, axes, sharding)
+            where = f"mesh {axes} (default)"
+        self.models[name] = ModelEntry(name=name, module=model, sharding=sharding, plan=plan)
         if verbose:
             n_params = sum(p.numel() for p in model.parameters())
+            policy = sharding if isinstance(sharding, str) else "custom rules"
             self.logger.info(f'Model "{name}":\n    - Parameters: {n_params / 1e6:.1f} M\n    - Device: {self.device}'
-                             f'\n    - Sharding: {sharding} over {runtime.world_size()} process(es)')
+                             f'\n    - Sharding policy: {policy}\n    - Mesh: {where} over {runtime.world_size()} '
+                             'process(es)')
 
     def register_optimizer(self, name: str, optimizer: Callable, scheduler=None, model: str | None = None):
         """Register an optimizer factory (``optim.adamw(...)``, bound to the

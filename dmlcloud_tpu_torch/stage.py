@@ -34,6 +34,12 @@ What carries over unchanged:
   size > 1 every process runs the step on its own per-rank batch and the
   gradients are averaged over the processes after the backward (and the
   microbatch divide), before the clip;
+- sharded models (``register_model`` on a mesh, ``parallel.mesh``): FSDP2
+  reduces the gradients itself (with no sync on the microbatches before the
+  last), a ``data`` x ``model`` mesh averages the local shards over the data
+  sub-group, the clip takes the global norm over the shards (replicas once),
+  the EMA and validation on it run on the shards, and the first batch is
+  checked to be the same on tensor-parallel peers;
 - validation under ``torch.no_grad()``;
 - the EMA shadow (``ema_decay``), updated after each optimizer step and used
   by validation (``val_with_ema``) through ``torch.func.functional_call``,
@@ -71,7 +77,9 @@ from .data.device import device_iterator
 from .metrics import MetricTracker, Reduction
 from .parallel import runtime
 from .parallel.data_parallel import all_reduce_gradients
+from .parallel.mesh import grad_sq_norm
 from .parallel.runtime import is_root
+from .parallel.tensor_parallel import local_tensor
 from .telemetry import journal as _journal
 from .train_state import TrainState, ema_like
 from .utils.logging import DevNullIO, flush_log_handlers
@@ -320,7 +328,8 @@ def _split_batch(batch: Any, accum: int) -> list:
 
 class _Reparametrized:
     """``module`` called with ``tensors`` in place of its parameters
-    (``torch.func.functional_call``), neither side copied; any other
+    (``torch.func.functional_call``), neither side copied; a submodule reads
+    its parameters from ``tensors`` too (``model.lm_head.weight``), any other
     attribute is the module's."""
 
     def __init__(self, module: torch.nn.Module, tensors: dict[str, torch.Tensor]):
@@ -331,7 +340,35 @@ class _Reparametrized:
         return torch.func.functional_call(self.module, self.tensors, args, kwargs)
 
     def __getattr__(self, name):
-        return getattr(self.module, name)
+        if name in self.tensors:
+            return self.tensors[name]
+        attr = getattr(self.module, name)
+        if isinstance(attr, torch.nn.Module):
+            prefix = name + "."
+            return _Reparametrized(attr, {k[len(prefix):]: v for k, v in self.tensors.items() if k.startswith(prefix)})
+        return attr
+
+
+@torch.no_grad()
+def _swap_in(params: list[torch.Tensor], values: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Copy ``values`` into the local shards of ``params`` (cast to their
+    dtypes) and return what the shards held before."""
+    saved = []
+    for p, v in zip(params, values):
+        p = local_tensor(p)
+        saved.append(p.clone())
+        p.copy_(local_tensor(v))
+    return saved
+
+
+def _reshard(module: torch.nn.Module) -> None:
+    """Free FSDP2's gathered parameters: the root keeps them from a forward to
+    its backward, which a forward under ``no_grad`` never runs."""
+    from torch.distributed.fsdp import FSDPModule
+
+    for m in module.modules():
+        if isinstance(m, FSDPModule):
+            m.reshard()
 
 
 class TrainValStage(Stage):
@@ -376,6 +413,10 @@ class TrainValStage(Stage):
         self._gp_pad_slots = 0
         self._gp_token_slots = 0
         self._warned_mfu_peak = False
+        #: how the trained model is laid out on the mesh (``MeshPlan``; None:
+        #: replicated over the default mesh)
+        self._plan = None
+        self._batch_checked = False
 
     # -- overridables -------------------------------------------------------
     def train_dataset(self):
@@ -567,12 +608,14 @@ class TrainValStage(Stage):
     def _clip_gradients(self, grads: list[torch.Tensor], clip: float) -> None:
         """Scale ``grads`` in place by ``min(1, clip * rsqrt(max(sum g^2, 1e-12)))``,
         without a host sync. The fp32 scale is rounded to each gradient's dtype
-        before the multiply, as the reference's ``scale.astype(g.dtype)``."""
-        sq = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]).square().sum()
+        before the multiply, as the reference's ``scale.astype(g.dtype)``. On a
+        sharded model ``sum g^2`` is the global one over the shards, replicas
+        counted once (``parallel.mesh.grad_sq_norm``)."""
+        sq = grad_sq_norm(grads)
         scale = torch.clamp(clip * torch.rsqrt(torch.clamp(sq, min=1e-12)), max=1.0)
         by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
         for g in grads:
-            by_dtype.setdefault(g.dtype, []).append(g)
+            by_dtype.setdefault(g.dtype, []).append(local_tensor(g))
         for dtype, group in by_dtype.items():
             torch._foreach_mul_(group, scale.to(dtype))
 
@@ -584,15 +627,19 @@ class TrainValStage(Stage):
         parameter's ``p.grad`` is that fp32 sum itself (autograd adds into
         it); any other dtype gets an fp32 accumulator and is cast back after
         the division. At world size > 1 the gradients are then averaged over
-        the processes (the replicated model's data parallelism), before the
-        clip sees them, as the reference's global mean gradient is."""
+        the data-parallel processes (FSDP2 has done so in the backward), before
+        the clip sees them, as the reference's global mean gradient is."""
         state = self.state
         if accum == 1:
             loss, metrics = self._unpack(self.train_step(state, batch))
             loss.backward()
         else:
             loss, metrics = self._accumulate(batch, accum)
-        all_reduce_gradients(state.model.parameters())
+        plan = self._plan
+        if plan is None:
+            all_reduce_gradients(state.model.parameters())
+        elif not plan.fsdp and plan.dp_size > 1:
+            all_reduce_gradients(state.model.parameters(), group=plan.grad_group)
         return loss, metrics
 
     def _accumulate(self, batch, accum: int) -> tuple[torch.Tensor, dict]:
@@ -601,7 +648,12 @@ class TrainValStage(Stage):
         low = [p for p in state.model.parameters() if p.requires_grad and p.dtype != torch.float32]
         acc: dict[torch.nn.Parameter, torch.Tensor] = {}
         loss_sum, metric_sums = None, {}
-        for mb in micro:
+        fsdp = self._plan is not None and self._plan.fsdp
+        for i, mb in enumerate(micro):
+            if fsdp:
+                # FSDP2 keeps the unsharded gradients summing until the last
+                # microbatch, whose backward reduce-scatters the sum once
+                state.model.set_requires_gradient_sync(i == accum - 1)
             loss, metrics = self._unpack(self.train_step(state, mb))
             loss.backward()
             for p in low:
@@ -620,13 +672,46 @@ class TrainValStage(Stage):
                 if p in acc:
                     p.grad = acc[p].div_(accum).to(p.dtype)
                 elif p.grad is not None:
-                    p.grad.div_(accum)
+                    local_tensor(p.grad).div_(accum)
         return loss_sum / accum, {name: v / accum for name, v in metric_sums.items()}
+
+    def _check_peer_batches(self, batch) -> None:
+        """Tensor-parallel peers must feed the same batch: their collectives
+        would mix different batches silently. Compares a checksum of the first
+        batch over the ``model`` group (one host sync, once per stage)."""
+        self._batch_checked = True
+        plan = self._plan
+        if plan is None or plan.model_group is None:
+            return
+        leaves = []
+
+        def collect(x):
+            if isinstance(x, torch.Tensor):
+                leaves.append(x.detach().reshape(-1).double())
+            elif isinstance(x, dict):
+                for v in x.values():
+                    collect(v)
+            elif isinstance(x, (list, tuple)):
+                for v in x:
+                    collect(v)
+
+        collect(batch)
+        flat = torch.cat(leaves) if leaves else torch.zeros(1, dtype=torch.float64, device=self.device)
+        pos = torch.arange(1, flat.numel() + 1, dtype=torch.float64, device=flat.device)
+        mine = torch.stack([flat.sum(), (flat * pos).sum(), torch.tensor(float(flat.numel()), device=flat.device,
+                                                                          dtype=torch.float64)])
+        peers = [torch.empty_like(mine) for _ in range(plan.model_size)]
+        torch.distributed.all_gather(peers, mine, group=plan.model_group)
+        if not all(torch.equal(peers[0], p) for p in peers[1:]):
+            raise ValueError("tensor-parallel peers (the 'model' axis) were fed different batches; each process must "
+                             "feed the batch of its data-parallel coordinate (parallel.mesh.data_parallel_rank)")
 
     def _train_step(self, batch) -> dict:
         state = self.state
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
+        if not self._batch_checked:
+            self._check_peer_batches(batch)
         loss, metrics = self._backward(batch, int(self.gradient_accumulation()))
         clip = float(self.gradient_clip())
         if clip > 0.0:
@@ -639,18 +724,26 @@ class TrainValStage(Stage):
         metrics[self.loss_metric_name()] = loss.detach()
         return metrics
 
+    def _validates_on_ema(self) -> bool:
+        return self.state.ema is not None and float(self.ema_decay()) > 0.0 and bool(self.val_with_ema())
+
     @torch.no_grad()
     def _val_step(self, batch) -> dict:
         state = self.state
         state.model.eval()
-        if state.ema is not None and float(self.ema_decay()) > 0.0 and self.val_with_ema():
+        if self._plan is None and self._validates_on_ema():
             # the user's val_step reads state.model as usual and runs on the
             # average, cast to the parameters' dtypes (an fp32 shadow must not
-            # promote a bf16 model's forward to fp32)
+            # promote a bf16 model's forward to fp32); a sharded model has the
+            # average in its shards already (val_epoch)
             params = dict(state.model.named_parameters())
             ema = {n: e if e.dtype == params[n].dtype else e.to(params[n].dtype) for n, e in state.ema.items()}
             state = dataclasses.replace(state, model=_Reparametrized(state.model, ema))
-        loss, metrics = self._unpack(self.val_step(state, batch))
+        try:
+            loss, metrics = self._unpack(self.val_step(state, batch))
+        finally:
+            if self._plan is not None and self._plan.fsdp:
+                _reshard(self.state.model)
         metrics[self.loss_metric_name()] = loss
         return metrics
 
@@ -694,6 +787,9 @@ class TrainValStage(Stage):
         super()._pre_stage()
         if self.state is None:
             self.state = self.make_state()
+        models = self.pipeline.models
+        self._plan = self.pipeline._model_entry(self.model_name()).plan if models else None
+        self._batch_checked = False
         self._configure_state_manager()
         if self.pipeline.resumed and (int(self.checkpoint_every()) > 0 or int(self.checkpoint_every_steps()) > 0):
             self._restore_state()
@@ -1115,17 +1211,30 @@ class TrainValStage(Stage):
             return  # validation is optional
         deferred = bool(self.deferred_metrics())
         batches = 0
-        for batch in self._feed_for_epoch(val_ds):
-            metrics = self._val_step(batch)
-            if not deferred:
-                metrics = self._stall.fetch(metrics)
-            for mname, mval in metrics.items():
-                self.track_reduce(mname, mval)
-            self.track_reduce("misc/total_val_batches", 1, reduction=Reduction.SUM, prefixed=False)
-            self.track_reduce(
-                "misc/worker_val_batches", 1, reduction=Reduction.SUM, reduce_globally=False, prefixed=False
-            )
-            batches += 1
+        swapped = None
+        if self._plan is not None and self._validates_on_ema():
+            # a sharded module gathers its parameters in its own forward
+            # hooks, so the average goes into its shards, once for the epoch
+            params = dict(self.state.model.named_parameters())
+            swapped = [params[n] for n in self.state.ema]
+            swapped = swapped, _swap_in(swapped, list(self.state.ema.values()))
+        try:
+            for batch in self._feed_for_epoch(val_ds):
+                metrics = self._val_step(batch)
+                if not deferred:
+                    metrics = self._stall.fetch(metrics)
+                for mname, mval in metrics.items():
+                    self.track_reduce(mname, mval)
+                self.track_reduce("misc/total_val_batches", 1, reduction=Reduction.SUM, prefixed=False)
+                self.track_reduce(
+                    "misc/worker_val_batches", 1, reduction=Reduction.SUM, reduce_globally=False, prefixed=False
+                )
+                batches += 1
+        finally:
+            if swapped is not None:
+                with torch.no_grad():
+                    for p, raw in zip(*swapped):
+                        local_tensor(p).copy_(raw)
         if batches:
             self._stall.block(self.device)
 

@@ -13,6 +13,13 @@ tensors (no copies), ``{"step", "params", "opt_state": {"count", <slot>:
 {name: tensor}}, "ema"}``, with parameters and optimizer slots keyed by
 parameter name. ``torch.distributed.checkpoint.load`` fills such a dict in
 place, and ``load_state_dict`` then reads the two counters back.
+
+A sharded model (``parallel.mesh.shard_module``: FSDP2, tensor parallelism)
+has DTensor parameters, and its optimizer slots and EMA shadow are DTensors of
+the same placements, under the same names: DCP saves and loads each rank's
+shards in place through the same view. (``torch.distributed.checkpoint.
+state_dict``'s ``get_optimizer_state_dict`` would also write the param groups,
+whose learning rate is a schedule function, which DCP cannot store.)
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ from typing import Callable, Iterable
 
 import numpy as np
 import torch
+
+from .parallel.tensor_parallel import local_tensor
 
 
 @dataclass
@@ -72,7 +81,8 @@ class TrainState:
             if not e.is_floating_point():
                 e.copy_(p)
                 continue
-            emas.append(e)
+            emas.append(local_tensor(e))
+            p = local_tensor(p)
             targets.append(p if p.dtype == e.dtype else p.to(e.dtype))
         if emas:
             # the weight (1-d) in fp32, as the reference computes it
@@ -114,7 +124,7 @@ class TrainState:
             for key, value in src.items():
                 if isinstance(value, dict):
                     take(dst[key], value)
-                elif dst[key].data_ptr() != value.data_ptr():
+                elif local_tensor(dst[key]).data_ptr() != local_tensor(value).data_ptr():
                     dst[key].copy_(value)
 
         take(live["params"], sd["params"])

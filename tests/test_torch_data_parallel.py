@@ -397,10 +397,16 @@ def test_g_world2_checkpoint_resume_is_bitwise(ranks):
 
 @pytest.mark.parametrize("sharding", ["fsdp", [("embed", "data")], lambda name, shape: None])
 def test_register_model_refuses_every_policy_but_replicate(sharding):
+    # the policies are ported (tests/test_torch_mesh.py, test_torch_fsdp.py):
+    # on the default mesh, {data: world}, each of them leaves every parameter
+    # replicated, the data-parallel path; what is refused is a policy that is none
     pipe = tdml.TrainingPipeline(device="cpu")
-    with pytest.raises(NotImplementedError, match=r"2\(c\)"):
-        pipe.register_model("m", torch.nn.Linear(2, 2), sharding=sharding, verbose=False)
-    assert "m" not in pipe.models
+    pipe.register_model("m", torch.nn.Linear(2, 2), sharding=sharding, verbose=False)
+    assert pipe.models["m"].plan is None
+    assert all(type(p) is torch.nn.Parameter for p in pipe.models["m"].module.parameters())
+    with pytest.raises(ValueError, match="unknown sharding policy"):
+        pipe.register_model("n", torch.nn.Linear(2, 2), sharding="zero3", verbose=False)
+    assert "n" not in pipe.models
 
 
 def test_world_one_launches_no_collective(monkeypatch):

@@ -5,8 +5,9 @@ A subprocess blocks ``jax``, ``jaxlib``, ``flax``, ``optax``, ``orbax`` and
 ``dmlcloud_tpu_torch``, trains the tiny model for an epoch on ``device="cpu"``
 (and once more with the flight recorder, two microbatches and the host reader),
 trains the MNIST example for an epoch, calls the object collectives and the
-data-parallel helpers at world size 1, and checks that none of those modules
-was loaded — and that, on a machine
+data-parallel helpers at world size 1, trains the pod example's toy model
+on a one-rank ``fsdp`` mesh (FSDP2 over gloo), and checks that none of those
+modules was loaded — and that, on a machine
 without CUDA, entry points called without a device raise instead of running
 on the CPU.
 """
@@ -58,6 +59,12 @@ _SCRIPT = textwrap.dedent(
     data_parallel.all_reduce_gradients(lin.parameters())
     collectives = [runtime.broadcast_object(1, root=0, tag="t"), runtime.all_gather_object(2), runtime.gather_object(3),
                    bool(torch.equal(grad, lin.weight.grad))]
+    # the mesh path: the pod example's toy model on a one-rank fsdp mesh
+    from dmlcloud_tpu_torch.examples import pod_llama_fsdp
+    pod = pod_llama_fsdp.main(["--toy", "--device", "cpu", "--steps-per-epoch", "2", "--chunked-loss", "100"])
+    pod_loss = float(pod.tracker["train/loss"][-1])
+    pod_fsdp = pod.pipeline.models["llama"].plan.fsdp
+    runtime.deinitialize()
 
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in BLOCKED)
@@ -74,7 +81,7 @@ _SCRIPT = textwrap.dedent(
             except RuntimeError:
                 raised[name] = True
     print(json.dumps({"modules": modules, "loaded": loaded, "loss": loss, "goodput": goodput, "raised": raised,
-                      "mnist_acc": mnist_acc, "collectives": collectives}))
+                      "mnist_acc": mnist_acc, "collectives": collectives, "pod": [pod_loss, pod_fsdp]}))
     """
 )
 
@@ -91,11 +98,12 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
                  "utils.git", "utils.project", "telemetry", "telemetry.journal", "telemetry.goodput",
                  "telemetry.watchdog", "data.device", "data.datasets", "utils.profiling", "utils.tensorboard",
                  "utils.wandb", "utils.argparse_ext", "data.sharding", "models.cnn", "examples.mnist",
-                 "parallel.data_parallel"):
+                 "parallel.data_parallel", "parallel.mesh", "parallel.tensor_parallel", "examples.pod_llama_fsdp"):
         assert f"dmlcloud_tpu_torch.{name}" in result["modules"], name
     assert result["loss"] == result["loss"] and result["loss"] > 0  # finite, trained
     assert 0 < result["goodput"] <= 1
     assert result["mnist_acc"] > 0.3  # 8 steps at batch 512: well above the 0.1 of chance
     assert result["collectives"] == [1, [2], [3], True]
+    assert result["pod"][0] > 0 and result["pod"][1], "the pod toy did not train through FSDP2"
     for name, did_raise in result["raised"].items():
         assert did_raise, f"{name} without a device ran on the CPU instead of raising"
