@@ -67,7 +67,21 @@ Phases, each fatal on failure:
    full width with its depth cut to 2 layers, ``--remat --chunked-loss
    8192``, 3 steps of one 4096-token sequence (finite losses, step 1 near
    ln(vocab) + 1/2, K1-K3 launches); (c) ``chunked_lm_loss`` against ``lm_loss`` at
-   vocab 128256, value and gradients at fp32 tolerance.
+   vocab 128256, value and gradients at fp32 tolerance;
+12. seq and pipe: (a) the tensor-core K1-K3 in the forms only the ring's hops
+   use, at the 1b model's heads with one 2048-token block per hop (B=1, 16/8
+   heads of 128): ``causal=False``, the causal diagonal, and the shifted
+   windows of ``window=4096`` one and two hops back (cutoffs 2048 and 0, the
+   second with a dead row) and of ``window=3000`` two hops back (cutoff -1096,
+   dead rows), each held against its plain version with an lse cotangent and
+   timed beside its bound and ``scaled_dot_product_attention`` (an explicit
+   boolean mask for a shifted window); (b) phase 5's run with ``--attn ring
+   --mesh seq=1`` (ring attention over a one-rank NCCL ``seq`` group: the
+   diagonal hop only), losses within ``RING_LOSS_ATOL`` of phase 5's and
+   whether bitwise, the same launches; (c) ``pipeline_apply`` over a one-rank
+   NCCL ``pipe`` group, one stage of 6 of the 1b model's ``DecoderBlock``s on
+   4 microbatches of one 2048-token row, against the same blocks run on the
+   whole batch: outputs and gradients within ``REL_TOL`` bf16 in norm, launches.
 
 The last line of standard output is one JSON object with ``"ok": true``. With no
 card, or without the package beside it, the script exits non-zero and prints no
@@ -248,10 +262,12 @@ def _segments(torch, b, t, seed=1):
 
 
 def check_case(torch, fa, name, dtype, b, t, h, kh, d, causal, window, with_seg, s=None, qk_scale=0.5,
-               also_simt=False):
+               also_simt=False, lse_cotangent=False):
     """K1, K2 and K3 (the kernels ``kernel_route`` picks) against their plain
     versions on one set of inputs; with ``also_simt`` the CUDA-core K1-K3
-    too. Returns the errors (max abs, norm-relative) by kernel and the inputs."""
+    too; with ``lse_cotangent`` a random cotangent of the lse is folded into
+    delta (as the ring's merge gives one). Returns the errors (max abs,
+    norm-relative) by kernel and the inputs."""
     q, k, v, do = _inputs(torch, dtype, b, t, h, kh, d, s=s, qk_scale=qk_scale)
     seg = _segments(torch, b, t) if with_seg else None
     scale = 1.0 / math.sqrt(d)
@@ -265,8 +281,11 @@ def check_case(torch, fa, name, dtype, b, t, h, kh, d, causal, window, with_seg,
         fwds["simt"], dqs["simt"], dkvs["simt"] = fa.attn_fwd_simt, fa.attn_dq_simt, fa.attn_dkv_simt
 
     out_p, lse_p = fa.attn_fwd_plain(q, k, v, *args)
+    g_lse = None
+    if lse_cotangent:
+        g_lse = torch.randn(b * h, t, generator=torch.Generator(device="cuda").manual_seed(3), device="cuda")
     # the backward kernels take the same saved statistics as their plain versions
-    delta = fa.softmax_delta(out_p, do)
+    delta = fa.softmax_delta(out_p, do, g_lse)
     bwd = (q, k, v, do, lse_p, delta, *args)
     dq_p = fa.attn_dq_plain(*bwd)
     dk_p, dv_p = fa.attn_dkv_plain(*bwd)
@@ -324,15 +343,22 @@ SMALL_CASES = [
 ]
 
 
-def _causal_pairs(t: int) -> int:
-    return t * (t + 1) // 2
+def _live_pairs(t: int, s: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs a mask keeps: ``k <= q`` when causal, ``q - k < window``."""
+    total = 0
+    for q in range(t):
+        hi = min(s, q + 1) if causal else s
+        lo = 0 if window is None else max(0, q - window + 1)
+        total += max(0, hi - lo)
+    return total
 
 
-def _work(b, t, h, kh, d) -> dict[str, tuple[int, int]]:
-    """(operations, bytes) of K1-K3 on causal bf16 attention: each input read
-    once, each output written once (for the bounds: operations over the bf16
-    tensor-core peak, bytes over HBM bandwidth)."""
-    pairs = b * h * _causal_pairs(t)
+def _work(b, t, h, kh, d, causal: bool = True, window: int | None = None) -> dict[str, tuple[int, int]]:
+    """(operations, bytes) of K1-K3 on bf16 attention (T == S), counting the
+    pairs the mask keeps: each input read once, each output written once (for
+    the bounds: operations over the bf16 tensor-core peak, bytes over HBM
+    bandwidth)."""
+    pairs = b * h * _live_pairs(t, t, causal, window)
     e = 2  # bytes per bf16 element
     q_bytes, kv_bytes, stat_bytes = b * t * h * d * e, b * t * kh * d * e, b * h * t * 4
     return {
@@ -351,43 +377,60 @@ MESH_SHAPES = {"8b train bf16 causal gqa 32->8": dict(b=1, t=4096, h=32, kh=8, d
                "1b model=2 local heads 8->4": dict(b=4, t=2048, h=8, kh=4, d=128)}
 
 
+def time_tc(torch, fa, errs, inputs, causal: bool, window: int | None, plain_reps: int = 5) -> dict:
+    """The tensor-core K1-K3 on ``check_case``'s inputs, each timed beside its
+    plain version, its bound (the pairs the mask keeps) and
+    ``scaled_dot_product_attention`` (a window as an explicit boolean mask;
+    rows with nothing to attend to come out NaN there). Rows by kernel."""
+    import torch.nn.functional as F
+
+    q, k, v, do, seg, out_p, lse_p, delta = inputs
+    b, t, h, d = q.shape
+    args = (None, causal, 1.0 / math.sqrt(d), window)
+    bwd = (q, k, v, do, lse_p, delta, *args)
+    times = {"K1": (cuda_ms(torch, lambda: fa.attn_fwd_tc(q, k, v, *args)),
+                    cuda_ms(torch, lambda: fa.attn_fwd_plain(q, k, v, *args), reps=plain_reps)),
+             "K2": (cuda_ms(torch, lambda: fa.attn_dq_tc(*bwd)),
+                    cuda_ms(torch, lambda: fa.attn_dq_plain(*bwd), reps=plain_reps)),
+             "K3": (cuda_ms(torch, lambda: fa.attn_dkv_tc(*bwd)),
+                    cuda_ms(torch, lambda: fa.attn_dkv_plain(*bwd), reps=plain_reps))}
+    # yardstick only: one library call for the same attention
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    mask = None
+    if window is not None:
+        pos = torch.arange(t, device="cuda")
+        mask = (pos[:, None] - pos[None, :]) < window  # the hops' windows come without causal
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+                                                  enable_gqa=True)
+    lib_fwd = cuda_ms(torch, sdpa)
+    o = sdpa()
+    lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+    work = _work(b, t, h, k.shape[2], d, causal, window)
+    rows = {}
+    for key, (ms, plain_ms) in times.items():
+        flops, nbytes = work[key]
+        op_ms, byte_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        err = max(e for n, (e, _) in errs.items() if n.startswith(key) and not n.endswith("lse"))
+        rows[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(op_ms, byte_ms),
+                         bound_by="operations" if op_ms >= byte_ms else "bytes",
+                         library_ms=lib_fwd if key == "K1" else lib_bwd, max_abs_err=err)
+    return rows
+
+
 def phase_mesh_shapes(torch, fa) -> dict:
     """K1-K3 (tensor cores) at the mesh slice's shapes: each held against its
     plain version at TOL/REL_TOL and timed beside the plain version, its bound
     and ``scaled_dot_product_attention``."""
-    import torch.nn.functional as F
-
     out = {}
     for name, sh in MESH_SHAPES.items():
-        b, t, h, kh, d = sh["b"], sh["t"], sh["h"], sh["kh"], sh["d"]
-        errs, (q, k, v, do, seg, out_p, lse_p, delta) = check_case(torch, fa, name, torch.bfloat16, b, t, h, kh, d,
-                                                                   True, None, False)
-        args = (None, True, 1.0 / math.sqrt(d), None)
-        bwd = (q, k, v, do, lse_p, delta, *args)
-        times = {"K1": (cuda_ms(torch, lambda: fa.attn_fwd_tc(q, k, v, *args)),
-                        cuda_ms(torch, lambda: fa.attn_fwd_plain(q, k, v, *args), reps=5)),
-                 "K2": (cuda_ms(torch, lambda: fa.attn_dq_tc(*bwd)),
-                        cuda_ms(torch, lambda: fa.attn_dq_plain(*bwd), reps=5)),
-                 "K3": (cuda_ms(torch, lambda: fa.attn_dkv_tc(*bwd)),
-                        cuda_ms(torch, lambda: fa.attn_dkv_plain(*bwd), reps=5))}
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
-        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-        sdpa_fwd = cuda_ms(torch, sdpa)
-        o = sdpa()
-        g = do.transpose(1, 2)
-        sdpa_bwd = cuda_ms(torch, lambda: torch.autograd.grad(o, (qt, kt, vt), g, retain_graph=True))
-        rows = {}
-        for key, (ms, plain_ms) in times.items():
-            flops, nbytes = _work(b, t, h, kh, d)[key]
-            op_ms, byte_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-            lib = sdpa_fwd if key == "K1" else sdpa_bwd
-            err = max(e for n, (e, _) in errs.items() if n.startswith(key) and not n.endswith("lse"))
-            rows[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(op_ms, byte_ms),
-                             bound_by="operations" if op_ms >= byte_ms else "bytes", library_ms=lib, max_abs_err=err)
-            log(f"[kernels] {name}: {key} tc {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {max(op_ms, byte_ms):.4f} ms "
-                f"by {rows[key]['bound_by']}, {max(op_ms, byte_ms) / ms:.1%} of it; library {lib:.3f} ms)")
-        out[name] = rows
-        del q, k, v, do, out_p, lse_p, delta, qt, kt, vt, o
+        errs, inputs = check_case(torch, fa, name, torch.bfloat16, sh["b"], sh["t"], sh["h"], sh["kh"], sh["d"],
+                                  True, None, False)
+        out[name] = time_tc(torch, fa, errs, inputs, True, None)
+        for key, r in out[name].items():
+            log(f"[kernels] {name}: {key} tc {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound "
+                f"{r['bound_ms']:.4f} ms by {r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of it; library "
+                f"{r['library_ms']:.3f} ms)")
+        del inputs
         torch.cuda.empty_cache()
     return out
 
@@ -1371,6 +1414,181 @@ def phase_mesh(torch, fa, smi: str, p5: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the seq axis (ring attention) and the pipe axis (GPipe) on one card
+# ---------------------------------------------------------------------------
+
+#: the ring's hop forms at the 1b heads, one 2048-token block per hop:
+#: name -> (causal, window cutoff handed to the kernels)
+HOP_SHAPES = dict(b=1, t=2048, h=16, kh=8, d=128)
+HOP_FORMS = {
+    "behind (causal=False)": (False, None),
+    "diagonal (causal)": (True, None),
+    "window 4096, 1 hop back (cutoff 2048)": (False, 4096 - 2048),
+    "window 4096, 2 hops back (cutoff 0, a dead row)": (False, 4096 - 2 * 2048),
+    "window 3000, 2 hops back (cutoff -1096, dead rows)": (False, 3000 - 2 * 2048),
+}
+RING_ARGV = [a for a in TRAIN_ARGV if a not in ("--attn", "flash")] + ["--attn", "ring", "--mesh", "seq=1"]
+#: phase 5's losses against the same run with ring attention over one rank
+#: (the diagonal hop; its merge with n = 1 is exact, so bitwise is expected)
+RING_LOSS_ATOL = 1e-3
+PIPE_BLOCKS, PIPE_MICRO = 6, 4
+
+
+def phase_hops(torch, fa, smi: str) -> dict:
+    """(a): each hop form through K1/K2/K3 on the tensor cores against the
+    plain versions, with a random lse cotangent folded into delta (the ring's
+    merge differentiates the lse), then timed; a dead row's output must be 0."""
+    sh = HOP_SHAPES
+    out = {}
+    for name, (causal, window) in HOP_FORMS.items():
+        errs, inputs = check_case(torch, fa, f"hop: {name}", torch.bfloat16, sh["b"], sh["t"], sh["h"], sh["kh"],
+                                  sh["d"], causal, window, False, lse_cotangent=True)
+        q, out_p, lse_p = inputs[0], inputs[5], inputs[6]
+        o, _ = fa.attn_fwd_tc(q, inputs[1], inputs[2], None, causal, 1.0 / math.sqrt(sh["d"]), window)
+        dead = lse_p.reshape(sh["b"], sh["h"], sh["t"]).permute(0, 2, 1) <= fa.NEG_INF / 2  # [B, T, H]
+        if not bool((o[dead] == 0).all()):
+            raise AssertionError(f"{name}: a dead row's output is not 0")
+        rows = time_tc(torch, fa, errs, inputs, causal, window, plain_reps=3)
+        pairs = _live_pairs(sh["t"], sh["t"], causal, window)
+        log(f"[seq] (a) hop form {name}: {pairs} live pairs per head, {int(dead.sum())} dead rows; "
+            + "; ".join(f"{key} tc {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} by "
+                        f"{r['bound_by']}, library {r['library_ms']:.3f}, max abs err {r['max_abs_err']:.2e})"
+                        for key, r in rows.items()) + f" [{smi}]")
+        out[name] = dict(rows=rows, dead=int(dead.sum()), pairs=pairs)
+        del inputs, q, out_p, lse_p, o
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_ring(torch, fa, smi: str, p5: dict) -> dict:
+    """(b): phase 5's run with ``--attn ring --mesh seq=1``."""
+    from dmlcloud_tpu_torch.examples import train_lm
+    from dmlcloud_tpu_torch.parallel import runtime
+
+    runtime.deinitialize()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()  # the ring path's run starts here ...
+        stage = train_lm.main(RING_ARGV)
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)  # ... and ends here
+        peak = torch.cuda.max_memory_allocated()
+        losses, val = _losses(stage)
+        group = stage.state.model.layers[0].attn.seq
+        step_ms = float(stage.tracker["misc/train_step_avg_ms"][-1])
+        # after the counts were read: the steady step beside phase 6's
+        steady, _ = steady_ms(torch, stage, next(iter(stage._feed(stage.train_dataset()))))
+    finally:
+        runtime.deinitialize()
+    diffs = [abs(a - b) for a, b in zip(losses + [val], p5["losses"] + [p5["val"]])]
+    first = next((i + 1 for i, (a, b) in enumerate(zip(losses, p5["losses"])) if a != b), None)
+    bitwise = first is None and val == p5["val"]
+    log(f"[seq] (b) train_lm 1b --attn ring --mesh seq=1: losses {losses}, val/loss {val!r}; against phase 5 "
+        f"max |diff| {max(diffs):.3g}; {'bitwise equal' if bitwise else f'not bitwise: first differs at step {first}'}"
+        f" (val {'equal' if val == p5['val'] else 'differs'}); step avg {step_ms:.1f} ms (first step included), "
+        f"steady {steady:.1f} ms against phase 6's {p5['steady_ms']:.1f} ms; peak {peak / 2**30:.2f} GiB; "
+        f"launches {launches} [{smi}]")
+    if group is None or group.size != 1:
+        raise AssertionError(f"the ring model has no one-rank seq group: {group}")
+    want = {"flash_fwd_tc": 192, "flash_bwd_dq_tc": 168, "flash_bwd_dkv_tc": 168, "flash_fwd": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
+    if launches != want:
+        raise AssertionError(f"launches on the ring path {launches}, want {want}")
+    if len(losses) != 7 or not max(diffs) <= RING_LOSS_ATOL:
+        raise AssertionError(f"ring losses off phase 5's by {max(diffs):.3g} (> {RING_LOSS_ATOL})")
+    del stage
+    _free(torch)
+    return dict(bitwise=bitwise, first_diff=first, max_diff=max(diffs), peak_gib=peak / 2**30, step_ms=step_ms,
+                steady_ms=steady)
+
+
+def phase_pipe(torch, fa, smi: str, preset: str = "1b", t: int = 2048) -> dict:
+    """(c): ``pipeline_apply`` over a one-rank ``pipe`` group against the same
+    blocks run in sequence on the whole batch (``preset``'s blocks on rows of
+    ``t`` tokens)."""
+    from torch.func import functional_call
+
+    from dmlcloud_tpu_torch.examples.train_lm import PRESETS
+    from dmlcloud_tpu_torch.models.transformer import DecoderBlock, TransformerConfig, rope_frequencies
+    from dmlcloud_tpu_torch.parallel import mesh as mesh_lib
+    from dmlcloud_tpu_torch.parallel import pipeline_apply, runtime
+
+    cfg = TransformerConfig(vocab_size=32000, max_seq_len=t, attn_impl="flash", **PRESETS[preset])
+    torch.manual_seed(0)
+    blocks = torch.nn.ModuleList(DecoderBlock(cfg, device="cuda") for _ in range(PIPE_BLOCKS))
+    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta, None, "cuda")
+
+    class Stage(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.blocks = blocks
+
+        def forward(self, x):
+            for block in self.blocks:
+                x = block(x, cos, sin)
+            return x
+
+    stage = Stage()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(PIPE_MICRO, t, cfg.hidden_dim, generator=g, device="cuda").to(torch.bfloat16)
+    cot = torch.randn(x.shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    def sequential():
+        xi = x.clone().requires_grad_(True)
+        y = stage(xi)
+        grads = torch.autograd.grad(y, [xi, *stage.parameters()], cot)
+        return y.detach(), grads
+
+    runtime.deinitialize()
+    try:
+        mesh = mesh_lib.create_mesh({"pipe": 1}, device="cuda")
+        stacked = {n: p.detach()[None].clone().requires_grad_(True) for n, p in stage.named_parameters()}
+        stage_fn = lambda params, act: functional_call(stage, params, (act,))
+
+        def piped():
+            xi = x.clone().requires_grad_(True)
+            y = pipeline_apply(stage_fn, stacked, xi.reshape(PIPE_MICRO, 1, t, -1), mesh)
+            grads = torch.autograd.grad(y, [xi, *stacked.values()], cot.reshape(y.shape))
+            return y.detach().reshape(x.shape), [grads[0]] + [gr[0] for gr in grads[1:]]
+
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()  # the pipe path's run starts here ...
+        got_y, got_g = piped()
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)  # ... and ends here
+        peak = torch.cuda.max_memory_allocated()
+        want_y, want_g = sequential()
+        torch.cuda.synchronize()
+        # in norm only: a weight's gradient is a sum over the batch's tokens
+        # rounded to bf16 once per microbatch here and once for the whole batch
+        # there, so where the partial sums cancel an element can differ by
+        # their bf16 ulps (phase 3 holds the kernels elementwise)
+        errs = {n: (max_err(torch, a, b), rel_err(torch, a, b))
+                for (a, b), n in zip(zip([got_y, *got_g], [want_y, *want_g]), ["y", "x", *stacked])}
+        bad = {n: e for n, e in errs.items() if not e[1] <= REL_TOL["bfloat16"]}
+        if bad or not all(bool(torch.isfinite(a).all()) for a in [got_y, *got_g]):
+            raise AssertionError(f"pipeline_apply off the sequential blocks (max abs, norm-relative): {bad}")
+        bitwise = bool(torch.equal(got_y, want_y)) and all(torch.equal(a, b) for a, b in zip(got_g, want_g))
+        pipe_ms, seq_ms = cuda_ms(torch, piped, reps=3), cuda_ms(torch, sequential, reps=3)
+    finally:
+        runtime.deinitialize()
+    worst = max(rel for _, rel in errs.values())
+    log(f"[pipe] (c) pipeline_apply, one stage of {PIPE_BLOCKS} {preset} DecoderBlocks on a one-rank pipe group, "
+        f"{PIPE_MICRO} microbatches of [1, {t}, {cfg.hidden_dim}] bf16, against the blocks on the whole batch: worst "
+        f"norm-relative err {worst:.3g} (bound {REL_TOL['bfloat16']}; output and {len(errs) - 1} gradients; max abs "
+        f"err {max(e for e, _ in errs.values()):.3g}; "
+        f"{'bitwise' if bitwise else 'not bitwise'}); forward+backward {pipe_ms:.2f} vs {seq_ms:.2f} ms; peak "
+        f"{peak / 2**30:.2f} GiB; launches {launches} [{smi}]")
+    want = {"flash_fwd_tc": PIPE_BLOCKS * PIPE_MICRO, "flash_bwd_dq_tc": PIPE_BLOCKS * PIPE_MICRO,
+            "flash_bwd_dkv_tc": PIPE_BLOCKS * PIPE_MICRO, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    if launches != want:
+        raise AssertionError(f"launches on the pipe path {launches}, want {want}")
+    del stage, blocks, stacked, x, cot
+    _free(torch)
+    return dict(worst_rel=worst, bitwise=bitwise, ms=pipe_ms, seq_ms=seq_ms, peak_gib=peak / 2**30)
+
+
 def main() -> None:
     try:
         import torch
@@ -1401,6 +1619,11 @@ def main() -> None:
     phase_mnist(torch, dev["smi"])
     phase_nccl(torch, dev["smi"])
     phase_mesh(torch, fa, dev["smi"], p5)
+    t12 = time.perf_counter()
+    phase_hops(torch, fa, dev["smi"])
+    phase_ring(torch, fa, dev["smi"], p5)
+    phase_pipe(torch, fa, dev["smi"])
+    log(f"[seq] phase 12 in {time.perf_counter() - t12:.1f} s")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(dev["smi"])

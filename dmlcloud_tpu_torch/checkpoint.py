@@ -11,6 +11,7 @@ the requeue verdict (``requeue.json``, schema v1), and the directory contract::
       .slurm-jobid      # written iff launched under Slurm
       requeue.json      # the run's requeue verdict
       meta/<scope>/     # JSON resume sidecars (stage.py)
+      meta/_sharding/<scope or _root>/<step>.json  # sharding sidecars
       state/<scope>/<step>/  # tensor state of one save
 
 File names and JSON schemas are the JAX package's, so either package finds,
@@ -32,9 +33,20 @@ Retention is host-side: the newest ``max_to_keep`` committed steps, or a
 preservation policy (``LatestN``/``BestN``/``AnyPreservationPolicy``, the
 reference's keep-best composition) evaluated by ``steps_to_keep``.
 
-Not here yet: the reference's sharding sidecar, ``restore_template`` and the
-elastic resharded restore (they come with many-GPU training), and remote
-(``gs://``) paths.
+Elastic restore (the reference's :355-580, doc/elasticity.md): every save
+writes, from rank 0 and best effort, a sharding sidecar with the mesh's shape
+and each saved tensor's spec (the parameter policy's, as
+``parallel.mesh.sharding_record`` gives it: by flax path, in the flax layout,
+with the map onto the torch tensor's dims; else the tensor's own DTensor
+placements). ``restore_state(mesh=)`` then restores onto any mesh without a
+template: ``restore_template`` builds one from DCP's own metadata (shapes and
+dtypes) with each entry laid out by its saved spec re-targeted onto the new
+mesh (``respec_for_mesh``), and DCP reshards on read. The specs decide only
+that layout: where a template is given, its own tensors (e.g. a live FSDP2
+module's DTensors) decide it, and DCP's metadata says where the saved shards
+are.
+
+Not here yet: remote (``gs://``) paths.
 """
 
 from __future__ import annotations
@@ -53,6 +65,7 @@ from datetime import datetime
 from pathlib import Path
 from typing import Any, Callable, Sequence
 
+import torch
 import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
 
@@ -254,6 +267,63 @@ def _nbytes(tree: Any) -> int:
     if isinstance(tree, dict):
         return sum(_nbytes(v) for v in tree.values())
     return tree.numel() * tree.element_size() if hasattr(tree, "element_size") else 0
+
+
+def _sidecar_record(state: dict, sharding: dict | None) -> dict:
+    """The sharding sidecar of ``state``: an entry named after a parameter of
+    ``sharding`` (``parallel.mesh.sharding_record``) gets that parameter's spec
+    under its flax path (``params/layer_0/attn/q_proj/kernel``, as the
+    reference's sidecar names it), any other its DTensor placements over the
+    torch dims (a plain tensor: replicated)."""
+    from torch.distributed.tensor import DTensor
+
+    params = (sharding or {}).get("params", {})
+    mesh = dict((sharding or {}).get("mesh", {}))
+    specs, entries = {}, {}
+
+    def visit(node: dict, prefix: tuple) -> None:
+        nonlocal mesh
+        for name, value in node.items():
+            keys = prefix + (str(name),)
+            if isinstance(value, dict):
+                visit(value, keys)
+                continue
+            if not hasattr(value, "shape"):
+                continue
+            if name in params:
+                rec = params[name]
+                path = "/".join(keys[:-1] + (rec["path"],))
+                specs[path] = rec["spec"]
+                entries[".".join(keys)] = {"spec": path, "shape": rec["shape"], "dims": rec["dims"]}
+                continue
+            by_dim: list[list[str]] = [[] for _ in range(value.dim())]
+            if isinstance(value, DTensor):
+                dmesh = value.device_mesh
+                mesh = mesh or dict(zip(dmesh.mesh_dim_names, dmesh.shape))
+                for axis, placement in zip(dmesh.mesh_dim_names, value.placements):
+                    if placement.is_shard():
+                        by_dim[placement.dim].append(axis)
+            spec = [None if not a else a[0] if len(a) == 1 else a for a in by_dim]
+            while spec and spec[-1] is None:
+                spec.pop()
+            path = "/".join(keys)
+            specs[path] = spec
+            entries[".".join(keys)] = {"spec": path, "shape": list(value.shape), "dims": list(range(value.dim()))}
+
+    visit(state, ())
+    return {"v": 1, "mesh": mesh or {"data": runtime.world_size()}, "specs": specs, "entries": entries}
+
+
+def _placements(spec: Sequence, dims: Sequence, mesh_dims: list[str]) -> list:
+    """DTensor placements, one per mesh dim, for ``spec`` over the flax dims
+    whose torch dims ``dims`` gives (None: the fused heads dim, 0)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    placements = [Replicate() for _ in mesh_dims]
+    for i, entry in enumerate(spec):
+        for axis in (() if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)):
+            placements[mesh_dims.index(axis)] = Shard(0 if dims[i] is None else dims[i])
+    return placements
 
 
 class StateManager:
@@ -478,13 +548,17 @@ class CheckpointDir:
         self._manager_opts[scope] = requested
         return self._state_managers[scope]
 
-    def save_state(self, step: int, state: dict, scope: str | None = None, metrics: dict | None = None) -> None:
+    def save_state(self, step: int, state: dict, scope: str | None = None, metrics: dict | None = None,
+                   sharding: dict | None = None) -> None:
         """Save a (nested) dict of tensors under ``state/<scope>/<step>``.
         A transient filesystem error (``OSError``) at dispatch is retried
         ``save_retries`` times with exponential backoff before the ORIGINAL
-        error surfaces. ``metrics`` ranks the save for a keep-best policy."""
+        error surfaces. ``metrics`` ranks the save for a keep-best policy.
+        ``sharding`` (``parallel.mesh.sharding_record``) is what the sharding
+        sidecar records of the entries named after a parameter."""
         self._retry_transient(lambda: self.state_manager(scope).save(step, state, metrics=metrics),
                               what=f"save of step {step} (scope {scope!r})")
+        self._write_sharding_sidecar(scope, int(step), state, sharding)
 
     def _retry_transient(self, fn, what: str):
         attempts = max(int(self.save_retries), 1)
@@ -503,19 +577,121 @@ class CheckpointDir:
                 delay = min(delay * 2, 8.0)
         raise first
 
-    def restore_state(self, step: int | None = None, template: dict | None = None,
-                      scope: str | None = None) -> dict | None:
-        """Restore the latest (or a given) step into ``template``, a dict of
-        tensors with the saved structure that DCP fills in place (the live
-        state's own tensors: no second copy on the device). None when the
-        scope holds no committed save."""
-        if template is None:
-            raise ValueError("restore_state needs a template: the state dict to fill in place")
+    # -- sharding sidecar (elastic resharded restore) ------------------------
+    def _sharding_sidecar_file(self, scope: str | None, step: int) -> Path:
+        # a subtree of its own: meta/<scope>/ holds the stage's resume sidecars
+        return self.path / "meta" / "_sharding" / (scope or "_root") / f"{int(step)}.json"
+
+    def _write_sharding_sidecar(self, scope: str | None, step: int, state: dict, sharding: dict | None) -> None:
+        """Root only: record the mesh's shape and every saved tensor's spec,
+        then prune the sidecars of steps no longer kept. Best effort: a failed
+        write degrades a template-free restore to ``policy``, never fails the
+        save."""
+        if not runtime.is_root():
+            return
+        try:
+            record = _sidecar_record(state, sharding)
+            target = self._sharding_sidecar_file(scope, step)
+            target.parent.mkdir(parents=True, exist_ok=True)
+            atomic_write_text(target, json.dumps(record))
+            kept = set(self.state_manager(scope).all_steps()) | {int(step)}
+            for f in target.parent.glob("*.json"):
+                if f.stem.isdigit() and int(f.stem) not in kept:
+                    f.unlink(missing_ok=True)
+        except Exception:
+            _logger.warning("could not write sharding sidecar for scope %r step %d (resharded restore will need an "
+                            "explicit template/policy)", scope, step, exc_info=True)
+
+    def read_sharding_sidecar(self, scope: str | None, step: int) -> dict | None:
+        """The save-time sharding record of ``step`` (``{"v": 1, "mesh": {axis:
+        size}, "specs": {path: spec}, "entries": {saved key: {"spec": path,
+        "shape": [...], "dims": [...]}}}``), or None when absent or damaged."""
+        try:
+            raw = json.loads(self._sharding_sidecar_file(scope, step).read_text())
+            if raw.get("v") == 1 and isinstance(raw.get("specs"), dict):
+                return raw
+        except (OSError, ValueError, AttributeError):
+            pass
+        return None
+
+    def restore_template(self, step: int, scope: str | None = None, mesh: Any = None, policy: Any = None) -> dict:
+        """A template for restoring ``step`` onto ``mesh`` (a ``DeviceMesh``),
+        without the caller building the state: the structure, shapes and
+        dtypes come from DCP's metadata; each entry is an empty DTensor on
+        ``mesh``, laid out by its save-time spec (sharding sidecar) re-targeted
+        with ``parallel.mesh.respec_for_mesh``: axes the new mesh lacks restore
+        replicated, axes that stopped dividing move or drop. Without a sidecar
+        (an older checkpoint) ``policy`` (``make_param_policy``'s values on the
+        ``/``-joined key and torch shape; default ``"replicate"``) decides."""
+        from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+        from torch.distributed.tensor import empty as dtensor_empty
+
+        from .parallel import mesh as mesh_lib
+
+        if mesh is None:
+            raise ValueError("restore_template needs the target mesh")
+        step_dir = self.state_manager(scope).root / str(int(step))
+        try:
+            meta = dcp.FileSystemReader(step_dir).read_metadata()
+        except (OSError, ValueError) as exc:
+            raise ValueError(f"no checkpoint metadata for step {step} (scope {scope!r})") from exc
+        sidecar = self.read_sharding_sidecar(scope, step)
+        if sidecar is None:
+            _logger.warning("no sharding sidecar for scope %r step %d (checkpoint predates elastic resume?); "
+                            "restoring with policy %r", scope, step, policy or "replicate")
+        policy_fn = mesh_lib.make_param_policy(policy or "replicate")
+        axes = mesh_lib.mesh_axes(mesh)
+        entries = (sidecar or {}).get("entries", {})
+        specs = (sidecar or {}).get("specs", {})
+        template: dict = {}
+        for key, md in meta.state_dict_metadata.items():
+            if not isinstance(md, TensorStorageMetadata):
+                continue  # the state holds tensors only
+            shape = tuple(md.size)
+            entry = entries.get(key)
+            if entry is not None and entry.get("spec") in specs:
+                spec = mesh_lib.respec_for_mesh(mesh_lib.spec_from_jsonable(specs[entry["spec"]]), entry["shape"],
+                                                mesh)
+                dims = entry["dims"]
+            elif sidecar is not None:
+                spec, dims = mesh_lib.P(), []  # saved unsharded (or its spec unrecorded)
+            else:
+                spec = policy_fn(key.replace(".", "/"), torch.empty(shape, device="meta"), axes)
+                dims = list(range(len(shape)))
+            t = dtensor_empty(shape, dtype=md.properties.dtype, device_mesh=mesh,
+                              placements=_placements(spec, dims, list(mesh.mesh_dim_names)))
+            path = meta.planner_data.get(key, (key,)) if meta.planner_data else (key,)
+            node = template
+            for part in path[:-1]:
+                node = node.setdefault(part, {})
+            node[path[-1]] = t
+        return template
+
+    def restore_state(self, step: int | None = None, template: dict | None = None, scope: str | None = None, *,
+                      mesh: Any = None, policy: Any = None) -> dict | None:
+        """Restore the latest (or a given) step. None when the scope holds no
+        committed save. Two modes:
+
+        - ``template=``: a dict of tensors with the saved structure that DCP
+          fills in place (the live state's own tensors: no second copy on the
+          device). Its tensors may lie on another mesh than the save's: DCP
+          reshards on read (this is how stages resume);
+        - ``mesh=`` (no template): the elastic restore. The template comes from
+          ``restore_template`` (DCP's metadata plus the sharding sidecar,
+          re-targeted onto ``mesh``; ``policy`` for a checkpoint without a
+          sidecar); returns the nested dict of DTensors on ``mesh``.
+
+        With neither it raises: a state without a layout has nowhere to go."""
+        if template is None and mesh is None:
+            raise ValueError("restore_state needs a template (the state dict to fill in place) or a mesh (an elastic "
+                             "restore)")
         mgr = self.state_manager(scope)
         if step is None:
             step = mgr.latest_step()
         if step is None:
             return None
+        if template is None:
+            template = self.restore_template(step, scope=scope, mesh=mesh, policy=policy)
         return mgr.restore(step, template)
 
     def latest_step(self, scope: str | None = None) -> int | None:

@@ -1,7 +1,8 @@
 """Decoder-LM pretraining through the port's pipeline — the counterpart of
 ``examples/train_lm.py``, with the same presets and the flags of the ported
-paths (``--attn dot|flash``, ``--pack``, ``--window``, ``--checkpoint-dir``,
-``--save-every-steps``, ``--ema``, ``--mfu``, ``--chunked-loss``, ``--mesh``).
+paths (``--attn dot|flash|ring``, ``--pack``, ``--window``,
+``--checkpoint-dir``, ``--save-every-steps``, ``--ema``, ``--mfu``,
+``--chunked-loss``, ``--mesh``).
 
 The model registers with ``sharding=llama_partition_rules()``, as the
 reference's example does. Without ``--mesh`` the mesh is ``{data: world}``,
@@ -10,8 +11,11 @@ feeds the whole ``--batch-size`` batch. With ``--mesh`` (e.g.
 ``fsdp=4``, ``data=2,fsdp=2``, ``fsdp=2,model=2``; one process per device,
 launched by ``torch.distributed.run``) ``--batch-size`` is the global batch:
 each process feeds the rows of its data-parallel coordinate
-(``parallel.mesh.data_parallel_rank``), the same rows as its tensor-parallel
-peers.
+(``parallel.mesh.data_parallel_rank``), the same rows as its tensor- and
+sequence-parallel peers. ``--attn ring`` needs a ``seq`` axis in ``--mesh``:
+attention then runs as ring attention over it (``--window`` over global
+positions), everything else replicated over ``seq``; ``--pack`` does not go
+with it.
 
 Run on one GPU (``--device cpu`` runs on the CPU with the kernels' plain
 PyTorch versions):
@@ -160,7 +164,7 @@ def build(
     parser.add_argument("--vocab-size", type=int, default=512)
     parser.add_argument("--n-seqs", type=int, default=512)
     parser.add_argument("--lr", type=float, default=3e-4)
-    parser.add_argument("--attn", choices=["dot", "flash"], default="dot")
+    parser.add_argument("--attn", choices=["dot", "flash", "ring"], default="dot")
     parser.add_argument("--window", type=int, default=None, help="sliding-window attention width")
     parser.add_argument("--pack", action="store_true", help="pack a variable-length corpus (segment_ids path)")
     parser.add_argument("--remat", action="store_true", help="recompute blocks in the backward pass")
@@ -174,6 +178,10 @@ def build(
     parser.add_argument("--mesh", type=str, default=None, help="e.g. data=2,fsdp=4 (one process per device)")
     parser.add_argument("--device", default="cuda", help='"cuda" (default) or "cpu"')
     args = parser.parse_args(argv)
+    if args.pack and args.attn == "ring":
+        parser.error("--pack (segment_ids) is not supported with --attn ring")
+    if args.attn == "ring" and "seq" not in parse_mesh_axes(args.mesh or "data=-1"):
+        parser.error("--attn ring needs a seq axis in --mesh (e.g. --mesh seq=4)")
 
     init_auto(args.device, verbose=True)
     config = {

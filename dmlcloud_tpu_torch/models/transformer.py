@@ -5,8 +5,14 @@ Counterpart of ``dmlcloud_tpu/models/transformer.py``: ``TransformerConfig``
 ``_dot_attention`` (:188), ``Attention`` (:232; the dense no-cache branch and
 the packed ``segment_ids`` branch), ``MLP`` (:371), ``DecoderBlock`` (:388),
 ``DecoderLM`` (:435), ``lm_loss`` (:642) and ``_packed_mean`` (:658). The
-decode cache, paged decode, left-padded prompts, LoRA adapters, MoE, int8 and
-ring attention come in later slices; a config that asks for them raises.
+decode cache, paged decode, left-padded prompts, LoRA adapters, MoE and int8
+come in later slices.
+
+``attn_impl="ring"`` runs attention as ring attention over the ``seq`` axis
+(``cfg.seq_axis``) of the mesh the model is registered on
+(``apply_sequence_parallel``, which ``parallel.mesh.shard_module`` calls):
+everything outside attention stays replicated over ``seq`` (RoPE on global
+positions), and each ``seq`` peer ends the forward with the same activations.
 
 The numerics follow the reference, where a port that looks right would
 compute something else:
@@ -40,6 +46,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
+from ..ops.ring_attention import ring_attention_sharded, seq_group
 from ..parallel.runtime import resolve_device
 from ..parallel.tensor_parallel import ModelGroup, copy_to_model, gather_from_model, local_tensor, reduce_from_model
 
@@ -59,19 +66,17 @@ class TransformerConfig:
     rope_scaling: tuple | None = None
     dtype: torch.dtype = torch.bfloat16
     tie_embeddings: bool = False
-    attn_impl: str = "dot"  # 'dot' | 'flash'
+    attn_impl: str = "dot"  # 'dot' | 'flash' | 'ring'
     # Sliding-window attention (Mistral convention): each token attends to
     # itself + the previous W-1.
     sliding_window: int | None = None
     # recompute each block in the backward pass (torch.utils.checkpoint)
     remat: bool = False
+    seq_axis: str = "seq"  # mesh axis used when attn_impl == 'ring'
 
     def __post_init__(self):
-        if self.attn_impl not in ("dot", "flash"):
-            raise ValueError(
-                f"attn_impl must be 'dot' or 'flash' in this port (ring attention is not ported yet), "
-                f"got {self.attn_impl!r}"
-            )
+        if self.attn_impl not in ("dot", "flash", "ring"):
+            raise ValueError(f"attn_impl must be 'dot', 'flash' or 'ring', got {self.attn_impl!r}")
         if self.sliding_window is not None and self.sliding_window < 1:
             raise ValueError(f"sliding_window must be >= 1, got {self.sliding_window}")
 
@@ -186,6 +191,8 @@ class Attention(nn.Module):
         self.v_proj = _linear(d, kh * hd, device)
         self.o_proj = _linear(h * hd, d, device)
         self.tp: ModelGroup | None = None
+        #: the ``seq`` group ring attention runs over (``apply_sequence_parallel``)
+        self.seq: ModelGroup | None = None
 
     def forward(self, x, cos, sin, seg_info=None):
         cfg = self.cfg
@@ -213,6 +220,12 @@ class Attention(nn.Module):
             k = apply_rope(k, cos, sin)
             if cfg.attn_impl == "flash":
                 out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+            elif cfg.attn_impl == "ring":
+                if self.seq is None:
+                    raise ValueError(f"attn_impl='ring' runs over the {cfg.seq_axis!r} axis of a mesh: register the "
+                                     "model on a mesh with that axis (TrainingPipeline.set_mesh) or call "
+                                     "DecoderLM.apply_sequence_parallel(mesh)")
+                out = ring_attention_sharded(q, k, v, self.seq, cfg.seq_axis, causal=True, window=cfg.sliding_window)
             elif cfg.sliding_window is not None:
                 pos = torch.arange(t, device=x.device)
                 q_pos, k_pos = pos[:, None], pos[None, :]
@@ -355,6 +368,16 @@ class DecoderLM(nn.Module):
         self.tp_embed = tp if embed else None
         self.tp_head = tp if head else None
 
+    def apply_sequence_parallel(self, mesh) -> None:
+        """Run ``attn_impl="ring"`` attention over the ``cfg.seq_axis`` axis of
+        ``mesh`` (a ``DeviceMesh``). A model with another ``attn_impl`` keeps
+        its attention whole (replicated over that axis)."""
+        if self.cfg.attn_impl != "ring":
+            return
+        group = seq_group(mesh, self.cfg.seq_axis)
+        for layer in self.layers:
+            layer.attn.seq = group
+
     def forward(self, tokens: torch.Tensor, segment_ids: torch.Tensor | None = None,
                 return_hidden: bool = False) -> torch.Tensor:
         """Logits ``[B, T, vocab]`` fp32; with ``return_hidden`` the final
@@ -362,6 +385,8 @@ class DecoderLM(nn.Module):
         cfg = self.cfg
         seg_info = None
         if segment_ids is not None:
+            if cfg.attn_impl == "ring":
+                raise ValueError("segment_ids are not supported with attn_impl='ring'")
             # computed once, shared by every layer: per-segment rotary
             # positions and the causal-AND-same-segment mask of the dot path
             t = tokens.shape[1]

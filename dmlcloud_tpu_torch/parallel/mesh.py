@@ -2,9 +2,10 @@
 
 Counterpart of ``dmlcloud_tpu/parallel/mesh.py``: the axis names (:37),
 ``parse_mesh_axes`` (:43), ``create_mesh`` (:69), ``auto_mesh`` (:106),
-``data_axes``/``data_parallel_size`` (:135, :154), ``path_str`` (:231),
-``_fsdp_spec`` (:248), ``make_param_policy`` (:265) and ``sharding_for``
-(:332), with ``shard_module`` in the place of ``shard_pytree`` (:341).
+``data_axes``/``data_parallel_size`` (:135, :154), ``respec_for_mesh`` and
+its JSON form (:175-225), ``path_str`` (:231), ``_fsdp_spec`` (:248),
+``make_param_policy`` (:265) and ``sharding_for`` (:332), with
+``shard_module`` in the place of ``shard_pytree`` (:341).
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with named dims, one
 process per device. Policies speak the reference's language: a spec is a tuple
@@ -31,7 +32,16 @@ reads a mesh's shape also takes a plain ``{axis: size}`` dict.
   ``min_size``): the numbers are the same, the memory layout differs;
 - without a sharded parameter on ``fsdp``, the gradients are averaged over
   the data-parallel ranks (``data`` x ``fsdp``) by the stage, as in the
-  replicated case.
+  replicated case;
+- the ``seq`` axis shards no parameter: a model with ``attn_impl="ring"``
+  runs its attention over the axis's group (``apply_sequence_parallel``),
+  and ``seq`` peers, like ``model`` peers, feed the same rows and count once
+  in the metrics.
+
+``sharding_record`` is what a checkpoint's sharding sidecar records: the
+policy's spec of every parameter (by flax path, as the reference records
+them) and how it maps onto the stored torch tensor, which
+``respec_for_mesh`` re-targets onto another mesh at an elastic restore.
 """
 
 from __future__ import annotations
@@ -54,8 +64,8 @@ DATA, FSDP, MODEL, SEQ, EXPERT, PIPE = "data", "fsdp", "model", "seq", "expert",
 
 __all__ = ["DATA", "FSDP", "MODEL", "SEQ", "EXPERT", "PIPE", "P", "MeshPlan", "parse_mesh_axes", "mesh_shape",
            "create_mesh", "auto_mesh_axes", "auto_mesh", "mesh_axes", "data_axes", "data_parallel_size",
-           "data_parallel_rank", "path_str", "make_param_policy", "sharding_for", "placements", "shard_module",
-           "grad_sq_norm"]
+           "data_parallel_rank", "respec_for_mesh", "spec_to_jsonable", "spec_from_jsonable", "path_str",
+           "make_param_policy", "sharding_for", "sharding_record", "placements", "shard_module", "grad_sq_norm"]
 
 
 class P(tuple):
@@ -179,7 +189,8 @@ def data_parallel_size(mesh: Any) -> int:
 def data_parallel_rank(mesh) -> int:
     """This process's coordinate over ``data`` x ``fsdp`` (row-major, in the
     mesh's order): which slice of the global batch it feeds. Processes that
-    differ only along ``model`` (tensor-parallel peers) share it."""
+    differ only along ``model`` or ``seq`` (tensor- and sequence-parallel
+    peers) share it."""
     names = list(mesh.mesh_dim_names)
     coord = mesh.get_coordinate()
     rank = 0
@@ -187,6 +198,48 @@ def data_parallel_rank(mesh) -> int:
         i = names.index(a)
         rank = rank * mesh.shape[i] + coord[i]
     return rank
+
+
+def respec_for_mesh(spec: Sequence | None, shape: Sequence[int], mesh: Any) -> P:
+    """Re-target a spec recorded on one mesh onto ``mesh`` (a ``DeviceMesh``
+    or an axes dict): the elastic-restore primitive. Axes the new mesh lacks
+    are dropped (replicated); an axis that no longer divides its dim moves to
+    the largest other dim it divides (at least twice its size), else it is
+    dropped with a warning. Always returns a spec valid on ``mesh``."""
+    axes_of = mesh_axes(mesh)
+    entries = list(spec) if spec is not None else []
+    shape = tuple(shape)
+    cleaned: list = [None] * len(shape)
+    displaced: list = []
+    for i, a in enumerate(entries[: len(shape)]):
+        axes = (a,) if isinstance(a, str) else (a or ())
+        if a is None or not axes or not all(x in axes_of for x in axes):
+            continue
+        n = math.prod(axes_of[x] for x in axes)
+        if shape[i] % n == 0:
+            cleaned[i] = a
+        else:
+            displaced.append((a, n))
+    for a, n in displaced:
+        for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
+            if cleaned[i] is None and shape[i] % n == 0 and shape[i] >= 2 * n:
+                cleaned[i] = a
+                break
+        else:
+            _logger.warning("restore respec: no dim of shape %s divisible by saved axis %r (size %d on the new mesh); "
+                            "restoring that axis replicated", shape, a, n)
+    return P(*cleaned)
+
+
+def spec_to_jsonable(spec: Sequence | None) -> list:
+    """A spec as a JSON list (None, an axis name or a list of names per dim):
+    the sharding sidecar's wire format (``checkpoint.py``)."""
+    return [a if a is None or isinstance(a, str) else list(a) for a in (spec or ())]
+
+
+def spec_from_jsonable(entries: Sequence | None) -> P:
+    """Inverse of :func:`spec_to_jsonable`."""
+    return P(*[tuple(a) if isinstance(a, list) else a for a in (entries or ())])
 
 
 # ---------------------------------------------------------------------------
@@ -329,6 +382,21 @@ def sharding_for(model: torch.nn.Module, mesh: Any, policy: Any = "replicate") -
     return {r.path: fn(r.path, torch.empty(r.shape, device="meta"), mesh) for r in _layout(model)}
 
 
+def sharding_record(model: torch.nn.Module, mesh: Any, policy: Any = "replicate") -> dict:
+    """What a checkpoint's sharding sidecar records of ``model`` under
+    ``policy`` on ``mesh`` (a ``DeviceMesh`` or an axes dict), JSON-ready:
+    ``{"mesh": {axis: size}, "params": {parameter name: {"path": flax path,
+    "spec": the policy's spec (flax layout), "shape": the flax shape, "dims":
+    the torch dim of each flax dim (None: folded into the fused heads dim)}}}``."""
+    axes = mesh_axes(mesh)
+    fn = make_param_policy(policy)
+    params = {}
+    for r in _layout(model):
+        spec = fn(r.path, torch.empty(r.shape, device="meta"), axes)
+        params[r.name] = {"path": r.path, "spec": spec_to_jsonable(spec), "shape": list(r.shape), "dims": list(r.dims)}
+    return {"mesh": axes, "params": params}
+
+
 @dataclass
 class MeshPlan:
     """How ``shard_module`` laid a module out, for the stage that trains it."""
@@ -342,12 +410,15 @@ class MeshPlan:
     #: gradients over when FSDP2 does not (None: the default group)
     dp_size: int = 1
     grad_group: Any = None
-    #: processes that differ only along ``model`` (they feed the same batch)
-    model_group: Any = None
-    model_size: int = 1
+    #: processes that differ only along ``model`` and ``seq`` (they feed the
+    #: same batch); None: no such peers
+    peer_group: Any = None
+    peer_size: int = 1
     #: one process per data-parallel coordinate: the metric exchange counts
-    #: these (tensor-parallel peers count once); None: every process
+    #: these (tensor- and sequence-parallel peers count once); None: every process
     metric_ranks: list[int] | None = field(default=None)
+    #: the sharding sidecar's record of the model (``sharding_record``)
+    record: dict | None = None
 
 
 def _rank_groups(mesh, dims: Sequence[str]) -> list[list[int]]:
@@ -412,6 +483,7 @@ def shard_module(model: torch.nn.Module, mesh, policy: Any = "replicate") -> Mes
     axes = mesh_axes(mesh)
     names = list(mesh.mesh_dim_names)
     _, fsdp_dim, model_dim = placements(model, axes, policy)
+    record = sharding_record(model, axes, policy)
     params = dict(model.named_parameters())
     tp = None
     if model_dim:
@@ -447,13 +519,21 @@ def shard_module(model: torch.nn.Module, mesh, policy: Any = "replicate") -> Mes
         for module in blocks + [model]:
             fully_shard(module, mesh=dp_mesh, shard_placement_fn=placement.get)
 
-    plan = MeshPlan(axes=axes, fsdp=bool(fsdp_dim), tp=tp, dp_size=data_parallel_size(axes))
+    seq_axis = getattr(getattr(model, "cfg", None), "seq_axis", SEQ)
+    if hasattr(model, "apply_sequence_parallel") and seq_axis in axes:
+        model.apply_sequence_parallel(mesh)
+    elif getattr(getattr(model, "cfg", None), "attn_impl", None) == "ring":
+        raise ValueError(f"attn_impl='ring' needs a {seq_axis!r} axis in the mesh {axes}")
+
+    plan = MeshPlan(axes=axes, fsdp=bool(fsdp_dim), tp=tp, dp_size=data_parallel_size(axes),
+                    record=record)
     if not plan.fsdp and plan.dp_size > 1:
         plan.grad_group = _subgroup(mesh, data_axes(axes))
-    if axes.get(MODEL, 1) > 1:
-        plan.model_size = axes[MODEL]
-        plan.model_group = mesh.get_group(MODEL)
-        plan.metric_ranks = sorted(g[0] for g in _rank_groups(mesh, [MODEL]))
+    peers = [a for a in (MODEL, seq_axis) if axes.get(a, 1) > 1]
+    if peers:
+        plan.peer_size = math.prod(axes[a] for a in peers)
+        plan.peer_group = mesh.get_group(peers[0]) if len(peers) == 1 else _subgroup(mesh, peers)
+        plan.metric_ranks = sorted(g[0] for g in _rank_groups(mesh, peers))
     return plan
 
 

@@ -14,7 +14,14 @@ around them, so the same code path and the same attention kernels run on
   row-parallel projection (in fp32, cast back); identity backward;
 - ``gather_from_model``: the forward concatenates the per-rank slices along
   a dim (a feature-sharded embedding, vocab-parallel logits); the backward
-  keeps this rank's slice of the gradient.
+  keeps this rank's slice of the gradient;
+- ``scatter_to_model``: the forward keeps this rank's slice along a dim, the
+  backward concatenates the per-rank gradients (the adjoint of the gather).
+
+The last two also serve the ``seq`` axis: ring attention
+(``ops.ring_attention``) slices each rank's block of the sequence out of
+replicated activations and gathers its output back, so every ``seq`` peer
+ends with the same activations and the same parameter gradients.
 
 Each rank of the group ends a forward with the same replicated activations,
 so every rank computes the same loss, and each backward rule above gives the
@@ -30,7 +37,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
-__all__ = ["ModelGroup", "copy_to_model", "reduce_from_model", "gather_from_model", "local_tensor"]
+__all__ = ["ModelGroup", "copy_to_model", "reduce_from_model", "gather_from_model", "scatter_to_model",
+           "local_tensor"]
 
 
 def local_tensor(t: torch.Tensor) -> torch.Tensor:
@@ -40,7 +48,8 @@ def local_tensor(t: torch.Tensor) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class ModelGroup:
-    """The process group of a mesh's ``model`` axis, with this rank's place in it."""
+    """The process group of a mesh's ``model`` axis (or of its ``seq`` axis,
+    for ring attention), with this rank's place in it."""
 
     group: Any
     rank: int
@@ -87,6 +96,18 @@ class _GatherFromModel(torch.autograd.Function):
         return grad.narrow(ctx.dim, ctx.tp.rank * ctx.width, ctx.width).contiguous(), None, None
 
 
+class _ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        width = x.shape[dim] // tp.size
+        return x.narrow(dim, tp.rank * width, width).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _GatherFromModel.apply(grad, ctx.tp, ctx.dim), None, None
+
+
 def copy_to_model(x: torch.Tensor, tp: ModelGroup) -> torch.Tensor:
     return _CopyToModel.apply(x, tp)
 
@@ -97,3 +118,12 @@ def reduce_from_model(x: torch.Tensor, tp: ModelGroup) -> torch.Tensor:
 
 def gather_from_model(x: torch.Tensor, tp: ModelGroup, dim: int = -1) -> torch.Tensor:
     return _GatherFromModel.apply(x, tp, dim % x.dim())
+
+
+def scatter_to_model(x: torch.Tensor, tp: ModelGroup, dim: int = -1) -> torch.Tensor:
+    """This rank's slice of ``x`` along ``dim`` (which the group's size must
+    divide); the backward gathers the slices' gradients."""
+    dim = dim % x.dim()
+    if x.shape[dim] % tp.size:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} is not divisible by the group's size {tp.size}")
+    return _ScatterToModel.apply(x, tp, dim)

@@ -39,7 +39,8 @@ What carries over unchanged:
   last), a ``data`` x ``model`` mesh averages the local shards over the data
   sub-group, the clip takes the global norm over the shards (replicas once),
   the EMA and validation on it run on the shards, and the first batch is
-  checked to be the same on tensor-parallel peers;
+  checked to be the same on tensor- and sequence-parallel peers (``model``,
+  ``seq``);
 - validation under ``torch.no_grad()``;
 - the EMA shadow (``ema_decay``), updated after each optimizer step and used
   by validation (``val_with_ema``) through ``torch.func.functional_call``,
@@ -77,7 +78,7 @@ from .data.device import device_iterator
 from .metrics import MetricTracker, Reduction
 from .parallel import runtime
 from .parallel.data_parallel import all_reduce_gradients
-from .parallel.mesh import grad_sq_norm
+from .parallel.mesh import DATA, grad_sq_norm, sharding_record
 from .parallel.runtime import is_root
 from .parallel.tensor_parallel import local_tensor
 from .telemetry import journal as _journal
@@ -394,7 +395,7 @@ class TrainValStage(Stage):
         self.train_losses: list[torch.Tensor] = []
         #: batches of the CURRENT epoch to skip on a mid-epoch resume
         #: (one-shot, set by _restore_state from a step-save sidecar, already
-        #: scaled to this run's world size)
+        #: scaled to this run's data-parallel layout)
         self._resume_skip_steps = 0
         #: wall-clock of the most recent state save: the preemption verdict's
         #: save-on-preempt latency
@@ -416,6 +417,8 @@ class TrainValStage(Stage):
         #: how the trained model is laid out on the mesh (``MeshPlan``; None:
         #: replicated over the default mesh)
         self._plan = None
+        #: what a save's sharding sidecar records of the model (``mesh.sharding_record``)
+        self._sharding = None
         self._batch_checked = False
 
     # -- overridables -------------------------------------------------------
@@ -676,12 +679,13 @@ class TrainValStage(Stage):
         return loss_sum / accum, {name: v / accum for name, v in metric_sums.items()}
 
     def _check_peer_batches(self, batch) -> None:
-        """Tensor-parallel peers must feed the same batch: their collectives
-        would mix different batches silently. Compares a checksum of the first
-        batch over the ``model`` group (one host sync, once per stage)."""
+        """Tensor- and sequence-parallel peers must feed the same batch: their
+        collectives would mix different batches silently. Compares a checksum
+        of the first batch over the ``model`` x ``seq`` group (one host sync,
+        once per stage)."""
         self._batch_checked = True
         plan = self._plan
-        if plan is None or plan.model_group is None:
+        if plan is None or plan.peer_group is None:
             return
         leaves = []
 
@@ -700,11 +704,12 @@ class TrainValStage(Stage):
         pos = torch.arange(1, flat.numel() + 1, dtype=torch.float64, device=flat.device)
         mine = torch.stack([flat.sum(), (flat * pos).sum(), torch.tensor(float(flat.numel()), device=flat.device,
                                                                           dtype=torch.float64)])
-        peers = [torch.empty_like(mine) for _ in range(plan.model_size)]
-        torch.distributed.all_gather(peers, mine, group=plan.model_group)
+        peers = [torch.empty_like(mine) for _ in range(plan.peer_size)]
+        torch.distributed.all_gather(peers, mine, group=plan.peer_group)
         if not all(torch.equal(peers[0], p) for p in peers[1:]):
-            raise ValueError("tensor-parallel peers (the 'model' axis) were fed different batches; each process must "
-                             "feed the batch of its data-parallel coordinate (parallel.mesh.data_parallel_rank)")
+            raise ValueError("tensor-parallel peers (the 'model' axis) or sequence-parallel peers (the 'seq' axis) "
+                             "were fed different batches; each process must feed the batch of its data-parallel "
+                             "coordinate (parallel.mesh.data_parallel_rank)")
 
     def _train_step(self, batch) -> dict:
         state = self.state
@@ -789,6 +794,10 @@ class TrainValStage(Stage):
             self.state = self.make_state()
         models = self.pipeline.models
         self._plan = self.pipeline._model_entry(self.model_name()).plan if models else None
+        if models:
+            entry = self.pipeline._model_entry(self.model_name())
+            self._sharding = self._plan.record if self._plan is not None else sharding_record(
+                entry.module, {DATA: runtime.world_size()}, entry.sharding)
         self._batch_checked = False
         self._configure_state_manager()
         if self.pipeline.resumed and (int(self.checkpoint_every()) > 0 or int(self.checkpoint_every_steps()) > 0):
@@ -864,7 +873,8 @@ class TrainValStage(Stage):
         with self._stall.measure(label="checkpoint"):
             self._stall.block(self.device)
             ckpt.wait_until_finished(scope=self.name)
-            ckpt.save_state(completed, self.state.state_dict(), scope=self.name, metrics=metrics)
+            ckpt.save_state(completed, self.state.state_dict(), scope=self.name, metrics=metrics,
+                            sharding=self._sharding)
         self._last_save_latency_s = time.perf_counter() - t0
         if is_root():
             from .utils.serialization import to_jsonable
@@ -904,19 +914,35 @@ class TrainValStage(Stage):
             self._stall.block(self.device)
             ckpt.wait_until_finished(scope=self._steps_scope)
             gstep = int(self.state.step)
-            ckpt.save_state(gstep, self.state.state_dict(), scope=self._steps_scope)
+            ckpt.save_state(gstep, self.state.state_dict(), scope=self._steps_scope, sharding=self._sharding)
         self._last_save_latency_s = time.perf_counter() - t0
         if is_root():
-            payload = {"epoch": self.current_epoch, "step_in_epoch": epoch_step, "world_size": runtime.world_size()}
+            payload = {"epoch": self.current_epoch, "step_in_epoch": epoch_step, "world_size": runtime.world_size(),
+                       "data_parallel_size": self._data_parallel_size(), "epoch_batches": self._epoch_batches()}
             self._write_resume_sidecar(self._steps_scope, gstep, payload)
+
+    def _data_parallel_size(self) -> int:
+        """Processes that feed distinct rows (tensor- and sequence-parallel
+        peers count once)."""
+        return self._plan.dp_size if self._plan is not None else runtime.world_size()
+
+    def _epoch_batches(self) -> int | None:
+        """Batches per epoch this process iterates (None: the dataset has no length)."""
+        try:
+            return len(self.train_dataset())
+        except TypeError:
+            return None
 
     def _read_step_resume_meta(self, gstep: int) -> dict | None:
         """Root only: the step-save sidecar, or None (degrade to epoch resume)."""
         meta_file = self.pipeline.checkpoint_dir.path / "meta" / self._steps_scope / f"{gstep}.json"
         try:
             raw = json.loads(meta_file.read_text())
-            return {"epoch": int(raw["epoch"]), "step_in_epoch": int(raw["step_in_epoch"]),
-                    "world_size": int(raw.get("world_size", runtime.world_size()))}
+            world = int(raw.get("world_size", runtime.world_size()))
+            batches = raw.get("epoch_batches")
+            return {"epoch": int(raw["epoch"]), "step_in_epoch": int(raw["step_in_epoch"]), "world_size": world,
+                    "data_parallel_size": int(raw.get("data_parallel_size", world)),
+                    "epoch_batches": None if batches is None else int(batches)}
         except Exception:
             self.logger.warning(f"No usable step-resume metadata at {meta_file}; falling back (last completed "
                                 "epoch if one exists, else weights-only step restore)")
@@ -980,6 +1006,8 @@ class TrainValStage(Stage):
             step_latest = ckpt.latest_step(scope=self._steps_scope)
             if step_latest is not None:
                 sm = self._read_step_resume_meta(step_latest) if is_root() else None
+                if sm is not None:  # the root's epoch length decides the skip for every rank
+                    sm["epoch_batches_now"] = self._epoch_batches()
                 sm = runtime.broadcast_object(sm)
                 if sm is not None and sm["epoch"] > (latest or 0):
                     step_meta = sm
@@ -1007,14 +1035,23 @@ class TrainValStage(Stage):
             self.current_epoch = latest + 1
         if step_meta is not None:
             self.current_epoch = step_meta["epoch"]
-            # the sidecar's batch count is per rank UNDER THE SAVED world size:
-            # re-derive this run's per-rank skip from the global count
+            # the sidecar's batch count is per process UNDER THE SAVED layout.
+            # An epoch of unchanged length means every process iterates the
+            # same global batches (slicing its rows, as on a mesh): skip the
+            # same count. Otherwise each data-parallel rank iterates its own
+            # shard: re-derive the skip from the global count (the
+            # reference's world-size rule, over data-parallel ranks)
             saved_ws, ws = int(step_meta["world_size"]), runtime.world_size()
-            global_batches = step_meta["step_in_epoch"] * saved_ws
-            skip, rem = divmod(global_batches, ws)
-            if rem:
-                self.logger.warning(f"mid-epoch resume: {global_batches} globally-consumed batches do not divide "
-                                    f"the new world size {ws}; rounding down (up to {ws - 1} global batch(es) replay)")
+            saved_dp, dp = step_meta["data_parallel_size"], self._data_parallel_size()
+            if step_meta["epoch_batches"] is not None and step_meta["epoch_batches"] == step_meta["epoch_batches_now"]:
+                skip = step_meta["step_in_epoch"]
+            else:
+                global_batches = step_meta["step_in_epoch"] * saved_dp
+                skip, rem = divmod(global_batches, dp)
+                if rem:
+                    self.logger.warning(f"mid-epoch resume: {global_batches} globally-consumed batches do not divide "
+                                        f"the new data-parallel size {dp}; rounding down (up to {dp - 1} global "
+                                        "batch(es) replay)")
             self._resume_skip_steps = skip
             # the restored tracker may trail the resumed epoch: pad the gap
             self.tracker.fast_forward(self.current_epoch)

@@ -6,7 +6,10 @@ A subprocess blocks ``jax``, ``jaxlib``, ``flax``, ``optax``, ``orbax`` and
 (and once more with the flight recorder, two microbatches and the host reader),
 trains the MNIST example for an epoch, calls the object collectives and the
 data-parallel helpers at world size 1, trains the pod example's toy model
-on a one-rank ``fsdp`` mesh (FSDP2 over gloo), and checks that none of those
+on a one-rank ``fsdp`` mesh (FSDP2 over gloo), trains the tiny model with
+ring attention on a one-rank ``seq`` mesh, runs ``pipeline_apply`` over a
+one-rank ``pipe`` group and restores a save without a template
+(``restore_state(mesh=)``), and checks that none of those
 modules was loaded — and that, on a machine
 without CUDA, entry points called without a device raise instead of running
 on the CPU.
@@ -65,6 +68,25 @@ _SCRIPT = textwrap.dedent(
     pod_loss = float(pod.tracker["train/loss"][-1])
     pod_fsdp = pod.pipeline.models["llama"].plan.fsdp
     runtime.deinitialize()
+    # the slice-8 paths: ring attention on a seq mesh, GPipe on a pipe group, an elastic restore
+    ring = main(["--device", "cpu", "--epochs", "1", "--n-seqs", "40", "--seq-len", "32", "--attn", "ring",
+                 "--mesh", "seq=1"])
+    ring_loss = float(ring.tracker["train/loss"][-1])
+    runtime.deinitialize()
+    from dmlcloud_tpu_torch.checkpoint import CheckpointDir
+    from dmlcloud_tpu_torch.parallel import mesh as mesh_lib, pipeline_apply, stack_pytrees
+    runtime.init_single()
+    mesh = mesh_lib.create_mesh({"pipe": 1}, device="cpu")
+    stacked = stack_pytrees([{"w": torch.eye(4)}])
+    piped = pipeline_apply(lambda p, x: x @ p["w"], stacked, torch.ones(2, 3, 4), mesh)
+    ckpt = CheckpointDir(tempfile.mkdtemp() + "/run")
+    ckpt.create()
+    ckpt.state_manager("s", async_save=False)
+    ckpt.save_state(1, {"w": torch.arange(6.0).reshape(2, 3)}, scope="s")
+    restored = ckpt.restore_state(scope="s", mesh=mesh)["w"].full_tensor()
+    slice8 = [ring_loss, bool(torch.equal(piped, torch.ones(2, 3, 4))),
+              bool(torch.equal(restored, torch.arange(6.0).reshape(2, 3)))]
+    runtime.deinitialize()
 
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in BLOCKED)
@@ -81,7 +103,8 @@ _SCRIPT = textwrap.dedent(
             except RuntimeError:
                 raised[name] = True
     print(json.dumps({"modules": modules, "loaded": loaded, "loss": loss, "goodput": goodput, "raised": raised,
-                      "mnist_acc": mnist_acc, "collectives": collectives, "pod": [pod_loss, pod_fsdp]}))
+                      "mnist_acc": mnist_acc, "collectives": collectives, "pod": [pod_loss, pod_fsdp],
+                      "slice8": slice8}))
     """
 )
 
@@ -98,12 +121,15 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
                  "utils.git", "utils.project", "telemetry", "telemetry.journal", "telemetry.goodput",
                  "telemetry.watchdog", "data.device", "data.datasets", "utils.profiling", "utils.tensorboard",
                  "utils.wandb", "utils.argparse_ext", "data.sharding", "models.cnn", "examples.mnist",
-                 "parallel.data_parallel", "parallel.mesh", "parallel.tensor_parallel", "examples.pod_llama_fsdp"):
+                 "parallel.data_parallel", "parallel.mesh", "parallel.tensor_parallel", "examples.pod_llama_fsdp",
+                 "ops.ring_attention", "parallel.pipeline_parallel"):
         assert f"dmlcloud_tpu_torch.{name}" in result["modules"], name
     assert result["loss"] == result["loss"] and result["loss"] > 0  # finite, trained
     assert 0 < result["goodput"] <= 1
     assert result["mnist_acc"] > 0.3  # 8 steps at batch 512: well above the 0.1 of chance
     assert result["collectives"] == [1, [2], [3], True]
     assert result["pod"][0] > 0 and result["pod"][1], "the pod toy did not train through FSDP2"
+    ring_loss, piped, restored = result["slice8"]
+    assert ring_loss > 0 and piped and restored, result["slice8"]
     for name, did_raise in result["raised"].items():
         assert did_raise, f"{name} without a device ran on the CPU instead of raising"

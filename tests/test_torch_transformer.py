@@ -196,8 +196,10 @@ def test_lm_loss_and_packed_mean_match_jax():
 
 
 def test_config_refuses_paths_of_later_slices():
-    with pytest.raises(ValueError, match="ring"):
-        ttr.TransformerConfig(attn_impl="ring")
+    # ring attention is ported (tests/test_torch_ring_attention.py); an unknown impl still raises
+    assert ttr.TransformerConfig(attn_impl="ring").seq_axis == "seq"
+    with pytest.raises(ValueError, match="'dot', 'flash' or 'ring'"):
+        ttr.TransformerConfig(attn_impl="paged")
     with pytest.raises(TypeError):  # MoE blocks are not ported: the config has no such field
         ttr.TransformerConfig(num_experts=4)
     with pytest.raises(ValueError):
