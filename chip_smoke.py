@@ -81,7 +81,25 @@ Phases, each fatal on failure:
    whether bitwise, the same launches; (c) ``pipeline_apply`` over a one-rank
    NCCL ``pipe`` group, one stage of 6 of the 1b model's ``DecoderBlock``s on
    4 microbatches of one 2048-token row, against the same blocks run on the
-   whole batch: outputs and gradients within ``REL_TOL`` bf16 in norm, launches.
+   whole batch: outputs and gradients within ``REL_TOL`` bf16 in norm, launches;
+13. serve: the decode and serving path. (a) ``scatter_tokens``/``gather_pages``
+   on CUDA tensors with sentinel rows, positions past the table and negative
+   positions, bitwise equal to the same calls on the CPU (a device-side assert
+   ends the run); (b) phase 5's run with ``--sample 32``: the same K1-K3
+   launches as phase 5 (decoding launches none), then the prompt and the
+   greedy tokens through the no-cache dot path of the same model: each decode
+   step's logits within ``REL_TOL`` fp32 in norm of that forward's in an fp32
+   twin of the weights, and in bf16 within the larger of ``REL_TOL`` bf16 and
+   the bf16 forward's distance from the fp32 one; (c) the 1b
+   width in fp32 at 2 layers: 8 ragged requests through ``ServeEngine``
+   (4 slots, blocks of 16, prefill chunks of 128), each output equal to the
+   serial ``generate`` of its prompt (a row may differ only where the serial
+   run's top-2 logit margin is under ``TIE_MARGIN``: a tie), no leaked block;
+   (d) the full 1b model in bf16 serving 16 requests (prompts of 128-1024
+   tokens, 128 new each; 8 slots, prefill chunks of 256): TTFT p50/p99, the
+   decode tokens/s and ms per decode step, the pool's GiB, peak memory, one
+   decode step under ``torch.profiler`` (device busy against wall), then
+   ``beam_search`` with 4 beams on two prompts.
 
 The last line of standard output is one JSON object with ``"ok": true``. With no
 card, or without the package beside it, the script exits non-zero and prints no
@@ -1589,6 +1607,250 @@ def phase_pipe(torch, fa, smi: str, preset: str = "1b", t: int = 2048) -> dict:
     return dict(worst_rel=worst, bitwise=bitwise, ms=pipe_ms, seq_ms=seq_ms, peak_gib=peak / 2**30)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the decode and serving path
+# ---------------------------------------------------------------------------
+
+SAMPLE_NEW = 32
+SAMPLE_ARGV = TRAIN_ARGV + ["--sample", str(SAMPLE_NEW)]
+#: a serial run's top-2 logit margin under which a differing engine token is a tie
+TIE_MARGIN = 1e-4
+ENGINE_FP32 = dict(max_slots=4, block_size=16, prefill_chunk=128)
+SERVE_1B = dict(max_slots=8, block_size=16, prefill_chunk=256)
+SERVE_REQUESTS, SERVE_PROMPTS, SERVE_NEW = 16, (128, 1024), 128
+
+
+def phase_paged(torch, smi: str) -> None:
+    """(a): the paged scatter and gather on the card, bitwise the CPU's, at the
+    1b model's KV heads: a row with a sentinel tail, one whose positions start
+    below 0, one running past its table, and a sentinel-only row."""
+    from dmlcloud_tpu_torch.ops.paged_attention import gather_pages, scatter_tokens
+
+    g = torch.Generator().manual_seed(0)
+    num_blocks, bs, kh, d, nb, t = 64, 16, 8, 128, 8, 24
+    pool = torch.randn(num_blocks, bs, kh, d, generator=g).to(torch.bfloat16)
+    tables = torch.randperm(num_blocks, generator=g)[: 6 * nb].reshape(6, nb)
+    tables[0, 6:] = num_blocks  # a sentinel tail
+    tables[5] = num_blocks  # a padded row: sentinel only
+    fill = torch.tensor([90, -5, 120, 0, 40, 0])  # 90 + 23 runs into the sentinel tail, 120 + 23 past the table
+    positions = fill[:, None] + torch.arange(t)[None, :]
+    values = torch.randn(6, t, kh, d, generator=g)
+    want = scatter_tokens(pool.clone(), tables, positions, values)
+    want_view = gather_pages(want, tables)
+    got = scatter_tokens(pool.cuda(), tables.cuda(), positions.cuda(), values.cuda())
+    got_view = gather_pages(got, tables.cuda())
+    torch.cuda.synchronize()  # a device-side assert raises here and ends the run
+    changed = int((want != pool).any(-1).any(-1).sum())
+    if not (torch.equal(got.cpu(), want) and torch.equal(got_view.cpu(), want_view)):
+        raise AssertionError("paged scatter/gather on the card differs from the CPU's")
+    log(f"[serve] (a) paged scatter/gather on the card at [{num_blocks}, {bs}, {kh}, {d}] bf16, 6 rows of {t} "
+        f"tokens (sentinel rows, positions past the table and below 0): bitwise equal to the CPU's; "
+        f"{changed} of {num_blocks * bs} slots written [{smi}]")
+
+
+def _decode_logits(torch, model, prompt, tokens):
+    """The logits a greedy decode of ``tokens`` after ``prompt`` reads, fed
+    ``tokens``: a prefill over the prompt, then one cached step per token."""
+    from dmlcloud_tpu_torch.models.generate import decode_step, init_cache
+
+    (b, t), n = prompt.shape, tokens.shape[1]
+    cache = init_cache(model.cfg, b, t + n, dtype=model.cfg.dtype, device="cuda")
+    logits, cache = decode_step(model, prompt, cache, attend_len=t)
+    out = [logits[:, -1]]
+    for j in range(n - 1):
+        logits, cache = decode_step(model, tokens[:, j : j + 1], cache, offset=t + j)
+        out.append(logits[:, 0])
+    return torch.stack(out, 1)  # [B, n, V]
+
+
+def phase_sample(torch, fa, smi: str, p5: dict) -> None:
+    """(b): ``train_lm --sample`` on phase 5's argv; its decode held against the
+    no-cache dot-path forward of the same model. In bf16 the two differ by
+    rounding alone, as far as bf16 puts the forward from exact arithmetic
+    (24 layers: ≈ 1.6e-2 and 1.8e-2 in norm on an H100 80GB HBM3, PERF.md), so the
+    decode is held tight in an fp32 twin of the same weights (``REL_TOL``
+    fp32), and the bf16 decode within the larger of ``REL_TOL`` bf16 and that
+    rounding distance, measured here."""
+    import dataclasses
+
+    from dmlcloud_tpu_torch.examples import train_lm
+    from dmlcloud_tpu_torch.models.transformer import DecoderLM
+
+    fa.reset_launch_counts()  # the sampled run starts here ...
+    t0 = time.perf_counter()
+    stage = train_lm.main(SAMPLE_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)  # ... and ends after the decode
+    losses, val = _losses(stage)
+    if launches != p5["launches"]:
+        raise AssertionError(f"--sample run launches {launches}, phase 5 {p5['launches']}")
+    model, out = stage.model, stage.sample_output
+    prompt = torch.as_tensor(stage.sample_prompt).long().cuda()
+    b, t = prompt.shape
+    if tuple(out.shape) != (b, SAMPLE_NEW):
+        raise AssertionError(f"--sample tokens {tuple(out.shape)}, want {(b, SAMPLE_NEW)}")
+    seq = torch.cat([prompt, out[:, :-1]], 1)
+    rel = lambda a, r: max(rel_err(torch, a[:, j], r[:, j]) for j in range(SAMPLE_NEW))
+    dec = _decode_logits(torch, model, prompt, out)
+    twins = {}
+    for dtype in (model.cfg.dtype, torch.float32):
+        twin = DecoderLM(dataclasses.replace(model.cfg, attn_impl="dot", dtype=dtype), device="cuda")
+        twin.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            twins[dtype] = twin, twin(seq)[:, t - 1 :]  # [B, N, V]
+    ref, (f32, ref32) = twins[model.cfg.dtype][1], twins[torch.float32]
+    err, err32 = rel(dec, ref), rel(_decode_logits(torch, f32, prompt, out), ref32)
+    rounding = rel(ref, ref32)  # bf16's own distance from exact arithmetic
+    bound = max(REL_TOL["bfloat16"], rounding)
+    differ = (dec.argmax(-1) != ref.argmax(-1)).any(0).nonzero()
+    first = None if differ.numel() == 0 else int(differ[0])
+    greedy = bool(torch.equal(dec.argmax(-1), out))
+    log(f"[serve] (b) train_lm 1b --sample {SAMPLE_NEW}: {wall:.1f} s (training included); losses "
+        f"{'bitwise equal to' if (losses, val) == (p5['losses'], p5['val']) else 'differ from'} phase 5's; launches "
+        f"{launches}; decode logits against the no-cache dot forward, worst step in norm: fp32 twin {err32:.3g} "
+        f"(bound {REL_TOL['float32']}); bf16 {err:.4g} (bound {bound:.4g}: bf16 forward vs fp32 {rounding:.4g}), "
+        f"max abs err {max_err(torch, dec, ref):.3g}, first step whose argmax differs: {first}; sampled tokens are "
+        f"the decode's argmax: {greedy} [{smi}]")
+    if not bool(torch.isfinite(dec).all()) or not err32 <= REL_TOL["float32"] or not err <= bound:
+        raise AssertionError(f"decode logits off the no-cache forward: fp32 {err32:.3g}, bf16 {err:.3g} "
+                             f"(bound {bound:.3g})")
+    del stage, model, twins, f32, dec, ref, ref32
+    _free(torch)
+
+
+def _margin(torch, model, prompt, tokens) -> float:
+    """Top-2 logit margin of the next token after ``prompt`` + ``tokens``
+    (a no-cache forward of ``model``)."""
+    with torch.no_grad():
+        seq = torch.cat([torch.as_tensor(prompt).long().cuda(), torch.as_tensor(tokens).long().cuda()])
+        top = model(seq[None])[0, -1].topk(2).values
+    return float(top[0] - top[1])
+
+
+def phase_engine(torch, smi: str) -> None:
+    """(c): ``ServeEngine`` against serial ``generate``, token by token, at the
+    1b width in fp32 with 2 layers."""
+    import numpy as np
+
+    from dmlcloud_tpu_torch.examples.train_lm import PRESETS
+    from dmlcloud_tpu_torch.models.generate import generate
+    from dmlcloud_tpu_torch.models.transformer import DecoderLM, TransformerConfig
+    from dmlcloud_tpu_torch.serve import ServeEngine
+
+    cfg = TransformerConfig(vocab_size=32000, max_seq_len=512, dtype=torch.float32,
+                            **dict(PRESETS["1b"], num_layers=2))
+    model = DecoderLM(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    rs = np.random.RandomState(0)
+    specs = [(int(rs.randint(16, 301)), int(rs.randint(16, 65))) for _ in range(8)]
+    prompts = [rs.randint(0, cfg.vocab_size, n) for n, _ in specs]
+    engine = ServeEngine(model, **ENGINE_FP32)
+    rids = [engine.submit(p, m) for p, (_, m) in zip(prompts, specs)]
+    t0 = time.perf_counter()
+    out = engine.run()
+    wall = time.perf_counter() - t0
+    ties = []
+    for rid, p, (n, m) in zip(rids, prompts, specs):
+        ref = generate(model, p[None], m)[0].cpu().numpy()
+        got = out.get(rid)
+        if got is None or len(got) != m:
+            raise AssertionError(f"request {rid} ({n} + {m} tokens) ended {engine.status(rid)} with {got}")
+        if not np.array_equal(got, ref):
+            j = int(np.nonzero(got != ref)[0][0])
+            margin = _margin(torch, model, p, ref[:j])
+            ties.append((rid, j, margin))
+            if not margin < TIE_MARGIN:
+                raise AssertionError(f"request {rid}: engine token {got[j]} != serial {ref[j]} at step {j}, where "
+                                     f"the serial top-2 margin is {margin:.3g} (not a tie)")
+    engine.pool.assert_consistent()
+    statuses = set(engine.statuses().values())
+    if engine.leaked_blocks() or statuses != {"ok"}:
+        raise AssertionError(f"engine ended with {engine.leaked_blocks()} leaked blocks, statuses {statuses}")
+    log(f"[serve] (c) ServeEngine (1b width, 2 layers, fp32; {ENGINE_FP32}) on 8 ragged requests "
+        f"(prompts {[n for n, _ in specs]}, new {[m for _, m in specs]}) in {wall:.2f} s: "
+        + ("every output equal to serial generate" if not ties else
+           f"equal to serial generate but at ties (request, step, top-2 margin) {ties}")
+        + f"; 0 leaked blocks, all ok [{smi}]")
+    del engine, model
+    _free(torch)
+
+
+def phase_serve(torch, smi: str) -> None:
+    """(d): the full 1b model in bf16 serving 16 requests; then beam search."""
+    import numpy as np
+
+    from dmlcloud_tpu_torch.examples.train_lm import PRESETS
+    from dmlcloud_tpu_torch.models.generate import beam_search
+    from dmlcloud_tpu_torch.models.transformer import DecoderLM, TransformerConfig
+    from dmlcloud_tpu_torch.serve import ServeEngine
+
+    cfg = TransformerConfig(vocab_size=32000, max_seq_len=2048, **PRESETS["1b"])
+    model = DecoderLM(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    rs = np.random.RandomState(1)
+    lens = rs.randint(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1, SERVE_REQUESTS)
+    prompts = [rs.randint(0, cfg.vocab_size, n) for n in lens]
+    blocks = -(-(SERVE_PROMPTS[1] + SERVE_NEW) // SERVE_1B["block_size"])
+    engine = ServeEngine(model, num_blocks=SERVE_1B["max_slots"] * blocks, **SERVE_1B)
+    warm = engine.submit(prompts[0][:256], 4)  # first calls (cuBLAS handles, allocator) outside the timing
+    engine.run()
+    if engine.status(warm) != "ok":
+        raise AssertionError(f"warm-up request ended {engine.status(warm)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sched = engine.scheduler
+    rids = [engine.submit(p, SERVE_NEW) for p in prompts]
+    step_ms, rows, profiled = [], [], None
+    t0 = time.perf_counter()
+    while not engine.idle:
+        # a step with no prefill pending and no admission possible runs only the decode batch
+        decode_only = not sched.prefilling and (sched.num_waiting == 0 or sched.active >= sched.max_slots)
+        n = len(sched.running)
+        if decode_only and profiled is None and n:
+            profiled = n, profile_call(torch, engine.step)
+            continue
+        s0 = time.perf_counter()
+        engine.step()
+        if decode_only:
+            step_ms.append((time.perf_counter() - s0) * 1e3)
+            rows.append(n)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    seqs = [engine.sequence(r) for r in rids]
+    if engine.leaked_blocks() or any(s.status != "ok" or len(s.out) != SERVE_NEW for s in seqs):
+        raise AssertionError(f"serving ended with {engine.leaked_blocks()} leaked blocks, statuses "
+                             f"{[s.status for s in seqs]}")
+    engine.pool.assert_consistent()
+    ttft = np.asarray([(s.first_token - s.arrival) * 1e3 for s in seqs])
+    pool_gib = engine.pool.stats()["bytes_total"] / 2**30
+    log(f"[serve] (d) ServeEngine, 1b bf16 (24 layers), {SERVE_REQUESTS} requests (prompts {SERVE_PROMPTS[0]}-"
+        f"{SERVE_PROMPTS[1]}: {int(lens.sum())} tokens; {SERVE_NEW} new each), {SERVE_1B}: {wall:.2f} s, "
+        f"{SERVE_REQUESTS * SERVE_NEW / wall:.1f} output tokens/s; TTFT p50 {np.percentile(ttft, 50):.1f} ms, p99 "
+        f"{np.percentile(ttft, 99):.1f} ms; {len(step_ms)} decode-only steps: {statistics.median(step_ms):.2f} ms "
+        f"median ({min(step_ms):.2f}-{max(step_ms):.2f}), {sum(rows) / sum(step_ms) * 1e3:.1f} decode tokens/s; pool "
+        f"{engine.pool.num_blocks} blocks = {pool_gib:.3f} GiB; peak memory {peak / 2**30:.2f} GiB; 0 leaked blocks "
+        f"[{smi}]")
+    n, (wall_us, busy_us, events) = profiled
+    log_profile("serve", f"decode step of {n} rows [{smi}]", wall_us, busy_us, events)
+    del engine
+
+    prompt = rs.randint(0, cfg.vocab_size, (2, 256))
+    mask = np.ones((2, 256), np.int32)
+    mask[1, :128] = 0  # a ragged second prompt
+    beam_search(model, prompt, 4, num_beams=4, prompt_mask=mask)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, scores = beam_search(model, prompt, 32, num_beams=4, prompt_mask=mask)
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    if tuple(toks.shape) != (2, 32) or not bool(torch.isfinite(scores).all()):
+        raise AssertionError(f"beam search gave {tuple(toks.shape)} tokens, scores {scores}")
+    log(f"[serve] (d) beam_search, 1b bf16, 2 prompts of 256 (one left-padded to 128), 4 beams, 32 new: "
+        f"{beam_s * 1e3:.1f} ms = {beam_s / 32 * 1e3:.2f} ms per step; scores {[round(float(x), 4) for x in scores]} "
+        f"[{smi}]")
+    del model
+    _free(torch)
+
+
 def main() -> None:
     try:
         import torch
@@ -1611,7 +1873,7 @@ def main() -> None:
     for row in rows.values():
         row["launches"] = launches[row["name"]]
     losses, val = _losses(stage)
-    p5 = {"losses": losses, "val": val, "steady_ms": phase_steady(torch, stage)}
+    p5 = {"losses": losses, "val": val, "steady_ms": phase_steady(torch, stage), "launches": launches}
     del stage
     _free(torch)
     phase_resume(torch, fa, dev["smi"])
@@ -1624,6 +1886,12 @@ def main() -> None:
     phase_ring(torch, fa, dev["smi"], p5)
     phase_pipe(torch, fa, dev["smi"])
     log(f"[seq] phase 12 in {time.perf_counter() - t12:.1f} s")
+    t13 = time.perf_counter()
+    phase_paged(torch, dev["smi"])
+    phase_sample(torch, fa, dev["smi"], p5)
+    phase_engine(torch, dev["smi"])
+    phase_serve(torch, dev["smi"])
+    log(f"[serve] phase 13 in {time.perf_counter() - t13:.1f} s")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(dev["smi"])

@@ -2,7 +2,7 @@
 ``examples/train_lm.py``, with the same presets and the flags of the ported
 paths (``--attn dot|flash|ring``, ``--pack``, ``--window``,
 ``--checkpoint-dir``, ``--save-every-steps``, ``--ema``, ``--mfu``,
-``--chunked-loss``, ``--mesh``).
+``--chunked-loss``, ``--mesh``, ``--sample``).
 
 The model registers with ``sharding=llama_partition_rules()``, as the
 reference's example does. Without ``--mesh`` the mesh is ``{data: world}``,
@@ -30,6 +30,12 @@ reference's example does. To resume one, build the same pipeline with
 ``build(argv, resume=True)``, where ``--checkpoint-dir`` names the run
 directory itself (or its root, under a requeued Slurm job), and run it.
 
+``--sample N`` greedy-decodes N tokens after training from a prompt of the
+corpus (two rows of 16 tokens, ``stage.sample_prompt``) through the KV-cache
+``models.generate.generate``, prints ``prompt [...] -> [...]`` per row and
+keeps the tokens as ``stage.sample_output``; it is a single-process demo and is
+skipped at world size > 1.
+
 ``build(argv, telemetry=...)`` arms the flight recorder
 (``TrainingPipeline(telemetry=...)``). ``main(argv)`` returns the stage, so
 callers can read its tracked metrics and per-step losses.
@@ -44,10 +50,11 @@ import numpy as np
 import dmlcloud_tpu_torch as dml
 from dmlcloud_tpu_torch.data import markov_tokens as synthetic_tokens
 from dmlcloud_tpu_torch.data import pack_sequences
+from dmlcloud_tpu_torch.models.generate import generate
 from dmlcloud_tpu_torch.models.transformer import (DecoderLM, TransformerConfig, chunked_lm_loss, llama_partition_rules,
                                                    lm_head_kernel, lm_loss)
 from dmlcloud_tpu_torch.optim import adamw, warmup_cosine_decay_schedule
-from dmlcloud_tpu_torch.parallel import init_auto
+from dmlcloud_tpu_torch.parallel import init_auto, runtime
 from dmlcloud_tpu_torch.parallel.mesh import data_parallel_rank, data_parallel_size, parse_mesh_axes
 
 PRESETS = {
@@ -58,6 +65,9 @@ PRESETS = {
 
 
 class LMStage(dml.TrainValStage):
+    #: tokens ``main`` greedy-decodes after training (``--sample``)
+    sample_new_tokens = 0
+
     def pre_stage(self):
         cfg = self.config
         model_cfg = TransformerConfig(
@@ -81,8 +91,10 @@ class LMStage(dml.TrainValStage):
             pieces = [row[: rng.randint(cfg.seq_len // 4, cfg.seq_len + 1)] + 1 for row in full]
             rows = list(pack_sequences(pieces, cfg.seq_len))
             tokens = np.stack([np.stack([r["tokens"], r["segment_ids"]]) for r in rows])
+            self.sample_prompt = full[:2, :16] + 1  # corpus-distribution prompt, shifted like training
         else:
             tokens = synthetic_tokens(cfg.vocab_size, cfg.n_seqs, cfg.seq_len)
+            self.sample_prompt = tokens[:2, :16].copy()
         n_val = max(cfg.batch_size, len(tokens) // 10)
         bs = cfg.batch_size
         if (len(tokens) - n_val) < bs:
@@ -176,6 +188,8 @@ def build(
     parser.add_argument("--chunked-loss", type=int, default=0, metavar="CHUNK",
                         help="vocab chunk for chunked_lm_loss (0 = full logits); big-vocab memory lever")
     parser.add_argument("--mesh", type=str, default=None, help="e.g. data=2,fsdp=4 (one process per device)")
+    parser.add_argument("--sample", type=int, default=0, metavar="N",
+                        help="after training, greedy-decode N tokens from a corpus prompt (KV-cache generate)")
     parser.add_argument("--device", default="cuda", help='"cuda" (default) or "cpu"')
     args = parser.parse_args(argv)
     if args.pack and args.attn == "ring":
@@ -208,6 +222,7 @@ def build(
     if args.checkpoint_dir:
         pipeline.enable_checkpointing(args.checkpoint_dir, resume=resume)
     stage = LMStage()
+    stage.sample_new_tokens = args.sample
     pipeline.append_stage(stage, max_epochs=args.epochs)
     return pipeline, stage
 
@@ -215,6 +230,16 @@ def build(
 def main(argv: list[str] | None = None) -> LMStage:
     pipeline, stage = build(argv)
     pipeline.run()
+    if stage.sample_new_tokens > 0:
+        if runtime.world_size() > 1:
+            # a decode across processes would need the model whole on each;
+            # the flag is a single-process demo of the decode path
+            if runtime.rank() == 0:
+                print("--sample is a single-process demo; skipping under multi-process runs")
+        else:
+            stage.sample_output = generate(stage.model, stage.sample_prompt, max_new_tokens=stage.sample_new_tokens)
+            for row, cont in zip(stage.sample_prompt.tolist(), stage.sample_output.tolist()):
+                print(f"prompt {row} -> {cont}")
     return stage
 
 

@@ -4,9 +4,18 @@ Counterpart of ``dmlcloud_tpu/models/transformer.py``: ``TransformerConfig``
 (:31), ``RMSNorm`` (:113), ``rope_frequencies`` (:124), ``apply_rope`` (:163),
 ``_dot_attention`` (:188), ``Attention`` (:232; the dense no-cache branch and
 the packed ``segment_ids`` branch), ``MLP`` (:371), ``DecoderBlock`` (:388),
-``DecoderLM`` (:435), ``lm_loss`` (:642) and ``_packed_mean`` (:658). The
-decode cache, paged decode, left-padded prompts, LoRA adapters, MoE and int8
-come in later slices.
+``DecoderLM`` (:435), ``lm_loss`` (:642) and ``_packed_mean`` (:658), with the
+decode modes of ``Attention``/``DecoderBlock``/``DecoderLM`` (:236-368,
+:393-432, :458-568): a dense KV cache stepped at ``offset`` with bounded reads
+(``attend_len``) and left-padded ragged prompts (``pad_len``), and paged
+decode through a block pool (``pages``, ``ops/paged_attention.py``). LoRA
+adapters, MoE and int8 come in later slices.
+
+A cache is the reference's tree, ``{"layer_i": {"k", "v"}}``, and is written
+IN PLACE: the JAX model returns an updated copy (``dynamic_update_slice``, a
+paged scatter), the port writes the slots into the tensors it was given and
+returns the same tree. A caller that needs the old contents (beam search's
+reorder) copies first.
 
 ``attn_impl="ring"`` runs attention as ring attention over the ``seq`` axis
 (``cfg.seq_axis``) of the mesh the model is registered on
@@ -46,6 +55,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
+from ..ops.paged_attention import gather_pages, scatter_tokens, write_index
 from ..ops.ring_attention import ring_attention_sharded, seq_group
 from ..parallel.runtime import resolve_device
 from ..parallel.tensor_parallel import ModelGroup, copy_to_model, gather_from_model, local_tensor, reduce_from_model
@@ -149,7 +159,12 @@ def _window_keep(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int) -> torch
 def _dot_attention(q, k, v, causal: bool = True, mask: torch.Tensor | None = None):
     """Unfused attention: fp32 softmax, matmuls in the operand dtype.
     q: [B,T,H,D], k/v: [B,S,KH,D]. ``mask`` ([T, S] or [B, T, S] bool, True =
-    attend) replaces the causal triangle entirely."""
+    attend) replaces the causal triangle entirely. Operands of different
+    dtypes (a cache kept in another dtype) are promoted, as ``jnp.einsum``
+    promotes them."""
+    if not q.dtype == k.dtype == v.dtype:
+        dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
     b, t, h, d = q.shape
     s, kh = k.shape[1], k.shape[2]
     q = q.reshape(b, t, kh, h // kh, d)
@@ -194,7 +209,10 @@ class Attention(nn.Module):
         #: the ``seq`` group ring attention runs over (``apply_sequence_parallel``)
         self.seq: ModelGroup | None = None
 
-    def forward(self, x, cos, sin, seg_info=None):
+    def forward(self, x, cos, sin, seg_info=None, cache=None, offset=0, decode_pad=None, attend_len=None,
+                paged=None):
+        """The attention block's output; with ``cache`` (decode mode) also the
+        cache, written in place: ``(out, cache)``."""
         cfg = self.cfg
         b, t, _ = x.shape
         hd = cfg.head_dim
@@ -205,6 +223,14 @@ class Attention(nn.Module):
         q = _dense(x, wq, cfg.dtype).view(b, t, h, hd)
         k = _dense(x, wk, cfg.dtype).view(b, t, kh, hd)
         v = _dense(x, wv, cfg.dtype).view(b, t, kh, hd)
+        if cache is not None:
+            # the decode modes: paged rows sit at their own absolute positions,
+            # left-padded rows count from their first real token
+            positions = paged[2] if paged is not None else None if decode_pad is None else decode_pad[1]
+            q = apply_rope(q, cos, sin, offset=offset, positions=positions)
+            k = apply_rope(k, cos, sin, offset=offset, positions=positions)
+            out, cache = _decode_attention(cfg, q, k, v, cache, offset, decode_pad, attend_len, paged)
+            return _dense(out.reshape(b, t, h * hd), wo, cfg.dtype), cache
         if seg_info is not None:
             # packed rows: positions restart per segment; attention is causal
             # AND same-segment (flash masks from the raw ids, dot from the mask)
@@ -234,6 +260,46 @@ class Attention(nn.Module):
                 out = _dot_attention(q, k, v, causal=True)
         out = _dense(out.reshape(b, t, h * hd), wo, cfg.dtype)
         return out if self.tp is None else reduce_from_model(out, self.tp)
+
+
+def _decode_attention(cfg, q, k, v, cache, offset, decode_pad, attend_len, paged):
+    """Attention of a decode call: write this call's K/V into ``cache`` (in
+    place), then attend over the written slots with the unwritten ones masked.
+
+    Paged (``paged = (tables, fill, positions, index)``): the cache leaves are
+    pool pages; the rows' tokens are scattered through their block tables and
+    the tables gathered back into a contiguous view. Dense: the slots
+    ``[offset, offset + t)`` are written and the first ``attend_len`` slots
+    (all, when None) read. The mask is causal AND written slots AND the window
+    AND, with ``decode_pad``, not a left-pad slot."""
+    t = q.shape[1]
+    if paged is not None:
+        tables, _, positions, index = paged
+        k_pool = scatter_tokens(cache["k"], tables, positions, k, index)
+        v_pool = scatter_tokens(cache["v"], tables, positions, v, index)
+        gk, gv = gather_pages(k_pool, tables), gather_pages(v_pool, tables)
+        kv_pos = torch.arange(gk.shape[1], device=q.device)[None, None, :]  # [1, 1, L]
+        q_pos = positions[:, :, None]  # [B, t, 1] absolute positions
+        mask = kv_pos <= q_pos  # causal AND only this row's filled slots
+        if cfg.sliding_window is not None:
+            mask = mask & _window_keep(q_pos, kv_pos, cfg.sliding_window)
+        return _dot_attention(q, gk, gv, mask=mask), {"k": k_pool, "v": v_pool}
+    ck, cv = cache["k"], cache["v"]
+    if offset + t > ck.shape[1]:
+        raise ValueError(f"decode writes slots [{offset}, {offset + t}) past the cache's {ck.shape[1]}")
+    ck[:, offset : offset + t] = k
+    cv[:, offset : offset + t] = v
+    s = ck.shape[1] if attend_len is None else min(int(attend_len), ck.shape[1])
+    q_pos = offset + torch.arange(t, device=q.device)[:, None]  # [t, 1]
+    kv_pos = torch.arange(s, device=q.device)[None, :]  # [1, s]
+    mask = kv_pos <= q_pos  # causal AND only written slots
+    if cfg.sliding_window is not None:
+        mask = mask & _window_keep(q_pos, kv_pos, cfg.sliding_window)
+    if decode_pad is not None:
+        # left-pad slots hold garbage K/V: mask them per row
+        pad_len, _ = decode_pad
+        mask = mask[None] & (kv_pos[None] >= pad_len[:, None, None])
+    return _dot_attention(q, ck[:, :s], cv[:, :s], mask=mask), {"k": ck, "v": cv}
 
 
 class MLP(nn.Module):
@@ -267,9 +333,15 @@ class DecoderBlock(nn.Module):
         self.mlp_norm = RMSNorm(cfg.hidden_dim, device=device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x, cos, sin, seg_info=None):
-        x = x + self.attn(self.attn_norm(x), cos, sin, seg_info=seg_info)
-        return x + self.mlp(self.mlp_norm(x))
+    def forward(self, x, cos, sin, seg_info=None, cache=None, offset=0, decode_pad=None, attend_len=None,
+                paged=None):
+        if cache is None:
+            x = x + self.attn(self.attn_norm(x), cos, sin, seg_info=seg_info)
+            return x + self.mlp(self.mlp_norm(x))
+        attn_out, cache = self.attn(self.attn_norm(x), cos, sin, cache=cache, offset=offset, decode_pad=decode_pad,
+                                    attend_len=attend_len, paged=paged)
+        x = x + attn_out
+        return x + self.mlp(self.mlp_norm(x)), cache
 
 
 class DecoderLM(nn.Module):
@@ -278,6 +350,14 @@ class DecoderLM(nn.Module):
     With ``segment_ids`` [B, T] int32, rows hold several packed examples and
     attention never crosses a segment boundary (pair with
     ``lm_loss(..., segment_ids=...)``).
+
+    With ``cache``/``offset`` (see ``models/generate.py``) it runs in
+    autoregressive-decode mode and returns ``(logits, cache)``, the cache
+    written in place. With ``cache`` holding pool pages and ``pages=(tables,
+    fill)`` the decode is paged (the serving engine's path, ``serve/``): each
+    row reads and writes the pool blocks its table names at its own absolute
+    position. ``return_hidden=True`` without a cache returns the final hidden
+    states instead of logits; with a cache, ``((logits, hidden), cache)``.
 
     Parameters live on ``device`` (default ``cuda``; raises without a card
     unless ``device="cpu"``), initialised from ``generator`` (default: seed 0
@@ -378,13 +458,47 @@ class DecoderLM(nn.Module):
         for layer in self.layers:
             layer.attn.seq = group
 
-    def forward(self, tokens: torch.Tensor, segment_ids: torch.Tensor | None = None,
-                return_hidden: bool = False) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, segment_ids: torch.Tensor | None = None, return_hidden: bool = False, *,
+                cache: dict | None = None, offset: int = 0, pad_len: torch.Tensor | None = None,
+                attend_len: int | None = None, pages: tuple | None = None, adapters=None):
         """Logits ``[B, T, vocab]`` fp32; with ``return_hidden`` the final
-        hidden states ``[B, T, hidden]`` instead (``chunked_lm_loss``'s input)."""
+        hidden states ``[B, T, hidden]`` instead (``chunked_lm_loss``'s input).
+        The decode arguments (class docstring): ``cache`` written at the
+        Python int ``offset``; ``pad_len`` [B], each row's count of left-pad
+        slots; ``attend_len``, the cache slots read; ``pages = (tables [B, NB],
+        fill [B])``."""
         cfg = self.cfg
+        if adapters is not None:
+            raise NotImplementedError("per-row LoRA adapters are not ported yet (ROADMAP Queue 1 items 4 and 7)")
+        if pad_len is not None and cache is None:
+            raise ValueError("pad_len (left-padded ragged prompts) is a decode-mode feature")
+        if attend_len is not None and cache is None:
+            raise ValueError("attend_len (bounded cache reads) is a decode-mode feature")
+        if cache is not None and any(g is not None for g in (self.tp_embed, self.tp_head, *(
+                m.tp for layer in self.layers for m in (layer.attn, layer.mlp)))):
+            raise NotImplementedError("decode under tensor parallelism is not ported yet (ROADMAP Queue 1 item 4)")
+        paged = None
+        if pages is not None:
+            # rows sit at their own absolute positions (no left-padding), so
+            # positions derive from fill, not from a batch-wide offset
+            if cache is None:
+                raise ValueError("pages (paged KV decode) requires the pool cache")
+            if pad_len is not None or attend_len is not None:
+                raise ValueError("pages replaces pad_len/attend_len: positions come from fill")
+            tables, fill = pages
+            positions = fill[:, None] + torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+            pool = cache["layer_0"]["k"]
+            # where the scatter lands, found once for every layer's K and V
+            paged = (tables, fill, positions, write_index(tables, positions, pool.shape[0], pool.shape[1]))
+        decode_pad = None
+        if pad_len is not None:
+            positions = (torch.arange(tokens.shape[1], device=tokens.device)[None, :] + offset
+                         - pad_len[:, None]).clamp(min=0)
+            decode_pad = (pad_len, positions)
         seg_info = None
         if segment_ids is not None:
+            if cache is not None:
+                raise ValueError("segment_ids are a packed-training feature; unsupported in decode mode")
             if cfg.attn_impl == "ring":
                 raise ValueError("segment_ids are not supported with attn_impl='ring'")
             # computed once, shared by every layer: per-segment rotary
@@ -403,14 +517,27 @@ class DecoderLM(nn.Module):
         x = F.embedding(tokens, local_tensor(self.embed.weight)).to(cfg.dtype)
         if self.tp_embed is not None:
             x = gather_from_model(x, self.tp_embed, dim=-1)
-        for layer in self.layers:
-            if cfg.remat and torch.is_grad_enabled():
+        new_cache = None if cache is None else {}
+        for i, layer in enumerate(self.layers):
+            if cache is not None:
+                name = f"layer_{i}"
+                x, new_cache[name] = layer(x, self.rope_cos, self.rope_sin, cache=cache[name], offset=offset,
+                                           decode_pad=decode_pad, attend_len=attend_len, paged=paged)
+            elif cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(layer, x, self.rope_cos, self.rope_sin, seg_info, use_reentrant=False)
             else:
                 x = layer(x, self.rope_cos, self.rope_sin, seg_info=seg_info)
         x = self.final_norm(x)
+        if new_cache is not None:
+            logits = self._logits(x)
+            return ((logits, x) if return_hidden else logits), new_cache
         if return_hidden:
             return x
+        return self._logits(x)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The fp32 LM head on the final hidden states."""
+        cfg = self.cfg
         if cfg.tie_embeddings:
             head = local_tensor(self.embed.weight)
             if self.tp_embed is None:

@@ -9,7 +9,9 @@ data-parallel helpers at world size 1, trains the pod example's toy model
 on a one-rank ``fsdp`` mesh (FSDP2 over gloo), trains the tiny model with
 ring attention on a one-rank ``seq`` mesh, runs ``pipeline_apply`` over a
 one-rank ``pipe`` group and restores a save without a template
-(``restore_state(mesh=)``), and checks that none of those
+(``restore_state(mesh=)``), decodes (``train_lm --sample``, ``generate``,
+``beam_search``, ``examples.generate_text``) and serves requests through
+``ServeEngine``, and checks that none of those
 modules was loaded — and that, on a machine
 without CUDA, entry points called without a device raise instead of running
 on the CPU.
@@ -87,6 +89,23 @@ _SCRIPT = textwrap.dedent(
     slice8 = [ring_loss, bool(torch.equal(piped, torch.ones(2, 3, 4))),
               bool(torch.equal(restored, torch.arange(6.0).reshape(2, 3)))]
     runtime.deinitialize()
+    # the slice-9 paths: decode after training, generate/beam search, the serving engine
+    sampled = main(["--device", "cpu", "--epochs", "1", "--n-seqs", "40", "--seq-len", "32", "--sample", "4"])
+    runtime.deinitialize()
+    from dmlcloud_tpu_torch.examples import generate_text
+    from dmlcloud_tpu_torch.models.generate import generate
+    from dmlcloud_tpu_torch.serve import ServeEngine
+    beams, _ = generate_text.main(["--device", "cpu", "--max-new", "4", "--beams", "2"])
+    greedy = generate_text.main(["--device", "cpu", "--max-new", "4", "--batch", "1"])
+    import argparse
+    import numpy as np
+    tiny = generate_text.build_model(argparse.Namespace(prompt_len=12, max_new=4, seed=0, device="cpu"))
+    engine = ServeEngine(tiny, block_size=4, max_slots=2, prefill_chunk=8)
+    prompt = np.random.RandomState(0).randint(0, 256, 12)
+    rid = engine.submit(prompt, 4)
+    served = engine.run()[rid].tolist()
+    slice9 = [list(sampled.sample_output.shape), list(beams.shape),
+              served == generate(tiny, prompt[None], 4)[0].tolist(), engine.leaked_blocks()]
 
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in BLOCKED)
@@ -96,7 +115,8 @@ _SCRIPT = textwrap.dedent(
         for name, call in [("DecoderLM", lambda: DecoderLM(cfg)),
                            ("TrainingPipeline", lambda: dmlcloud_tpu_torch.TrainingPipeline()),
                            ("train_lm.main", lambda: main(["--epochs", "1"])),
-                           ("mnist.main", lambda: mnist.main(["--epochs", "1"]))]:
+                           ("mnist.main", lambda: mnist.main(["--epochs", "1"])),
+                           ("generate_text.main", lambda: generate_text.main([]))]:
             try:
                 call()
                 raised[name] = False
@@ -104,7 +124,7 @@ _SCRIPT = textwrap.dedent(
                 raised[name] = True
     print(json.dumps({"modules": modules, "loaded": loaded, "loss": loss, "goodput": goodput, "raised": raised,
                       "mnist_acc": mnist_acc, "collectives": collectives, "pod": [pod_loss, pod_fsdp],
-                      "slice8": slice8}))
+                      "slice8": slice8, "slice9": slice9}))
     """
 )
 
@@ -122,7 +142,8 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
                  "telemetry.watchdog", "data.device", "data.datasets", "utils.profiling", "utils.tensorboard",
                  "utils.wandb", "utils.argparse_ext", "data.sharding", "models.cnn", "examples.mnist",
                  "parallel.data_parallel", "parallel.mesh", "parallel.tensor_parallel", "examples.pod_llama_fsdp",
-                 "ops.ring_attention", "parallel.pipeline_parallel"):
+                 "ops.ring_attention", "parallel.pipeline_parallel", "ops.paged_attention", "models.generate",
+                 "serve", "serve.kv_pool", "serve.scheduler", "serve.engine", "examples.generate_text"):
         assert f"dmlcloud_tpu_torch.{name}" in result["modules"], name
     assert result["loss"] == result["loss"] and result["loss"] > 0  # finite, trained
     assert 0 < result["goodput"] <= 1
@@ -131,5 +152,6 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
     assert result["pod"][0] > 0 and result["pod"][1], "the pod toy did not train through FSDP2"
     ring_loss, piped, restored = result["slice8"]
     assert ring_loss > 0 and piped and restored, result["slice8"]
+    assert result["slice9"] == [[2, 4], [2, 4], True, 0], result["slice9"]
     for name, did_raise in result["raised"].items():
         assert did_raise, f"{name} without a device ran on the CPU instead of raising"
