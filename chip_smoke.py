@@ -99,7 +99,28 @@ Phases, each fatal on failure:
    tokens, 128 new each; 8 slots, prefill chunks of 256): TTFT p50/p99, the
    decode tokens/s and ms per decode step, the pool's GiB, peak memory, one
    decode step under ``torch.profiler`` (device busy against wall), then
-   ``beam_search`` with 4 beams on two prompts.
+   ``beam_search`` with 4 beams on two prompts;
+14. vision and encoders. (a) the tensor-core K1-K3 in BERT's form (B=32,
+   T=512, 12/12 heads of 64, bf16, ``causal=False``, segment ids from a
+   keep-mask with real lengths 64-512), each held against its plain version
+   and timed beside it, its bound on the kept pairs and
+   ``scaled_dot_product_attention`` with the equivalent boolean mask, added to
+   the kernels line; (b) BERT-base classification with ``attn_impl="flash"``:
+   hidden states at real positions against the dot path's, then 4 AdamW steps
+   of 32 padded rows through the ``TrainingPipeline`` with exactly 12 launches
+   each of the tensor-core K1-K3 per step and none of the CUDA-core kernels,
+   the steady step, real tokens/s, peak memory, one profiled step; (c)
+   ResNet-50 at 224x224, batch 256, bf16, ``sgd(0.1, momentum=0.9)`` through
+   the pipeline: steady images/s, ``misc/mfu`` (3 x 8.2e9 FLOP per image),
+   peak memory, a plain hand-written loop of the same model and the ratio;
+   (d) ResNet-18 fp32 3 steps on the card against the CPU (losses and running
+   statistics within ``RESNET_CARD_REL``, a TF32-on control logged beside),
+   then under ``enable_determinism`` a preempted-and-resumed run bitwise equal
+   to an uninterrupted one, running statistics included; (e) the vit-l
+   preset's widths at 2+2 blocks, bf16 on the card against fp32 on the CPU
+   within ``CLIP_CARD_REL``, then ``examples.pod_clip_vit`` at the vit-l
+   preset, 64 pairs per step, 8 steps: finite falling losses, accuracy,
+   steady step, pairs/s, peak memory, and ``--mesh fsdp=1`` bitwise equal.
 
 The last line of standard output is one JSON object with ``"ok": true``. With no
 card, or without the package beside it, the script exits non-zero and prints no
@@ -371,21 +392,25 @@ def _live_pairs(t: int, s: int, causal: bool, window: int | None) -> int:
     return total
 
 
-def _work(b, t, h, kh, d, causal: bool = True, window: int | None = None) -> dict[str, tuple[int, int]]:
+def _work(b, t, h, kh, d, causal: bool = True, window: int | None = None, pairs: int | None = None,
+          seg: bool = False) -> dict[str, tuple[int, int]]:
     """(operations, bytes) of K1-K3 on bf16 attention (T == S), counting the
-    pairs the mask keeps: each input read once, each output written once (for
-    the bounds: operations over the bf16 tensor-core peak, bytes over HBM
-    bandwidth)."""
-    pairs = b * h * _live_pairs(t, t, causal, window)
+    pairs the mask keeps (``pairs``, over all rows and heads, when the mask
+    comes from segment ids): each input read once, each output written once
+    (for the bounds: operations over the bf16 tensor-core peak, bytes over HBM
+    bandwidth); ``seg`` adds the int32 segment ids to each kernel's reads."""
+    if pairs is None:
+        pairs = b * h * _live_pairs(t, t, causal, window)
     e = 2  # bytes per bf16 element
     q_bytes, kv_bytes, stat_bytes = b * t * h * d * e, b * t * kh * d * e, b * h * t * 4
+    seg_bytes = b * t * 4 if seg else 0
     return {
         # QK^T and PV
-        "K1": (4 * d * pairs, 2 * q_bytes + 2 * kv_bytes + stat_bytes),
+        "K1": (4 * d * pairs, 2 * q_bytes + 2 * kv_bytes + stat_bytes + seg_bytes),
         # QK^T, dO V^T, dS K
-        "K2": (6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * stat_bytes),
+        "K2": (6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * stat_bytes + seg_bytes),
         # QK^T, dO V^T, P^T dO, dS^T Q
-        "K3": (8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes),
+        "K3": (8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes + seg_bytes),
     }
 
 
@@ -1851,6 +1876,486 @@ def phase_serve(torch, smi: str) -> None:
     _free(torch)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the vision and encoder families
+# ---------------------------------------------------------------------------
+
+#: BERT-base's attention as the flash path sees it: B=32 rows of T=512, 12/12
+#: heads of 64, bf16, a {0,1} keep-mask as segment ids, causal=False
+BERT_FORM = dict(b=32, t=512, h=12, d=64)
+#: the real lengths of the padded rows are drawn from this range
+BERT_LENGTHS = (64, 512)
+BERT_STEPS = 4
+#: ResNet-50 at one of bench.py's candidate batches, 224x224, bf16 on fp32 parameters
+RESNET50 = dict(batch=256, size=224, steps=6)
+#: bench.py:58-65: 8.2e9 FLOP per image forward (4.1 GMACs), training 3x that
+RESNET_TRAIN_FLOPS_PER_IMAGE = 3 * 8.2e9
+#: ResNet-18 in fp32 on the card against the CPU (TF32 off, phase 1): 3 SGD
+#: steps at lr 0.1 with momentum carry the two sides' differently rounded
+#: convolutions and batch statistics forward. Relative (losses) and
+#: norm-relative (each running statistic). Sound fp32 runs read ~2e-6; the
+#: same run with TF32 on is logged beside it as the control the bound must
+#: not admit
+RESNET18 = dict(batch=8, size=32)
+RESNET_CARD_REL = 1e-5
+CLIP_ARGV = ["--preset", "vit-l", "--global-batch", "64", "--steps-per-epoch", "8", "--epochs", "1"]
+#: the vit-l preset's widths at ``layers`` blocks per tower, ``pairs`` pairs:
+#: one bf16 forward and backward on the card (towers, projections,
+#: ``clip_loss``) against the same weights and batch in fp32 on the CPU.
+#: Norm-relative (embeddings, the flat gradient) and relative (loss): bf16
+#: activations against fp32
+CLIP_CHECK = dict(layers=2, pairs=8)
+CLIP_CARD_REL = 5e-2
+
+
+def _keep_segments(torch, b: int, t: int, seed: int = 5):
+    """A padded batch's keep-mask as int32 segment ids [B, T] (1 real, 0 pad)
+    and the real lengths, drawn from ``BERT_LENGTHS``."""
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(BERT_LENGTHS[0], BERT_LENGTHS[1] + 1, (b,), generator=g)
+    seg = (torch.arange(t)[None, :] < lens[:, None]).to(torch.int32)
+    return seg.cuda(), [int(n) for n in lens]
+
+
+def phase_bert_kernels(torch, fa) -> dict:
+    """(a): the tensor-core K1-K3 in BERT's form, each held against its plain
+    version and timed beside it, its bound on the kept pairs (real attends
+    real, pad attends pad) and ``scaled_dot_product_attention`` with the
+    equivalent boolean mask. Rows by kernel."""
+    import torch.nn.functional as F
+
+    sh = BERT_FORM
+    b, t, h, d = sh["b"], sh["t"], sh["h"], sh["d"]
+    q, k, v, do = _inputs(torch, torch.bfloat16, b, t, h, h, d)
+    seg, lens = _keep_segments(torch, b, t)
+    args = (seg, False, 1.0 / math.sqrt(d), None)
+    out_p, lse_p = fa.attn_fwd_plain(q, k, v, *args)
+    delta = fa.softmax_delta(out_p, do)
+    bwd = (q, k, v, do, lse_p, delta, *args)
+    dq_p = fa.attn_dq_plain(*bwd)
+    dk_p, dv_p = fa.attn_dkv_plain(*bwd)
+    out, lse = fa.attn_fwd_tc(q, k, v, *args)
+    dq = fa.attn_dq_tc(*bwd)
+    dk, dv = fa.attn_dkv_tc(*bwd)
+    torch.cuda.synchronize()
+    errs = {"K1": assert_close(torch, out, out_p, "bfloat16", "bert K1 out"),
+            "K1 lse": assert_close(torch, lse, lse_p, "float32", "bert K1 lse"),
+            "K2": assert_close(torch, dq, dq_p, "bfloat16", "bert K2 dq"),
+            "K3 dk": assert_close(torch, dk, dk_p, "bfloat16", "bert K3 dk"),
+            "K3 dv": assert_close(torch, dv, dv_p, "bfloat16", "bert K3 dv")}
+    log(f"[bert] (a) kernels at B={b}, T={t}, {h}/{h} heads of {d}, keep-mask segments (lengths {min(lens)}-"
+        f"{max(lens)}), causal=False: " + "  ".join(f"{key} {e:.2e}/{r:.2e}" for key, (e, r) in errs.items())
+        + " (max abs/norm-relative)")
+    times = {"K1": (cuda_ms(torch, lambda: fa.attn_fwd_tc(q, k, v, *args)),
+                    cuda_ms(torch, lambda: fa.attn_fwd_plain(q, k, v, *args), reps=5)),
+             "K2": (cuda_ms(torch, lambda: fa.attn_dq_tc(*bwd)), cuda_ms(torch, lambda: fa.attn_dq_plain(*bwd), reps=5)),
+             "K3": (cuda_ms(torch, lambda: fa.attn_dkv_tc(*bwd)),
+                    cuda_ms(torch, lambda: fa.attn_dkv_plain(*bwd), reps=5))}
+    # yardstick only: one library call for the same attention, the mask as a boolean [B, 1, T, T]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    mask = (seg[:, :, None] == seg[:, None, :])[:, None]
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    lib_fwd = cuda_ms(torch, sdpa)
+    o = sdpa()
+    lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(o, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+    pairs = h * sum(n * n + (t - n) ** 2 for n in lens)
+    work = _work(b, t, h, h, d, pairs=pairs, seg=True)
+    sources = {"K1": ("flash_fwd_tc", "dmlcloud_tpu/ops/flash_attention.py:149 (_attn_kernel, pallas_call :773)"),
+               "K2": ("flash_bwd_dq_tc", "dmlcloud_tpu/ops/flash_attention.py:229 (_dq_kernel, pallas_call :847)"),
+               "K3": ("flash_bwd_dkv_tc", "dmlcloud_tpu/ops/flash_attention.py:276 (_dkv_kernel, pallas_call :883)")}
+    rows = {}
+    for key, (ms, plain_ms) in times.items():
+        flops, nbytes = work[key]
+        op_ms, byte_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        name, replaces = sources[key]
+        rows[key] = {"name": name, "route": "cuda", "source": "dmlcloud_tpu_torch/csrc/flash_attention_tc.cu",
+                     "replaces": replaces, "launches": 0,
+                     "max_abs_err": max(e for n, (e, _) in errs.items() if n.startswith(key) and not n.endswith("lse")),
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": max(op_ms, byte_ms),
+                     "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+                     "library_ms": lib_fwd if key == "K1" else lib_bwd,
+                     "shape": f"BERT-base: B={b}, T={t}, {h}/{h} heads of {d}, keep-mask segments, causal=False"}
+        log(f"[bert] (a) {key} {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {rows[key]['bound_ms']:.4f} ms by "
+            f"{rows[key]['bound_by']}, {rows[key]['bound_ms'] / ms:.1%} of it; library {rows[key]['library_ms']:.3f} ms "
+            f"with the boolean mask)")
+    log(f"[bert] (a) kept pairs {pairs} of {b * h * t * t} ({pairs / (b * h * t * t):.1%}); scaled_dot_product_attention "
+        f"with the mask: fwd {lib_fwd:.3f} ms, bwd {lib_bwd:.3f} ms")
+    del q, k, v, do, out, lse, dq, dk, dv, out_p, lse_p, dq_p, dk_p, dv_p, qt, kt, vt, o, mask
+    _free(torch)
+    return rows
+
+
+def _bert_batches(torch, cfg, n: int, seed: int = 11) -> list[dict]:
+    """``n`` padded batches of BERT_FORM's rows on the card: random tokens,
+    real lengths from ``BERT_LENGTHS`` (pad id 0 after them), 2 classes."""
+    b, t = BERT_FORM["b"], BERT_FORM["t"]
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(n):
+        lens = torch.randint(BERT_LENGTHS[0], BERT_LENGTHS[1] + 1, (b,), generator=g)
+        mask = (torch.arange(t)[None, :] < lens[:, None]).to(torch.int32)
+        tokens = torch.randint(1, cfg.vocab_size, (b, t), generator=g) * mask
+        out.append({"tokens": tokens.cuda(), "mask": mask.cuda(), "label": torch.randint(0, 2, (b,), generator=g).cuda()})
+    return out
+
+
+def phase_bert(torch, fa, smi: str) -> dict:
+    """(b): ``BertForSequenceClassification`` at ``BertConfig()`` (BERT-base,
+    T=512) with ``attn_impl="flash"``: its hidden states at the real positions
+    against the dot path's on the same weights and batch (``MODEL_TOL``: the dot
+    path rounds its scores to bf16, as the reference's does); then
+    ``BERT_STEPS`` AdamW steps of batch 32 padded rows through the
+    ``TrainingPipeline``, the main path: exactly 12 launches each of the
+    tensor-core K1/K2/K3 per step and none of the CUDA-core kernels; the
+    steady step, real tokens/s, peak memory and one profiled step."""
+    import torch.nn.functional as F
+
+    import dmlcloud_tpu_torch as dml
+    from dmlcloud_tpu_torch.models.bert import BertConfig, BertForSequenceClassification
+    from dmlcloud_tpu_torch.optim import adamw
+
+    cfg = BertConfig(attn_impl="flash")
+    batches = _bert_batches(torch, cfg, BERT_STEPS)
+    model = BertForSequenceClassification(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    dot = BertForSequenceClassification(BertConfig(attn_impl="dot"), device="cuda")
+    dot.load_state_dict(model.state_dict())
+    first = batches[0]
+    with torch.no_grad():
+        real = first["mask"].bool()
+        h_flash = model.bert(first["tokens"], first["mask"])[real].float()
+        h_dot = dot.bert(first["tokens"], first["mask"])[real].float()
+    err, rel = max_err(torch, h_flash, h_dot), rel_err(torch, h_flash, h_dot)
+    log(f"[bert] (b) BERT-base hidden states at the {int(real.sum())} real positions, flash against dot: max abs "
+        f"{err:.4f}, norm-relative {rel:.4f} (hidden std {float(h_dot.std()):.3f}; bound {MODEL_TOL})")
+    if not (torch.allclose(h_flash, h_dot, atol=MODEL_TOL["atol"], rtol=MODEL_TOL["rtol"])
+            and rel <= MODEL_TOL["rel_norm"] and bool(torch.isfinite(h_flash).all())):
+        raise AssertionError(f"BERT flash hidden states off the dot path's: max abs {err:.4f}, norm-relative {rel:.4f}")
+    del dot, h_flash, h_dot
+    _free(torch)
+
+    class BertStage(dml.TrainValStage):
+        def pre_stage(self):
+            self.pipeline.register_model("bert", model, verbose=False)
+            self.pipeline.register_optimizer("adamw", adamw(2e-5, weight_decay=0.01))
+            self.pipeline.register_dataset("train", batches, verbose=False)
+
+        def step(self, state, batch):
+            return F.cross_entropy(state.model(batch["tokens"], batch["mask"]), batch["label"])
+
+        def val_epoch(self):
+            pass
+
+    pipe = dml.TrainingPipeline({"seed": 0}, name="bert-base", device="cuda")
+    stage = BertStage()
+    pipe.append_stage(stage, max_epochs=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()  # BERT's path starts here ...
+    t0 = time.perf_counter()
+    pipe.run()
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)  # ... and ends here
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in stage.train_losses]
+    want = {"flash_fwd_tc": 12 * BERT_STEPS, "flash_bwd_dq_tc": 12 * BERT_STEPS, "flash_bwd_dkv_tc": 12 * BERT_STEPS,
+            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    if launches != want:
+        raise AssertionError(f"BERT launches {launches}, want {want} (12 per step each)")
+    if len(losses) != BERT_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"BERT losses {losses}")
+    step_ms, times = steady_ms(torch, stage, first)
+    tokens = int(first["mask"].sum())
+    log(f"[bert] (b) {BERT_STEPS} AdamW steps through the TrainingPipeline in {wall:.1f} s wall, losses {losses}; "
+        f"launches {launches}; steady step {step_ms:.2f} ms median of {[round(x, 2) for x in times]} = "
+        f"{tokens / step_ms * 1e3:.0f} real tokens/s ({tokens} real of {BERT_FORM['b'] * BERT_FORM['t']}; "
+        f"{BERT_FORM['b'] / step_ms * 1e3:.1f} sequences/s); peak memory {peak / 2**30:.2f} GiB [{smi}]")
+    wall_us, busy_us, events = profile_step(torch, stage, first)
+    log_profile("bert", f"BERT-base train step (B={BERT_FORM['b']}, T={BERT_FORM['t']}) [{smi}]", wall_us, busy_us,
+                events, top=10)
+    del pipe, stage, model, batches, first
+    _free(torch)
+    return {"launches": launches, "step_ms": step_ms, "tokens_s": tokens / step_ms * 1e3, "peak_gib": peak / 2**30}
+
+
+def phase_resnet50(torch, smi: str) -> dict:
+    """(c): ResNet-50 at 224x224, batch 256, bf16 on fp32 parameters,
+    ``sgd(0.1, momentum=0.9)``, through the ``TrainingPipeline`` (the batch on
+    the card, as bench.py stages it): steady images/s, ``misc/mfu`` at 3 x
+    8.2e9 FLOP per image, peak memory; then a plain hand-written loop of the
+    same model and optimizer and the ratio of the two (bench.py's
+    framework/raw), and one profiled step."""
+    import torch.nn.functional as F
+
+    import dmlcloud_tpu_torch as dml
+    from dmlcloud_tpu_torch.models.resnet import ResNet50
+    from dmlcloud_tpu_torch.optim import sgd
+
+    n, size, steps = RESNET50["batch"], RESNET50["size"], RESNET50["steps"]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    batch = {"image": torch.rand(n, size, size, 3, device="cuda", generator=g),
+             "label": torch.randint(0, 1000, (n,), device="cuda", generator=g)}
+
+    class ResNetStage(dml.TrainValStage):
+        def pre_stage(self):
+            model = ResNet50(device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+            self.pipeline.register_model("resnet50", model, verbose=False)
+            self.pipeline.register_optimizer("sgd", sgd(0.1, momentum=0.9))
+            self.pipeline.register_dataset("train", [batch] * steps, verbose=False)
+
+        def step(self, state, b):
+            return F.cross_entropy(state.model(b["image"]), b["label"])
+
+        def step_flops(self):
+            return RESNET_TRAIN_FLOPS_PER_IMAGE * n
+
+        def val_epoch(self):
+            pass
+
+    pipe = dml.TrainingPipeline({"seed": 0}, name="resnet50", device="cuda")
+    stage = ResNetStage()
+    pipe.append_stage(stage, max_epochs=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in stage.train_losses]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"ResNet-50 losses {losses}")
+    mfu = float(stage.tracker["misc/mfu"][-1])
+    avg_ms = float(stage.tracker["misc/train_step_avg_ms"][-1])
+    step_ms, times = steady_ms(torch, stage, batch, steps=5)
+    steady_mfu = RESNET_TRAIN_FLOPS_PER_IMAGE * n / (step_ms / 1e3) / PEAK_BF16_FLOPS
+    log(f"[resnet] (c) ResNet-50 {size}x{size}, batch {n}, {steps} SGD steps through the TrainingPipeline in "
+        f"{wall:.1f} s wall, losses {[round(x, 4) for x in losses]}; epoch step average {avg_ms:.1f} ms (first step "
+        f"included), misc/mfu {mfu:.4f}; steady step {step_ms:.2f} ms median of {[round(x, 2) for x in times]} = "
+        f"{n / step_ms * 1e3:.1f} images/s, MFU {steady_mfu:.4f}; peak memory {peak / 2**30:.2f} GiB [{smi}]")
+    wall_us, busy_us, events = profile_step(torch, stage, batch)
+    log_profile("resnet", f"ResNet-50 train step (batch {n}) [{smi}]", wall_us, busy_us, events, top=12)
+    del pipe, stage
+    _free(torch)
+
+    # bench.py's raw path: the same model and optimizer in a hand-written loop
+    model = ResNet50(device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    opt = sgd(0.1, momentum=0.9)(model.parameters())
+
+    def raw_step():
+        opt.zero_grad(set_to_none=True)
+        F.cross_entropy(model(batch["image"]), batch["label"]).backward()
+        opt.step()
+
+    raw_ms = cuda_ms(torch, raw_step, reps=5, warmup=2)
+    log(f"[resnet] (c) the plain loop: {raw_ms:.2f} ms per step = {n / raw_ms * 1e3:.1f} images/s; framework / plain "
+        f"throughput {raw_ms / step_ms:.4f} [{smi}]")
+    del model, opt, batch
+    _free(torch)
+    return {"images_s": n / step_ms * 1e3, "raw_images_s": n / raw_ms * 1e3, "ratio": raw_ms / step_ms, "mfu": mfu,
+            "steady_mfu": steady_mfu, "peak_gib": peak / 2**30}
+
+
+def _resnet18_run(torch, device: str, steps: int, root: str | None = None, resume: bool = False,
+                  signal_after: int | None = None):
+    """ResNet-18 (32x32, batch 8, fp32, ``sgd(0.1, momentum=0.9)``) through
+    the TrainingPipeline on ``device``, from the CPU-initialised seed-0
+    weights, on seeded host batches; with ``root`` step saves every 2 steps,
+    with ``signal_after`` a SIGUSR1 after that many batches."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    import dmlcloud_tpu_torch as dml
+    from dmlcloud_tpu_torch.models.resnet import ResNet18
+    from dmlcloud_tpu_torch.optim import sgd
+
+    rs = np.random.RandomState(4)
+    n, size = RESNET18["batch"], RESNET18["size"]
+    batches = [{"image": rs.rand(n, size, size, 3).astype(np.float32), "label": rs.randint(0, 10, n)}
+               for _ in range(steps)]
+
+    class Stage(dml.TrainValStage):
+        def pre_stage(self):
+            model = ResNet18(num_classes=10, dtype=torch.float32, device="cpu", generator=torch.Generator().manual_seed(0))
+            self.pipeline.register_model("resnet18", model, verbose=False)
+            self.pipeline.register_optimizer("sgd", sgd(0.1, momentum=0.9))
+            ds = batches if signal_after is None else _SignalAfter(batches, signal_after)
+            self.pipeline.register_dataset("train", ds, verbose=False)
+
+        def checkpoint_every_steps(self):
+            return 2
+
+        def step(self, state, b):
+            return F.cross_entropy(state.model(b["image"]), b["label"].long())
+
+        def val_epoch(self):
+            pass
+
+    pipe = dml.TrainingPipeline({"seed": 0}, name="resnet18", device=device)
+    if root is not None:
+        pipe.enable_checkpointing(root, resume=resume)
+    if signal_after is not None:
+        pipe.enable_preemption_handling(("SIGUSR1",))
+    stage = Stage()
+    pipe.append_stage(stage, max_epochs=1)
+    pipe.run()
+    return pipe, stage
+
+
+def phase_resnet18(torch, smi: str) -> None:
+    """(d): ResNet-18 in fp32, 3 steps on the card against the same run on the
+    CPU (losses and running statistics within ``RESNET_CARD_REL``); then under
+    ``enable_determinism`` a run of 6 steps preempted by SIGUSR1 after 3
+    (drained at the step-4 save) and resumed, bitwise equal to an
+    uninterrupted one in parameters, momentum, running statistics and losses."""
+    from dmlcloud_tpu_torch.utils.seed import enable_determinism
+
+    t0 = time.perf_counter()
+    _, cpu = _resnet18_run(torch, "cpu", 3)
+    cpu_l = [float(x) for x in cpu.train_losses]
+    cpu_stats = dict(cpu.state.model.named_buffers())
+
+    def errs(card) -> tuple[list[float], float, float]:
+        card_l = [float(x) for x in card.train_losses]
+        stats = dict(card.state.model.named_buffers())
+        return (card_l, max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l)),
+                max(rel_err(torch, stats[n].cpu(), b) for n, b in cpu_stats.items()))
+
+    card_l, loss_rel, stat_rel = errs(_resnet18_run(torch, "cuda", 3)[1])
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        _, tf32_loss, tf32_stat = errs(_resnet18_run(torch, "cuda", 3)[1])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    log(f"[resnet] (d) ResNet-18 fp32 32x32 batch 8, 3 SGD steps, card against CPU: losses {card_l} / {cpu_l} "
+        f"(worst relative {loss_rel:.3g}), running statistics worst norm-relative {stat_rel:.3g} (bound "
+        f"{RESNET_CARD_REL}); control, the card with TF32 on: {tf32_loss:.3g} and {tf32_stat:.3g}")
+    if not (loss_rel <= RESNET_CARD_REL and stat_rel <= RESNET_CARD_REL):
+        raise AssertionError(f"ResNet-18 on the card off the CPU: losses {loss_rel:.3g}, statistics {stat_rel:.3g}")
+    del cpu, cpu_stats
+    _free(torch)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_resnet_")
+    enable_determinism()
+    try:
+        _, control = _resnet18_run(torch, "cuda", 6)
+        pipe1, preempted = _resnet18_run(torch, "cuda", 6, root=root, resume=True, signal_after=3)
+        if not (preempted._mid_epoch_exit and preempted.state.step == 4):
+            raise AssertionError(f"ResNet-18 preempted run ended at step {preempted.state.step}, want a drain at 4")
+        _, resumed = _resnet18_run(torch, "cuda", 6, root=str(pipe1.checkpoint_dir.path), resume=True)
+        got, want = resumed.state.state_dict(), control.state.state_dict()
+        mismatched = []
+        for part in ("params", "extras"):
+            mismatched += [f"{part}/{n}" for n in want[part] if not torch.equal(got[part][n], want[part][n])]
+        mismatched += [f"trace/{n}" for n in want["opt_state"]["trace"]
+                       if not torch.equal(got["opt_state"]["trace"][n], want["opt_state"]["trace"][n])]
+        tail = [float(x) for x in control.train_losses[4:]]
+        if [float(x) for x in resumed.train_losses] != tail:
+            mismatched.append("losses")
+        if mismatched or resumed.state.step != 6:
+            raise AssertionError(f"ResNet-18 resume not bitwise: {mismatched[:8]}, step {resumed.state.step}")
+        log(f"[resnet] (d) under enable_determinism: preempted after step 3, drained at the step-4 save, resumed: "
+            f"parameters, momentum, {len(want['extras'])} running statistics and losses {tail} bitwise equal to the "
+            f"uninterrupted run; (d) in {time.perf_counter() - t0:.1f} s [{smi}]")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    _free(torch)
+
+
+def phase_clip_width(torch, smi: str, device: str = "cuda") -> None:
+    """(e) first: the vit-l preset's towers at ``CLIP_CHECK["layers"]`` blocks
+    each, one bf16 forward and backward through ``clip_loss`` on the card,
+    held against the same weights and batch in fp32 on the CPU within
+    ``CLIP_CARD_REL``: loss, both embeddings and the flat gradient."""
+    import dataclasses
+
+    from dmlcloud_tpu_torch.examples import pod_clip_vit
+    from dmlcloud_tpu_torch.models.clip import CLIP, clip_loss
+
+    t0 = time.perf_counter()
+    cfg = pod_clip_vit.clip_config("vit-l")
+    layers = CLIP_CHECK["layers"]
+    card_cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, num_layers=layers),
+                                   text=dataclasses.replace(cfg.text, num_layers=layers))
+    cpu_cfg = dataclasses.replace(card_cfg, vision=dataclasses.replace(card_cfg.vision, dtype=torch.float32),
+                                  text=dataclasses.replace(card_cfg.text, dtype=torch.float32))
+    batch = next(iter(pod_clip_vit.SyntheticPairs(card_cfg, CLIP_CHECK["pairs"], 1, seed=7)))
+    ref = CLIP(cpu_cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = CLIP(card_cfg, device=device)
+    card.load_state_dict(ref.state_dict())
+
+    def run(model, device: str):
+        img, txt, scale = model(torch.from_numpy(batch["image"]).to(device),
+                                torch.from_numpy(batch["tokens"]).to(device))
+        loss = clip_loss(img, txt, scale)
+        loss.backward()
+        grad = torch.cat([p.grad.float().flatten().cpu() for p in model.parameters()])
+        return float(loss.detach()), img.detach().cpu(), txt.detach().cpu(), grad
+
+    want, got = run(ref, "cpu"), run(card, device)
+    loss_rel = abs(got[0] - want[0]) / abs(want[0])
+    img_rel, txt_rel, grad_rel = (rel_err(torch, g, w) for g, w in zip(got[1:], want[1:]))
+    log(f"[clip] (e) vit-l widths at {layers}+{layers} blocks, {CLIP_CHECK['pairs']} pairs, bf16 on the card against "
+        f"fp32 on the CPU: loss {got[0]:.5f} / {want[0]:.5f} (relative {loss_rel:.3g}), image embeddings "
+        f"{img_rel:.3g}, text embeddings {txt_rel:.3g}, gradient ({want[3].numel()} values) {grad_rel:.3g} "
+        f"norm-relative (bound {CLIP_CARD_REL}); in {time.perf_counter() - t0:.1f} s [{smi}]")
+    if not max(loss_rel, img_rel, txt_rel, grad_rel) <= CLIP_CARD_REL:
+        raise AssertionError(f"CLIP vit-l widths on the card off the fp32 CPU run: loss {loss_rel:.3g}, embeddings "
+                             f"{img_rel:.3g} / {txt_rel:.3g}, gradient {grad_rel:.3g}")
+    del ref, card
+    _free(torch)
+
+
+def phase_clip(torch, smi: str) -> dict:
+    """(e): the vit-l towers against an fp32 CPU run (``phase_clip_width``);
+    then ``examples.pod_clip_vit`` at the vit-l preset (ViT-L/16 image tower,
+    the CLIP text tower) with 64 pairs per step on one card for 8 steps:
+    finite and falling losses, accuracy, the steady step, pairs/s and peak
+    memory; then the same with ``--mesh fsdp=1`` (FSDP2 over a one-rank NCCL
+    group), bitwise equal in every step's loss."""
+    from dmlcloud_tpu_torch.examples import pod_clip_vit
+    from dmlcloud_tpu_torch.parallel import runtime
+
+    phase_clip_width(torch, smi)
+    runtime.deinitialize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stage = pod_clip_vit.main(CLIP_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in stage.train_losses]
+    acc, scale = float(stage.tracker["train/accuracy"][-1]), float(stage.tracker["train/logit_scale"][-1])
+    n_params = sum(p.numel() for p in stage.state.model.parameters())
+    if len(losses) != 8 or not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"CLIP losses not finite and falling: {losses}")
+    batch = next(iter(stage._feed(stage.train_dataset())))
+    step_ms, times = steady_ms(torch, stage, batch)
+    pairs = int(batch["image"].shape[0])
+    log(f"[clip] (e) examples.pod_clip_vit {' '.join(CLIP_ARGV)}: {n_params / 1e6:.1f} M parameters, 8 steps in "
+        f"{wall:.1f} s wall (model build and data included), losses {[round(x, 4) for x in losses]}, epoch accuracy "
+        f"{acc:.4f}, logit scale {scale:.3f}; epoch step average {float(stage.tracker['misc/train_step_avg_ms'][-1]):.1f}"
+        f" ms (host data included); steady step {step_ms:.2f} ms median of {[round(x, 2) for x in times]} = "
+        f"{pairs / step_ms * 1e3:.1f} pairs/s; peak memory {peak / 2**30:.2f} GiB [{smi}]")
+    del stage, batch
+    _free(torch)
+    runtime.deinitialize()
+    try:
+        meshed = pod_clip_vit.main(CLIP_ARGV + ["--mesh", "fsdp=1"])
+        torch.cuda.synchronize()
+        m_losses = [float(x) for x in meshed.train_losses]
+        plan = meshed.pipeline.models["clip"].plan
+        if not (plan is not None and plan.fsdp and m_losses == losses):
+            raise AssertionError(f"--mesh fsdp=1 losses {m_losses} not bitwise {losses} (fsdp {plan and plan.fsdp})")
+        log(f"[clip] (e) --mesh fsdp=1 (FSDP2 over a one-rank NCCL group): every step's loss bitwise equal")
+        del meshed
+    finally:
+        runtime.deinitialize()
+    _free(torch)
+    return {"step_ms": step_ms, "pairs_s": pairs / step_ms * 1e3, "peak_gib": peak / 2**30, "losses": losses}
+
+
 def main() -> None:
     try:
         import torch
@@ -1892,8 +2397,17 @@ def main() -> None:
     phase_engine(torch, dev["smi"])
     phase_serve(torch, dev["smi"])
     log(f"[serve] phase 13 in {time.perf_counter() - t13:.1f} s")
+    t14 = time.perf_counter()
+    bert_rows = phase_bert_kernels(torch, fa)
+    bert = phase_bert(torch, fa, dev["smi"])
+    for row in bert_rows.values():
+        row["launches"] = bert["launches"][row["name"]]
+    phase_resnet50(torch, dev["smi"])
+    phase_resnet18(torch, dev["smi"])
+    phase_clip(torch, dev["smi"])
+    log(f"[vision] phase 14 in {time.perf_counter() - t14:.1f} s")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": list(rows.values())}))
+    print(json.dumps({"kernels": list(rows.values()) + list(bert_rows.values())}))
     print(dev["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                              "count": torch.cuda.device_count()}}))

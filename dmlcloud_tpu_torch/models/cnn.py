@@ -18,9 +18,10 @@ weights: conv kernels HWIO <-> OIHW, dense kernels ``[in, out]`` <-> ``[out, in]
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .bridge import dump_tree, load_tree
 
 __all__ = ["MnistCNN", "load_flax_params", "to_flax_params"]
 
@@ -58,38 +59,21 @@ class MnistCNN(torch.nn.Module):
         return F.linear(x.float(), self.dense_1.weight.float(), self.dense_1.bias.float())
 
 
-#: (flax module, torch module, kernel layout)
-_LAYOUT = [("Conv_0", "conv_0", "conv"), ("Conv_1", "conv_1", "conv"),
-           ("Dense_0", "dense_0", "dense"), ("Dense_1", "dense_1", "dense")]
+#: (flax path, parameter name, transform): ``models.bridge``'s rows
+_LAYOUT = [row for flax, name, how in [("Conv_0", "conv_0", "conv"), ("Conv_1", "conv_1", "conv"),
+                                       ("Dense_0", "dense_0", "t"), ("Dense_1", "dense_1", "t")]
+           for row in (((flax, "kernel"), f"{name}.weight", how), ((flax, "bias"), f"{name}.bias", "same"))]
 
 
-@torch.no_grad()
 def load_flax_params(model: MnistCNN, tree: dict) -> MnistCNN:
     """Copy the JAX ``MnistCNN``'s params (a nested dict of numpy arrays, with
     or without the top-level ``"params"`` key) into ``model``."""
-    tree = tree.get("params", tree)
-    for flax_name, name, how in _LAYOUT:
-        kernel = np.asarray(tree[flax_name]["kernel"], np.float32)
-        kernel = kernel.transpose(3, 2, 0, 1) if how == "conv" else kernel.T
-        layer = getattr(model, name)
-        for param, arr in ((layer.weight, kernel), (layer.bias, np.asarray(tree[flax_name]["bias"], np.float32))):
-            if tuple(arr.shape) != tuple(param.shape):
-                raise ValueError(f"{flax_name}: shape {arr.shape} does not fit {name} {tuple(param.shape)}")
-            param.copy_(torch.from_numpy(np.array(arr, np.float32, order="C")))
+    load_tree(tree.get("params", tree), _LAYOUT, dict(model.named_parameters()))
     return model
 
 
-@torch.no_grad()
 def to_flax_params(model: MnistCNN, tensors: dict[str, torch.Tensor] | None = None) -> dict:
     """The inverse of ``load_flax_params``: a nested dict of float32 numpy
     arrays in the JAX ``MnistCNN``'s layout, from ``model``'s parameters or
     from ``tensors`` by parameter name in their layout (e.g. the gradients)."""
-    params = dict(model.named_parameters() if tensors is None else tensors)
-    tree = {}
-    for flax_name, name, how in _LAYOUT:
-        kernel = params[f"{name}.weight"].detach().float().cpu().numpy()
-        kernel = kernel.transpose(2, 3, 1, 0) if how == "conv" else kernel.T
-        # copies: a CPU tensor's .numpy() would alias the live parameter
-        tree[flax_name] = {"kernel": np.array(kernel, order="C"),
-                           "bias": np.array(params[f"{name}.bias"].detach().float().cpu().numpy())}
-    return tree
+    return dump_tree(_LAYOUT, dict(model.named_parameters() if tensors is None else tensors))

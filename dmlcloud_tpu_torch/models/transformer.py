@@ -47,11 +47,9 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
@@ -59,6 +57,7 @@ from ..ops.paged_attention import gather_pages, scatter_tokens, write_index
 from ..ops.ring_attention import ring_attention_sharded, seq_group
 from ..parallel.runtime import resolve_device
 from ..parallel.tensor_parallel import ModelGroup, copy_to_model, gather_from_model, local_tensor, reduce_from_model
+from .bridge import Row, dump_tree, load_tree
 
 
 @dataclass(frozen=True)
@@ -395,7 +394,7 @@ class DecoderLM(nn.Module):
             elif isinstance(module, RMSNorm):
                 module.weight.fill_(1.0)
 
-    def flax_layout(self) -> list[tuple[tuple[str, ...], str, str]]:
+    def flax_layout(self) -> list[Row]:
         """(flax path, parameter name, transform) of every parameter: the
         layout sharding rules are matched in (``parallel.mesh``)."""
         return _flax_layout(self.cfg)
@@ -667,15 +666,15 @@ def llama_partition_rules() -> list[tuple[str, tuple]]:
 # carrying weights across: the JAX DecoderLM's param tree <-> this module
 # ---------------------------------------------------------------------------
 
-def _flax_layout(cfg: TransformerConfig) -> list[tuple[tuple[str, ...], str, str]]:
-    """(flax path, port parameter name, transform) for every parameter.
-    Transforms: 'same' (as is), 'heads' ([D, H, Dh] kernel -> reshape(D, -1).T),
-    't' (kernel -> .T)."""
+def _flax_layout(cfg: TransformerConfig) -> list[Row]:
+    """(flax path, port parameter name, transform) for every parameter
+    (``models.bridge``'s transforms)."""
+    heads = ("heads", cfg.head_dim)
     rows = [(("embed", "embedding"), "embed.weight", "same")]
     for i in range(cfg.num_layers):
         flax, port = f"layer_{i}", f"layers.{i}"
         for n in ("q", "k", "v"):
-            rows.append(((flax, "attn", f"{n}_proj", "kernel"), f"{port}.attn.{n}_proj.weight", "heads"))
+            rows.append(((flax, "attn", f"{n}_proj", "kernel"), f"{port}.attn.{n}_proj.weight", heads))
         rows.append(((flax, "attn", "o_proj", "kernel"), f"{port}.attn.o_proj.weight", "t"))
         for n in ("gate", "up", "down"):
             rows.append(((flax, "mlp", f"{n}_proj", "kernel"), f"{port}.mlp.{n}_proj.weight", "t"))
@@ -687,52 +686,19 @@ def _flax_layout(cfg: TransformerConfig) -> list[tuple[tuple[str, ...], str, str
     return rows
 
 
-@torch.no_grad()
 def load_flax_params(model: DecoderLM, tree: dict, tensors: dict[str, torch.Tensor] | None = None) -> DecoderLM:
     """Copy the JAX ``DecoderLM``'s params (a nested dict of numpy arrays,
     with or without the top-level ``"params"`` key) into ``model``, or into
     ``tensors``, a dict by parameter name in ``model``'s layout (the EMA
     shadow ``TrainState.ema`` carries the JAX ``TrainState.ema`` tree so)."""
-    tree = tree.get("params", tree)
-    params = dict(model.named_parameters() if tensors is None else tensors)
-    for path, name, how in _flax_layout(model.cfg):
-        node = tree
-        for key in path:
-            node = node[key]
-        arr = np.asarray(node, np.float32)
-        if how == "heads":
-            arr = arr.reshape(arr.shape[0], -1).T
-        elif how == "t":
-            arr = arr.T
-        param = params.pop(name)
-        if tuple(arr.shape) != tuple(param.shape):
-            raise ValueError(f"{'/'.join(path)}: shape {arr.shape} does not fit {name} {tuple(param.shape)}")
-        param.copy_(torch.from_numpy(np.array(arr, np.float32, order="C")))
-    if params:
-        raise ValueError(f"flax tree left parameters unset: {sorted(params)}")
+    load_tree(tree.get("params", tree), _flax_layout(model.cfg),
+              dict(model.named_parameters() if tensors is None else tensors))
     return model
 
 
-@torch.no_grad()
 def to_flax_params(model: DecoderLM, tensors: dict[str, torch.Tensor] | None = None) -> dict:
     """The inverse of ``load_flax_params``: a nested dict of float32 numpy
     arrays in the JAX ``DecoderLM``'s layout, from ``model``'s parameters or
     from ``tensors`` in their layout. The parameters of a sharded model are
     gathered to full tensors (on every rank)."""
-    cfg = model.cfg
-    params = dict(model.named_parameters() if tensors is None else tensors)
-    tree: dict = {}
-    for path, name, how in _flax_layout(cfg):
-        t = params[name].detach()
-        if isinstance(t, DTensor):
-            t = t.full_tensor()  # a collective: every rank takes the parameters in the same order
-        arr = t.float().cpu().numpy()
-        if how == "heads":
-            arr = arr.T.reshape(cfg.hidden_dim, -1, cfg.head_dim)
-        elif how == "t":
-            arr = arr.T
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = np.ascontiguousarray(arr)
-    return tree
+    return dump_tree(_flax_layout(model.cfg), dict(model.named_parameters() if tensors is None else tensors))

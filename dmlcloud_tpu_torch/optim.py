@@ -1,18 +1,22 @@
-"""The optimizer and learning-rate schedule the LM example takes from optax.
+"""The optimizers and learning-rate schedules the examples take from optax.
 
 ``examples/train_lm.py`` trains with ``optax.adamw(schedule)`` and
-``optax.warmup_cosine_decay_schedule(0.0, lr, 20, 2000)``. Their counterparts
-here keep optax's conventions, which differ from ``torch.optim``'s:
+``optax.warmup_cosine_decay_schedule(0.0, lr, 20, 2000)``, the ResNet recipe
+(``bench.py``) with ``optax.sgd(0.1, momentum=0.9)``. Their counterparts here
+keep optax's conventions, which differ from ``torch.optim``'s:
 
 - ``adamw`` defaults to b1 0.9, b2 0.999, eps 1e-8 and **weight_decay 1e-4 on
   every parameter** (``torch.optim.AdamW`` defaults to 0.01), and computes
   ``p <- p - lr(count) * (mu_hat / (sqrt(nu_hat) + eps) + wd * p)``;
+- ``sgd`` keeps optax's trace ``t <- g + momentum * t`` (no dampening, no
+  weight decay) and steps ``p <- p - lr(count) * t`` (Nesterov: ``g + momentum
+  * t``);
 - the schedule is evaluated at the step count BEFORE the update, so the
   first update of the warmup schedule is taken at lr = 0.
 
-Like an optax transformation, ``adamw(...)`` is not yet bound to parameters:
-it returns a factory that ``TrainState.create`` calls with the model's
-parameters. Optax's ``count`` is the attribute ``AdamW.count``, outside
+Like an optax transformation, ``adamw(...)`` and ``sgd(...)`` are not yet bound
+to parameters: each returns a factory that ``TrainState.create`` calls with the
+model's parameters. Optax's ``count`` is the attribute ``count``, outside
 ``torch.optim.Optimizer.state_dict()``; checkpoints carry it through
 ``TrainState.state_dict()``, so that a resumed run keeps its bias correction
 and its place in the schedule.
@@ -142,3 +146,62 @@ def adamw(
     """optax.adamw's signature and defaults; returns a factory of ``AdamW``
     over the parameters it is given."""
     return functools.partial(AdamW, lr=learning_rate, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+
+
+class SGD(torch.optim.Optimizer):
+    """SGD with optax's arithmetic (``trace`` -> ``scale_by_learning_rate``).
+    ``lr`` is a float or a schedule of the step count. With ``momentum`` each
+    parameter has a ``trace`` slot of its own dtype beside it; the update runs
+    as ``torch._foreach`` ops over all of them."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter], lr: float | Schedule, momentum: float | None = None,
+                 nesterov: bool = False):
+        super().__init__(params, dict(lr=lr, momentum=momentum, nesterov=nesterov))
+        #: updates applied so far (optax's schedule count)
+        self.count = 0
+
+    @torch.no_grad()
+    def init_state(self) -> None:
+        """Create the zero trace of every parameter that has none yet (only
+        with momentum): at the first step, or before a restore that fills it."""
+        for group in self.param_groups:
+            if group["momentum"] is None:
+                continue
+            for p in group["params"]:
+                if not self.state.get(p):
+                    self.state[p] = {"trace": torch.zeros_like(p)}
+
+    def current_lr(self, group: dict | None = None) -> float:
+        lr = (group or self.param_groups[0])["lr"]
+        return float(lr(self.count)) if callable(lr) else float(lr)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("SGD.step takes no closure")
+        self.init_state()
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            updates = [local_tensor(p.grad) for p in params]
+            momentum = group["momentum"]
+            if momentum is not None:
+                # t = g + momentum * t; Nesterov steps along g + momentum * t
+                traces = [local_tensor(self.state[p]["trace"]) for p in params]
+                torch._foreach_mul_(traces, momentum)
+                torch._foreach_add_(traces, updates)
+                if group["nesterov"]:
+                    updates = torch._foreach_mul(traces, momentum)
+                    torch._foreach_add_(updates, [local_tensor(p.grad) for p in params])
+                else:
+                    updates = traces
+            torch._foreach_add_([local_tensor(p) for p in params], updates, alpha=-self.current_lr(group))
+        self.count += 1
+
+
+def sgd(learning_rate: float | Schedule, momentum: float | None = None,
+        nesterov: bool = False) -> Callable[[Iterable[torch.nn.Parameter]], SGD]:
+    """optax.sgd's signature and defaults; returns a factory of ``SGD`` over
+    the parameters it is given."""
+    return functools.partial(SGD, lr=learning_rate, momentum=momentum, nesterov=nesterov)

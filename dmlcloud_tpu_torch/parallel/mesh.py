@@ -65,7 +65,8 @@ DATA, FSDP, MODEL, SEQ, EXPERT, PIPE = "data", "fsdp", "model", "seq", "expert",
 __all__ = ["DATA", "FSDP", "MODEL", "SEQ", "EXPERT", "PIPE", "P", "MeshPlan", "parse_mesh_axes", "mesh_shape",
            "create_mesh", "auto_mesh_axes", "auto_mesh", "mesh_axes", "data_axes", "data_parallel_size",
            "data_parallel_rank", "respec_for_mesh", "spec_to_jsonable", "spec_from_jsonable", "path_str",
-           "make_param_policy", "sharding_for", "sharding_record", "placements", "shard_module", "grad_sq_norm"]
+           "make_param_policy", "sharding_for", "sharding_record", "placements", "shard_module", "grad_sq_norm",
+           "data_parallel_group"]
 
 
 class P(tuple):
@@ -354,22 +355,15 @@ class _Row:
 
 def _layout(model: torch.nn.Module) -> list[_Row]:
     """Every parameter of ``model`` in the flax layout its ``flax_layout()``
-    declares (``'same'``, ``'t'``: transposed kernel, ``'heads'``: a torch
-    ``[H*Dh, D]`` weight as the flax ``[D, H, Dh]`` kernel); parameters it does
-    not declare keep their torch name (``/``-joined) and shape."""
+    declares (the transforms of ``models.bridge.flax_view``); parameters it
+    does not declare keep their torch name (``/``-joined) and shape."""
+    from ..models.bridge import flax_view  # models import this module
+
     params = dict(model.named_parameters())
     rows = []
     for path, name, how in (model.flax_layout() if hasattr(model, "flax_layout") else []):
-        shape = tuple(params.pop(name).shape)
-        if how == "same":
-            rows.append(_Row(name, path_str(path), shape, tuple(range(len(shape)))))
-        elif how == "t":
-            rows.append(_Row(name, path_str(path), shape[::-1], tuple(reversed(range(len(shape))))))
-        elif how == "heads":
-            hd = model.cfg.head_dim
-            rows.append(_Row(name, path_str(path), (shape[1], shape[0] // hd, hd), (1, 0, None)))
-        else:
-            raise ValueError(f"unknown layout transform {how!r} for {name}")
+        _, shape, dims = flax_view(params.pop(name).shape, how)
+        rows.append(_Row(name, path_str(path), shape, dims))
     for name, p in params.items():
         rows.append(_Row(name, name.replace(".", "/"), tuple(p.shape), tuple(range(p.dim()))))
     return rows
@@ -410,6 +404,9 @@ class MeshPlan:
     #: gradients over when FSDP2 does not (None: the default group)
     dp_size: int = 1
     grad_group: Any = None
+    #: the data-parallel processes (``data`` x ``fsdp``) when they are not
+    #: all processes (None: the default group, or one process)
+    dp_group: Any = None
     #: processes that differ only along ``model`` and ``seq`` (they feed the
     #: same batch); None: no such peers
     peer_group: Any = None
@@ -527,14 +524,26 @@ def shard_module(model: torch.nn.Module, mesh, policy: Any = "replicate") -> Mes
 
     plan = MeshPlan(axes=axes, fsdp=bool(fsdp_dim), tp=tp, dp_size=data_parallel_size(axes),
                     record=record)
-    if not plan.fsdp and plan.dp_size > 1:
-        plan.grad_group = _subgroup(mesh, data_axes(axes))
+    if plan.dp_size > 1:
+        plan.dp_group = _subgroup(mesh, data_axes(axes))
+        if not plan.fsdp:
+            plan.grad_group = plan.dp_group
     peers = [a for a in (MODEL, seq_axis) if axes.get(a, 1) > 1]
     if peers:
         plan.peer_size = math.prod(axes[a] for a in peers)
         plan.peer_group = mesh.get_group(peers[0]) if len(peers) == 1 else _subgroup(mesh, peers)
         plan.metric_ranks = sorted(g[0] for g in _rank_groups(mesh, peers))
     return plan
+
+
+def data_parallel_group(plan: MeshPlan | None):
+    """The process group a model's cross-batch computations run over (global
+    BatchNorm statistics, the contrastive loss's gather): the data-parallel
+    processes of ``plan`` (None: the model is replicated over every process),
+    as a group object, or None when that is one process."""
+    if runtime.world_size() == 1 or (plan is not None and plan.dp_size == 1):
+        return None
+    return dist.group.WORLD if plan is None or plan.dp_group is None else plan.dp_group
 
 
 def _owner(model: torch.nn.Module, name: str) -> tuple[torch.nn.Module, str]:

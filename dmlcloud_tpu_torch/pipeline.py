@@ -281,7 +281,11 @@ class TrainingPipeline:
         all start equal. Each process then feeds the batch of its
         data-parallel coordinate (``parallel.mesh.data_parallel_rank``);
         processes that differ only along ``model`` feed the same batch. A
-        ``model`` placement the model cannot execute raises ``ValueError``."""
+        ``model`` placement the model cannot execute raises ``ValueError``. A
+        model with ``apply_data_parallel(group)`` gets the data-parallel group
+        (``parallel.mesh.data_parallel_group``) for its computations across the
+        global batch (``ResNet``: BatchNorm statistics; ``CLIP``: the
+        contrastive loss's gather)."""
         if name in self.models:
             raise ValueError(f"Model with name {name} already exists")
         if not isinstance(model, torch.nn.Module):
@@ -303,6 +307,9 @@ class TrainingPipeline:
             axes = {mesh_lib.DATA: runtime.world_size()}
             mesh_lib.placements(model, axes, sharding)
             where = f"mesh {axes} (default)"
+        if hasattr(model, "apply_data_parallel"):
+            # computations across the batch (BatchNorm statistics, a contrastive loss) see the global one
+            model.apply_data_parallel(mesh_lib.data_parallel_group(plan))
         self.models[name] = ModelEntry(name=name, module=model, sharding=sharding, plan=plan)
         if verbose:
             n_params = sum(p.numel() for p in model.parameters())

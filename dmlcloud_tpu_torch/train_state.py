@@ -10,9 +10,14 @@ parameters.
 
 ``state_dict()`` is the checkpoint's view of it: a nested dict of the LIVE
 tensors (no copies), ``{"step", "params", "opt_state": {"count", <slot>:
-{name: tensor}}, "ema"}``, with parameters and optimizer slots keyed by
-parameter name. ``torch.distributed.checkpoint.load`` fills such a dict in
-place, and ``load_state_dict`` then reads the two counters back.
+{name: tensor}}, "ema", "extras"}``, with parameters and optimizer slots keyed
+by parameter name. ``"extras"`` holds the module's persistent buffers by name
+(BatchNorm's running statistics), the counterpart of the reference's
+``TrainState.extras`` (flax ``batch_stats``); a model without one (the
+``DecoderLM``: its rotary tables are not persistent) has no such key. The EMA
+shadow covers the parameters only, as the reference's ``update_ema`` does.
+``torch.distributed.checkpoint.load`` fills such a dict in place, and
+``load_state_dict`` then reads the two counters back.
 
 A sharded model (``parallel.mesh.shard_module``: FSDP2, tensor parallelism)
 has DTensor parameters, and its optimizer slots and EMA shadow are DTensors of
@@ -111,6 +116,9 @@ class TrainState:
         }
         if self.ema is not None:
             sd["ema"] = self.ema
+        extras = persistent_buffers(self.model)
+        if extras:
+            sd["extras"] = extras
         return sd
 
     @torch.no_grad()
@@ -131,6 +139,8 @@ class TrainState:
         take(live["opt_state"], {k: v for k, v in sd["opt_state"].items() if k != "count"})
         if self.ema is not None and "ema" in sd:
             take(self.ema, sd["ema"])
+        if "extras" in sd:
+            take(live["extras"], sd["extras"])
         self.step = int(sd["step"])
         if hasattr(self.optimizer, "count"):
             self.optimizer.count = int(sd["opt_state"]["count"])
@@ -144,3 +154,14 @@ def ema_like(model: torch.nn.Module) -> dict[str, torch.Tensor]:
         n: p.detach().to(torch.float32, copy=True) if p.is_floating_point() else p.detach().clone()
         for n, p in model.named_parameters()
     }
+
+
+def persistent_buffers(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """The buffers of ``model`` that its ``state_dict`` would save, by name:
+    the live tensors. Buffers registered with ``persistent=False`` stay out."""
+    out = {}
+    for prefix, module in model.named_modules():
+        for name, buf in module.named_buffers(recurse=False):
+            if buf is not None and name not in module._non_persistent_buffers_set:
+                out[f"{prefix}.{name}" if prefix else name] = buf
+    return out

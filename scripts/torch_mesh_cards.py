@@ -16,8 +16,9 @@ the elastic resumes of the N-card run's save on two cards and on one:
 (build the kernels once before, or every process runs nvcc:
 ``python -c "from dmlcloud_tpu_torch.ops import flash_attention as fa; fa.build()"``).
 ``--parts`` picks the parts by name (default: all): ``8b``, ``meshes``,
-``resume``, ``ring``, ``pipe``, ``elastic``; ``--single`` runs only what the
-chosen parts compare with. The last ``--resume`` call deletes the save.
+``resume``, ``ring``, ``pipe``, ``elastic``, ``clip``, ``resnet``; ``--single``
+runs only what the chosen parts compare with. The last ``--resume`` call
+deletes the save.
 
 The parts, on the N processes (one per card):
 
@@ -56,7 +57,16 @@ The parts, on the N processes (one per card):
    exact digests of every saved tensor; ``--resume`` then continues the save
    on ``fsdp=2`` (two processes) and on one card with no mesh: the restored
    parameters, AdamW moments and counters equal to the saved bits, the losses
-   of steps 5-7 within ``LOSS_ATOL`` of the uninterrupted run's.
+   of steps 5-7 within ``LOSS_ATOL`` of the uninterrupted run's;
+7. ``clip``: ``examples.pod_clip_vit`` at the vit-l preset on
+   ``data=2,fsdp=2`` (FSDP2 over ``fsdp``, the contrastive loss gathered over
+   all four processes) at ``CLIP_GLOBAL`` pairs per step, against one card at
+   the same global batch: every step's loss within ``LOSS_ATOL``, the steady
+   step, pairs/s per card, peak memory;
+8. ``resnet``: ResNet-50 replicated (the reference's ``sharding="replicate"``)
+   at global batch ``RESNET_GLOBAL``, its BatchNorm statistics summed over the
+   processes, against one card on the whole batch: losses within
+   ``LOSS_ATOL``, images/s per card.
 
 ``--device cpu --preset tiny`` runs every part on the CPU over gloo (part 3
 with the ``toy`` preset). Rank 0 prints the cards' names and power limits
@@ -81,7 +91,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from dmlcloud_tpu_torch.examples import pod_llama_fsdp, train_lm  # noqa: E402
+from dmlcloud_tpu_torch.examples import pod_clip_vit, pod_llama_fsdp, train_lm  # noqa: E402
 from dmlcloud_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from dmlcloud_tpu_torch.parallel import runtime  # noqa: E402
 
@@ -89,7 +99,7 @@ from dmlcloud_tpu_torch.parallel import runtime  # noqa: E402
 #: reductions in another order (and bf16 partial sums under tensor parallelism)
 LOSS_ATOL = 1e-2
 MESHES = ["fsdp=4", "data=2,fsdp=2", "fsdp=2,model=2"]
-PARTS = ["8b", "meshes", "resume", "ring", "pipe", "elastic"]
+PARTS = ["8b", "meshes", "resume", "ring", "pipe", "elastic", "clip", "resnet"]
 #: the ring's runs: the 1b model at T = 8192 on seq=4, without and with a window
 RING_WINDOW = 4096
 #: pipeline_apply against the sequential blocks: bf16 activations, the
@@ -99,6 +109,10 @@ PIPE_STAGES, PIPE_MICRO = 4, 8
 ELASTIC_MESH, ELASTIC_SAVE = "fsdp=4", 4
 RESUME_MESH = "data=2,fsdp=2"
 SAVE_EVERY, STOP_AFTER = 4, 4
+#: the vision parts: the CLIP recipe (vit-l) on data=2,fsdp=2 at 128 pairs per
+#: step (32 per card; the one-card reference holds 128), and ResNet-50
+#: replicated at global batch 256 (64 images per card)
+CLIP_MESH, CLIP_GLOBAL, RESNET_GLOBAL, VISION_STEPS = "data=2,fsdp=2", 128, 256, 4
 #: H100 SXM data sheet: dense bf16 tensor-core peak
 PEAK_BF16_FLOPS = 989e12
 
@@ -364,6 +378,120 @@ def part_8b(args, failed: list) -> dict:
     del pipe, stage
     _free(args)
     return res
+
+
+def _timed_steps(args, stage) -> list[float]:
+    """Wrap ``stage``'s train step to record each step's synchronised ms."""
+    times, inner = [], stage._train_step
+
+    def timed_step(batch):
+        sync(args.device)
+        t = time.perf_counter()
+        metrics = inner(batch)
+        sync(args.device)
+        times.append((time.perf_counter() - t) * 1e3)
+        return metrics
+
+    stage._train_step = timed_step
+    return times
+
+
+def clip_argv(args) -> list[str]:
+    if args.preset == "1b":
+        return ["--preset", "vit-l", "--global-batch", str(CLIP_GLOBAL), "--steps-per-epoch", str(VISION_STEPS),
+                "--epochs", "1", "--device", args.device]
+    return ["--toy", "--global-batch", "16", "--steps-per-epoch", str(VISION_STEPS), "--device", args.device]
+
+
+def run_clip(args, mesh: str | None = None) -> dict:
+    """The CLIP recipe at ``clip_argv``, with ``--mesh`` when given."""
+    if args.device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    pipe, stage = pod_clip_vit.build(clip_argv(args) + (["--mesh", mesh] if mesh else []))
+    times = _timed_steps(args, stage)
+    pipe.run()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if args.device != "cpu" else None
+    out = {"losses": global_losses(stage), "steady_ms": statistics.median(times[1:]),
+           "pairs": stage.config.global_batch, "accuracy": float(stage.tracker["train/accuracy"][-1]),
+           "peak_gib": runtime.all_gather_object(peak)}
+    del pipe, stage
+    _free(args)
+    return out
+
+
+def run_resnet(args) -> dict:
+    """ResNet-50 (``tiny``: a ResNet-18 at 32x32) replicated over the
+    processes, ``sgd(0.1, momentum=0.9)``, each process feeding its rows of
+    one global batch made on the device from a seed: the BatchNorm statistics
+    are the global batch's (``ResNet.apply_data_parallel``)."""
+    import torch.nn.functional as F
+
+    import dmlcloud_tpu_torch as dml
+    from dmlcloud_tpu_torch.models.resnet import ResNet18, ResNet50
+    from dmlcloud_tpu_torch.optim import sgd
+
+    big = args.preset == "1b"
+    n, size = (RESNET_GLOBAL, 224) if big else (8, 32)
+    world, rank = runtime.world_size(), runtime.rank()
+    g = torch.Generator(device=args.device).manual_seed(3)
+    images = torch.rand(n, size, size, 3, device=args.device, generator=g)
+    labels = torch.randint(0, 1000 if big else 10, (n,), device=args.device, generator=g)
+    rows = slice(rank * n // world, (rank + 1) * n // world)
+    batch = {"image": images[rows].contiguous(), "label": labels[rows].contiguous()}
+
+    class Stage(dml.TrainValStage):
+        def pre_stage(self):
+            gen = torch.Generator(device=args.device).manual_seed(0)
+            model = (ResNet50(device=args.device, generator=gen) if big else
+                     ResNet18(num_classes=10, device=args.device, generator=gen))
+            self.pipeline.register_model("resnet", model, verbose=False)
+            self.pipeline.register_optimizer("sgd", sgd(0.1, momentum=0.9))
+            self.pipeline.register_dataset("train", [batch] * VISION_STEPS, verbose=False)
+
+        def step(self, state, b):
+            return F.cross_entropy(state.model(b["image"]), b["label"])
+
+        def val_epoch(self):
+            pass
+
+    if args.device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    pipe = dml.TrainingPipeline({"seed": 0}, name="resnet", device=args.device)
+    stage = Stage()
+    pipe.append_stage(stage, max_epochs=1)
+    times = _timed_steps(args, stage)
+    pipe.run()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if args.device != "cpu" else None
+    out = {"losses": global_losses(stage), "steady_ms": statistics.median(times[1:]), "images": n,
+           "peak_gib": runtime.all_gather_object(peak)}
+    del pipe, stage, batch, images, labels
+    _free(args)
+    return out
+
+
+def part_vision(args, one: dict, failed: list) -> dict:
+    """Parts ``clip`` and ``resnet``: each against the one-card run at the
+    same global batch, every step's loss within ``LOSS_ATOL``."""
+    out = {}
+    for part, run in (("clip", lambda: run_clip(args, CLIP_MESH)), ("resnet", lambda: run_resnet(args))):
+        if part not in one:
+            continue
+        t0 = time.perf_counter()
+        res = run()
+        n = res.get("pairs", res.get("images"))
+        res.update(wall_s=time.perf_counter() - t0, per_s=n / res["steady_ms"] * 1e3,
+                   per_s_per_card=n / res["steady_ms"] * 1e3 / runtime.world_size(),
+                   one_card_per_s=n / one[part]["steady_ms"] * 1e3)
+        dev = [abs(a - b) for a, b in zip(res["losses"], one[part]["losses"])]
+        res["max_abs_loss_diff"] = max(dev) if dev else None
+        out[part] = res
+        log(f"[{part}] {CLIP_MESH if part == 'clip' else 'replicate'} over {runtime.world_size()} processes: losses "
+            f"{res['losses']} (one card {one[part]['losses']}), max |diff| {res['max_abs_loss_diff']}; steady step "
+            f"{res['steady_ms']:.1f} ms = {res['per_s']:.1f} per s ({res['per_s_per_card']:.1f} per card; one card "
+            f"{res['one_card_per_s']:.1f} per s); peak GiB per card {res['peak_gib']}; {res['wall_s']:.1f} s")
+        if len(dev) != len(one[part]["losses"]) or not max(dev) <= LOSS_ATOL:
+            failed.append(f"{part}: losses off the one-card run by {res['max_abs_loss_diff']} (> {LOSS_ATOL})")
+    return out
 
 
 def _digest(t: torch.Tensor) -> list[int]:
@@ -702,6 +830,10 @@ def main(argv: list[str] | None = None) -> int:
                           step_ms=float(stage.tracker["misc/train_step_avg_ms"][-1]), params_file=params_file)
             del stage
             _free(args)
+        if "clip" in parts:
+            result["clip"] = run_clip(args)
+        if "resnet" in parts:
+            result["resnet"] = run_resnet(args)
         if "ring" in parts:
             for label, window in (("ring", None), ("ring window", _ring_window(args))):
                 _, stage = run_lm(ring_argv(args, window, attn="flash"))
@@ -735,6 +867,8 @@ def main(argv: list[str] | None = None) -> int:
             out["pipe"] = part_pipe(args, failed)
         if "elastic" in parts:
             out["elastic"] = part_elastic(args, failed, args.elastic_out)
+        if "clip" in parts or "resnet" in parts:
+            out.update(part_vision(args, one, failed))
     finally:
         if runtime.is_root():
             _remove_params_file(one)

@@ -11,7 +11,8 @@ ring attention on a one-rank ``seq`` mesh, runs ``pipeline_apply`` over a
 one-rank ``pipe`` group and restores a save without a template
 (``restore_state(mesh=)``), decodes (``train_lm --sample``, ``generate``,
 ``beam_search``, ``examples.generate_text``) and serves requests through
-``ServeEngine``, and checks that none of those
+``ServeEngine``, trains the CLIP recipe's toy, runs ResNet-18, a BERT with the
+flash path and a ViT, and checks that none of those
 modules was loaded — and that, on a machine
 without CUDA, entry points called without a device raise instead of running
 on the CPU.
@@ -107,6 +108,21 @@ _SCRIPT = textwrap.dedent(
     slice9 = [list(sampled.sample_output.shape), list(beams.shape),
               served == generate(tiny, prompt[None], 4)[0].tolist(), engine.leaked_blocks()]
 
+    # the slice-10 paths: the vision and encoder families and the CLIP recipe
+    from dmlcloud_tpu_torch.examples import pod_clip_vit
+    from dmlcloud_tpu_torch.models import BertConfig, BertForMaskedLM, ResNet18, ViT, ViTConfig, mlm_loss
+    clip = pod_clip_vit.main(["--toy", "--device", "cpu", "--epochs", "1", "--steps-per-epoch", "2"])
+    resnet = ResNet18(num_classes=3, device="cpu")
+    logits = resnet(torch.rand(2, 16, 16, 3))
+    bert = BertForMaskedLM(BertConfig(vocab_size=32, max_seq_len=8, hidden_dim=16, num_layers=1, num_heads=2,
+                                      mlp_dim=32, attn_impl="flash"), device="cpu")
+    mlm = mlm_loss(bert(torch.zeros(1, 8, dtype=torch.long)), torch.zeros(1, 8, dtype=torch.long))
+    vit = ViT(ViTConfig(image_size=16, patch_size=8, hidden_dim=16, num_layers=1, num_heads=2, mlp_dim=32,
+                        num_classes=0), device="cpu")(torch.rand(1, 16, 16, 3))
+    slice10 = [float(clip.tracker["train/loss"][-1]) > 0, list(logits.shape), float(mlm) > 0, list(vit.shape),
+               len(resnet.state_dict())]
+    runtime.deinitialize()
+
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in BLOCKED)
     raised = {}
@@ -116,7 +132,9 @@ _SCRIPT = textwrap.dedent(
                            ("TrainingPipeline", lambda: dmlcloud_tpu_torch.TrainingPipeline()),
                            ("train_lm.main", lambda: main(["--epochs", "1"])),
                            ("mnist.main", lambda: mnist.main(["--epochs", "1"])),
-                           ("generate_text.main", lambda: generate_text.main([]))]:
+                           ("generate_text.main", lambda: generate_text.main([])),
+                           ("ResNet18", lambda: ResNet18()),
+                           ("pod_clip_vit.main", lambda: pod_clip_vit.main(["--toy"]))]:
             try:
                 call()
                 raised[name] = False
@@ -124,7 +142,7 @@ _SCRIPT = textwrap.dedent(
                 raised[name] = True
     print(json.dumps({"modules": modules, "loaded": loaded, "loss": loss, "goodput": goodput, "raised": raised,
                       "mnist_acc": mnist_acc, "collectives": collectives, "pod": [pod_loss, pod_fsdp],
-                      "slice8": slice8, "slice9": slice9}))
+                      "slice8": slice8, "slice9": slice9, "slice10": slice10}))
     """
 )
 
@@ -143,7 +161,9 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
                  "utils.wandb", "utils.argparse_ext", "data.sharding", "models.cnn", "examples.mnist",
                  "parallel.data_parallel", "parallel.mesh", "parallel.tensor_parallel", "examples.pod_llama_fsdp",
                  "ops.ring_attention", "parallel.pipeline_parallel", "ops.paged_attention", "models.generate",
-                 "serve", "serve.kv_pool", "serve.scheduler", "serve.engine", "examples.generate_text"):
+                 "serve", "serve.kv_pool", "serve.scheduler", "serve.engine", "examples.generate_text",
+                 "models.bridge", "models.resnet", "models.encoder", "models.bert", "models.vit", "models.clip",
+                 "examples.pod_clip_vit"):
         assert f"dmlcloud_tpu_torch.{name}" in result["modules"], name
     assert result["loss"] == result["loss"] and result["loss"] > 0  # finite, trained
     assert 0 < result["goodput"] <= 1
@@ -153,5 +173,7 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
     ring_loss, piped, restored = result["slice8"]
     assert ring_loss > 0 and piped and restored, result["slice8"]
     assert result["slice9"] == [[2, 4], [2, 4], True, 0], result["slice9"]
+    # 62 parameters and 40 running statistics: the buffers ride the checkpoints
+    assert result["slice10"] == [True, [2, 3], True, [1, 16], 102], result["slice10"]
     for name, did_raise in result["raised"].items():
         assert did_raise, f"{name} without a device ran on the CPU instead of raising"
