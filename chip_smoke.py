@@ -120,7 +120,32 @@ Phases, each fatal on failure:
    preset's widths at 2+2 blocks, bf16 on the card against fp32 on the CPU
    within ``CLIP_CARD_REL``, then ``examples.pod_clip_vit`` at the vit-l
    preset, 64 pairs per step, 8 steps: finite falling losses, accuracy,
-   steady step, pairs/s, peak memory, and ``--mesh fsdp=1`` bitwise equal.
+   steady step, pairs/s, peak memory, and ``--mesh fsdp=1`` bitwise equal;
+15. data: (a) the port's host library (``native/pack.cpp``,
+   ``interleave.cpp``) built with g++: 200k lognormal documents packed into
+   2048-token rows and 32 batches interleaved in windows of 8, each
+   bit-identical to the Python/numpy path and timed beside it, the library's
+   call counts showing the native path was taken; (b) a ``.dmlshard`` corpus
+   (vocab 32000, lognormal lengths median 600 and sigma 1.0 clipped to
+   [16, 8192], seed 0; 16 shards of 2**22 tokens) written by
+   ``scripts/torch_build_corpus.py``'s generator under a ``tempfile.mkdtemp()``
+   that the phase removes: build and ``verify()`` seconds, the
+   ``ShardReader`` rate and both packers' rates against the 1b step's token
+   consumption (phase 6), and a reader cursor saved at world 4 resuming two
+   world-2 readers; (c) ``examples.train_lm --corpus`` trains the full-width
+   1b model 7 steps on ``ShardReader -> pack_stream(2048, pack_window=512) ->
+   batch(4) -> to_device(prefetch=2)``: exactly 168 launches each of the
+   tensor-core K1-K3 and none of the CUDA-core kernels, finite losses, step 1
+   within ``DATA_FIRST_LOSS_TOL`` of ln(32000) + 1/2, the pad fraction,
+   ``misc/host_stall_ms``, the steady step against phase 6's and the idle
+   share of one profiled step whose batch comes from the feed; (d) the same
+   path at 4 layers with step saves every 4 steps to a ``memory://`` run
+   directory (DCP through ``FsspecWriter``): uninterrupted (C), preempted by
+   SIGUSR1 after step 3 (P), resumed (R): R fast-forwards the pipeline from
+   the step sidecar's ``"data"`` (its ``log.txt`` says so, and no batch is
+   skipped) and ends bitwise equal to C (parameters, AdamW moments and count,
+   losses of steps 5-7); ``log.txt`` under the URL holds both attempts and
+   ``requeue.json`` reads back.
 
 The last line of standard output is one JSON object with ``"ok": true``. With no
 card, or without the package beside it, the script exits non-zero and prints no
@@ -2356,6 +2381,374 @@ def phase_clip(torch, smi: str) -> dict:
     return {"step_ms": step_ms, "pairs_s": pairs / step_ms * 1e3, "peak_gib": peak / 2**30, "losses": losses}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the data plane (native host library, .dmlshard corpus, the 1b
+# model fed from it, a mid-epoch resume through a memory:// run directory)
+# ---------------------------------------------------------------------------
+
+#: (a): lognormal documents (``build_corpus --synthetic``'s defaults) packed
+#: into rows of ``NATIVE_SEQ`` and a window of ``NATIVE_WINDOW`` batches
+#: interleaved, by the library and by the plain Python/numpy path
+NATIVE_DOCS = 200_000
+NATIVE_SEQ = 2048
+NATIVE_WINDOW = 8
+#: (b): the corpus, as ``scripts/torch_build_corpus.py --synthetic`` draws it
+CORPUS = dict(vocab=32000, len_median=600.0, len_sigma=1.0, min_len=16, max_len=8192, seed=0)
+CORPUS_SHARDS = 16
+CORPUS_SHARD_TOKENS = 1 << 22
+#: the reader must outrun the 1b step's token consumption by this factor,
+#: the packers (on the step's path) by the second
+READER_MARGIN, PACKER_MARGIN = 20.0, 4.0
+#: (c): the 1b model on the corpus; first-fit-decreasing over 512 documents,
+#: as the reference's data benchmark packs (bench.py:2190); 7 steps, no val
+PACK_WINDOW = 512
+DATA_STEPS = 7
+DATA_LAYERS = 24  # the 1b preset's depth
+DATA_ARGV = ["--preset", "1b", "--attn", "flash", "--vocab-size", "32000", "--seq-len", "2048", "--batch-size", "4",
+             "--n-seqs", str(4 * DATA_STEPS), "--epochs", "1", "--pack-window", str(PACK_WINDOW)]
+DATA_FIRST_LOSS = math.log(32000) + 0.5
+DATA_FIRST_LOSS_TOL = 0.15
+#: (d): the resume drill, at this depth, with the run directory at this URL
+DATA_RESUME_LAYERS = 4
+DATA_RESUME_ROOT = "memory://chip-smoke-data"
+DATA_SAVE_STEP = 4
+DATA_SIGNAL_AFTER = 3
+#: the ShardReader cursor moved from 4 readers to 2 after this many records each
+ELASTIC_RECORDS = 1000
+
+
+def phase_native(smi: str) -> None:
+    """(a) The port's host library, built with g++, against the Python path."""
+    import numpy as np
+
+    from dmlcloud_tpu_torch.data import datasets as ds
+    from dmlcloud_tpu_torch.native import _lib, interleave, pack
+
+    t0 = time.perf_counter()
+    path = _lib.loaded_path()
+    if path is None:
+        raise AssertionError(f"the native library did not build: {_lib.build_error}")
+    log(f"[data] native library {path.name} built/loaded in {time.perf_counter() - t0:.2f} s")
+
+    rs = np.random.RandomState(0)
+    lengths = np.clip(np.round(rs.lognormal(np.log(64), 0.6, NATIVE_DOCS)), 4, 256).astype(np.int64)
+    flat = rs.randint(1, 32000, size=int(lengths.sum())).astype(np.int32)
+    docs = np.split(flat, np.cumsum(lengths)[:-1])
+    t0 = time.perf_counter()
+    want = list(ds._pack_sequences_iter(docs, NATIVE_SEQ, True))
+    py_s = time.perf_counter() - t0
+    _lib.reset_calls()
+    t0 = time.perf_counter()
+    tokens, segs = pack.pack_flat(flat, lengths, NATIVE_SEQ)
+    native_s = time.perf_counter() - t0
+    if _lib.CALLS["pack"] != 1:
+        raise AssertionError(f"pack_flat did not go through the library: {_lib.CALLS}")
+    if len(want) != len(tokens) or not all(np.array_equal(r["tokens"], t) and np.array_equal(r["segment_ids"], s)
+                                           for r, t, s in zip(want, tokens, segs)):
+        raise AssertionError("the native packer's rows differ from the Python packer's")
+    log(f"[data] pack {NATIVE_DOCS} lognormal documents ({flat.size} tokens) into {len(tokens)} rows of "
+        f"{NATIVE_SEQ}: bit-identical; Python {py_s * 1e3:.1f} ms, native pack_flat {native_s * 1e3:.1f} ms "
+        f"({py_s / native_s:.1f}x) [{smi}]")
+
+    batches = [rs.randint(0, 32000, size=(64, NATIVE_SEQ)).astype(np.int32) for _ in range(4 * NATIVE_WINDOW)]
+    s = 64 // NATIVE_WINDOW
+    t0 = time.perf_counter()
+    plain = []
+    for w in range(0, len(batches), NATIVE_WINDOW):
+        buf = np.empty((NATIVE_WINDOW, *batches[0].shape), np.int32)
+        for i in range(NATIVE_WINDOW):
+            for j in range(NATIVE_WINDOW):
+                buf[i, j * s:(j + 1) * s] = batches[w + j][i * s:(i + 1) * s]
+        plain.extend(buf)
+    py_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in ds.interleave_batches(batches, NATIVE_WINDOW):
+        pass
+    native_s = time.perf_counter() - t0
+    got = [b.copy() for b in ds.interleave_batches(batches, NATIVE_WINDOW)]
+    if _lib.CALLS["interleave"] != 8 or not interleave.available():
+        raise AssertionError(f"interleave_batches did not go through the library: {_lib.CALLS}")
+    if len(got) != len(plain) or not all(np.array_equal(a, b) for a, b in zip(got, plain)):
+        raise AssertionError("the native interleave differs from the numpy copies")
+    mib = sum(b.nbytes for b in batches) / 2**20
+    log(f"[data] interleave {len(batches)} batches [64, {NATIVE_SEQ}] int32 ({mib:.0f} MiB) in windows of "
+        f"{NATIVE_WINDOW}: bit-identical; numpy {py_s * 1e3:.1f} ms, native {native_s * 1e3:.1f} ms [{smi}]")
+
+
+def _corpus_docs_count(total_tokens: int) -> int:
+    """The number of ``--synthetic`` documents whose lengths first reach
+    ``total_tokens``: the generator draws all lengths first, so a prefix of a
+    longer draw is the draw of the shorter corpus."""
+    import numpy as np
+
+    c = CORPUS
+    n = 4 * total_tokens // c["len_median"]
+    lengths = np.clip(np.round(np.random.RandomState(c["seed"]).lognormal(np.log(c["len_median"]), c["len_sigma"],
+                                                                         int(n))), c["min_len"], c["max_len"])
+    return int(np.searchsorted(np.cumsum(lengths), total_tokens) + 1)
+
+
+def phase_corpus(root: str, step_ms: float, smi: str) -> dict:
+    """(b) Build the corpus with ``scripts/torch_build_corpus.py``'s
+    generator, verify it, and time the reader and both packers on it."""
+    import importlib.util
+
+    import numpy as np
+
+    from dmlcloud_tpu_torch.data import PackStats, ShardReader, ShardStore
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_build_corpus", os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                                           "torch_build_corpus.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    c = CORPUS
+    n_docs = _corpus_docs_count(CORPUS_SHARDS * CORPUS_SHARD_TOKENS)
+    t0 = time.perf_counter()
+    rc = script.main(["--synthetic", str(n_docs), "--out", root, "--shard-tokens", str(CORPUS_SHARD_TOKENS),
+                      "--vocab", str(c["vocab"]), "--len-median", str(c["len_median"]), "--len-sigma",
+                      str(c["len_sigma"]), "--min-len", str(c["min_len"]), "--max-len", str(c["max_len"]),
+                      "--seed", str(c["seed"])])
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store = ShardStore(root)
+    store.verify()
+    verify_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root))
+    if rc != 0 or len(store.shards) != CORPUS_SHARDS:
+        raise AssertionError(f"corpus build: rc {rc}, {len(store.shards)} shards (want {CORPUS_SHARDS})")
+    log(f"[data] corpus: {n_docs} documents, {store.total_tokens} tokens in {len(store.shards)} shards, "
+        f"{size / 2**20:.1f} MiB; build {build_s:.2f} s, verify {verify_s:.2f} s")
+
+    consume = 4 * 2048 / step_ms * 1e3  # the 1b step's tokens/s (phase 6's steady step)
+    t0 = time.perf_counter()
+    records = tokens = 0
+    for doc in ShardReader(store):
+        records += 1
+        tokens += doc.size
+    read_s = time.perf_counter() - t0
+    if (records, tokens) != (store.total_records, store.total_tokens):
+        raise AssertionError(f"the reader yielded {records} records / {tokens} tokens of "
+                             f"{store.total_records} / {store.total_tokens}")
+    rates = {"reader": tokens / read_s}
+    n_rows = min(2048, store.total_tokens // 4096)  # up to 4 M tokens of rows through each packer
+    for name, window in (("greedy chunks (native)", 0), (f"FFD window {PACK_WINDOW}", PACK_WINDOW)):
+        stats = PackStats()
+        it = iter(ShardReader(store).pack_stream(2048, pack_window=window, stats=stats))
+        t0 = time.perf_counter()
+        for _ in range(n_rows):
+            next(it)
+        rates[name] = n_rows * 2048 / (time.perf_counter() - t0)
+        it.close()
+        log(f"[data] pack_stream {name}: {rates[name]:.0f} row tokens/s, pad fraction {stats.pad_fraction:.4f}")
+    log(f"[data] ShardReader: {records} records in {read_s:.3f} s = {rates['reader']:.0f} tokens/s = "
+        f"{rates['reader'] / consume:.0f}x the 1b step's {consume:.0f} tokens/s [{smi}]")
+    slow = {k: v for k, v in rates.items() if v < consume * (READER_MARGIN if k == "reader" else PACKER_MARGIN)}
+    if slow:
+        raise AssertionError(f"the feed would hold the step back: {slow} against {consume:.0f} tokens/s")
+
+    # the reader's cursor saved at world 4 and loaded at world 2 (bench.py:2345-2362)
+    k = min(ELASTIC_RECORDS, store.total_records // 8)
+    readers = [ShardReader(store, rank=r, world_size=4, read_ahead=16) for r in range(4)]
+    iters = [iter(r) for r in readers]
+    for r, it in enumerate(iters):
+        for i in range(k):
+            if not np.array_equal(next(it), store.record(r + 4 * i)):
+                raise AssertionError(f"world-4 reader {r} read another record than {r + 4 * i}")
+        it.close()
+    state = readers[0].state_dict()
+    g0 = 4 * k
+    if state["global_offset"] != g0 or store.locate(g0) != (state["shard_id"], state["record_offset"]):
+        raise AssertionError(f"world-4 cursor {state}")
+    for r in range(2):
+        reader = ShardReader(store, rank=r, world_size=2, read_ahead=16)
+        reader.load_state_dict(state)
+        it = iter(reader)
+        for i in range(k):
+            if not np.array_equal(next(it), store.record(g0 + r + 2 * i)):
+                raise AssertionError(f"world-2 reader {r} did not resume at record {g0 + r + 2 * i}")
+        it.close()
+    log(f"[data] ShardReader cursor {json.dumps(state)} saved at world 4 resumes both world-2 readers at "
+        f"records {g0} and {g0 + 1}")
+    return {"docs": n_docs, "tokens": store.total_tokens, "rates": rates}
+
+
+def _data_argv(root: str) -> list[str]:
+    return DATA_ARGV + ["--corpus", root]
+
+
+def phase_data_train(torch, fa, root: str, smi: str, p5: dict) -> None:
+    """(c) The full-width 1b model fed by ShardReader -> pack_stream ->
+    batch -> to_device through TrainValStage."""
+    from dmlcloud_tpu_torch.examples.train_lm import build
+
+    pipe, stage = build(_data_argv(root))
+    ends = []
+    step = stage._train_step
+
+    def marked(batch):
+        out = step(batch)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        return out
+
+    stage._train_step = marked
+    fa.reset_launch_counts()  # phase 15's main path starts here ...
+    t0 = time.perf_counter()
+    pipe.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)  # ... and ends here
+    stage._train_step = step
+    losses = [float(x) for x in stage.train_losses]
+    log(f"[data] 1b on the corpus: losses {losses}; {len(losses)} steps in {wall:.1f} s wall (model build included); "
+        f"launches {launches}")
+    n = DATA_LAYERS * DATA_STEPS
+    want = {"flash_fwd_tc": n, "flash_bwd_dq_tc": n, "flash_bwd_dkv_tc": n, "flash_fwd": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
+    if len(losses) != DATA_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"1b on the corpus: {len(losses)} steps (want {DATA_STEPS}), losses {losses}")
+    if launches != want:
+        raise AssertionError(f"1b on the corpus: launches {launches}, want {want}")
+    if abs(losses[0] - DATA_FIRST_LOSS) > DATA_FIRST_LOSS_TOL:
+        raise AssertionError(f"1b on the corpus: step-1 loss {losses[0]:.4f} not within {DATA_FIRST_LOSS_TOL} of "
+                             f"ln(32000) + 1/2 = {DATA_FIRST_LOSS:.4f}")
+    periods = [a.elapsed_time(b) for a, b in zip(ends[2:], ends[3:])]
+    step_ms = statistics.median(periods)
+    stats = stage.pack_stats
+    stall = float(stage.tracker["misc/host_stall_ms"][-1])
+    log(f"[data] pad fraction {stats.pad_fraction:.4f} ({stats.rows} rows, {stats.docs} documents); "
+        f"misc/host_stall_ms {stall:.3f}; steady step (device time between step ends 3-7) {step_ms:.1f} ms "
+        f"median of {[round(p, 1) for p in periods]} against phase 6's {p5['steady_ms']:.1f} ms "
+        f"({step_ms / p5['steady_ms'] - 1:+.1%}) [{smi}]")
+
+    # one more step under the profiler, its batch taken from the pipeline's feed
+    it = iter(stage.train_dataset())
+    next(it)
+    wall_us, busy_us, events = profile_call(torch, lambda: stage._train_step(next(it)))
+    it.close()
+    if busy_us == 0:
+        log("[data] profiler recorded no device time: idle share not measured")
+    else:
+        log_profile("data", "1b step with its batch from the corpus feed", wall_us, busy_us, events)
+    del pipe, stage, it
+    _free(torch)
+
+
+def phase_data_resume(torch, fa, root: str, smi: str) -> None:
+    """(d) Phase 15 (c)'s path at ``DATA_RESUME_LAYERS`` layers with step
+    saves to a ``memory://`` run directory: uninterrupted (C), preempted by
+    SIGUSR1 after step ``DATA_SIGNAL_AFTER`` (P), resumed (R)."""
+    from torch.distributed.checkpoint._fsspec_filesystem import FsspecReader, FsspecWriter  # noqa: F401
+
+    from dmlcloud_tpu_torch.checkpoint import read_requeue_verdict
+    from dmlcloud_tpu_torch.examples.train_lm import build
+    from dmlcloud_tpu_torch.utils.paths import RemotePath
+
+    argv = _data_argv(root) + ["--layers", str(DATA_RESUME_LAYERS), "--save-every-steps", str(DATA_SAVE_STEP)]
+    rest = DATA_STEPS - DATA_SAVE_STEP
+    RemotePath(DATA_RESUME_ROOT).rm()
+
+    def final(stage):
+        stage.state.optimizer.zero_grad(set_to_none=True)
+        sd = stage.state.state_dict()
+        return {"params": sd["params"], "mu": sd["opt_state"]["mu"], "nu": sd["opt_state"]["nu"],
+                "step": stage.state.step, "count": stage.state.optimizer.count,
+                "losses": [float(x) for x in stage.train_losses]}
+
+    try:
+        t0 = time.perf_counter()
+        pipe, stage = build(argv)
+        pipe.run()
+        torch.cuda.synchronize()
+        c = final(stage)
+        log(f"[data] C, uninterrupted, {DATA_RESUME_LAYERS} layers: {c['step']} steps in "
+            f"{time.perf_counter() - t0:.1f} s; losses {[round(x, 4) for x in c['losses']]}")
+        del pipe, stage
+        _free(torch)
+
+        t0 = time.perf_counter()
+        pipe, stage = build(argv + ["--checkpoint-dir", DATA_RESUME_ROOT], resume=True)
+        pipe.enable_preemption_handling(("SIGUSR1",))
+        step, done = stage._train_step, [0]
+
+        def signalled(batch):
+            out = step(batch)
+            done[0] += 1
+            if done[0] == DATA_SIGNAL_AFTER:
+                os.kill(os.getpid(), signal.SIGUSR1)
+            return out
+
+        stage._train_step = signalled
+        pipe.run()
+        torch.cuda.synchronize()
+        run_dir = pipe.checkpoint_dir.path
+        sidecar = json.loads((run_dir / "meta" / f"{stage.name}.steps" / f"{DATA_SAVE_STEP}.json").read_text())
+        verdict = read_requeue_verdict(run_dir)
+        p_save = pipe.checkpoint_dir.state_manager(f"{stage.name}.steps").last_save
+        log(f"[data] P, preempted: drained at step {stage.state.step} in {time.perf_counter() - t0:.1f} s; "
+            f"run directory {run_dir}; sidecar data {json.dumps(sidecar.get('data'))}; verdict {verdict['kind']}")
+        if not (isinstance(run_dir, RemotePath) and str(run_dir).startswith(DATA_RESUME_ROOT + "/")
+                and stage.state.step == DATA_SAVE_STEP and stage._mid_epoch_exit and verdict["kind"] == "preemption"
+                and isinstance(sidecar.get("data"), dict)
+                and sidecar["data"].get("global_offset") == DATA_SAVE_STEP):
+            raise AssertionError(f"preempted run: step {stage.state.step}, dir {run_dir}, sidecar {sidecar}, "
+                                 f"verdict {verdict}")
+        log(f"[data] P step save to {DATA_RESUME_ROOT} through FsspecWriter: {_gb(p_save['bytes']):.2f} GB, "
+            f"blocking {p_save['blocking_s']:.3f} s, background commit {p_save['commit_s'] or 0:.3f} s [{smi}]")
+        first_log = (run_dir / "log.txt").read_text()
+        del pipe, stage
+        _free(torch)
+
+        t0 = time.perf_counter()
+        pipe, stage = build(argv + ["--checkpoint-dir", str(run_dir)], resume=True)
+        fa.reset_launch_counts()
+        pipe.run()
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        r = final(stage)
+        log(f"[data] R, resumed: steps {DATA_SAVE_STEP + 1}-{r['step']} in {time.perf_counter() - t0:.1f} s; "
+            f"launches {launches}")
+        # the resumed attempt's part of log.txt (the tee of its output) says how it resumed
+        text = (run_dir / "log.txt").read_text()
+        lines = text[len(first_log):].splitlines() if text.startswith(first_log) else []
+        fast = [m for m in lines if "fast-forwarded from saved iterator state" in m]
+        skipped = [m for m in lines if "skipping the first" in m]
+        if not fast or skipped:
+            raise AssertionError(f"resume: fast-forward lines {fast}, batch-skip lines {skipped}")
+        log(f"[data] R, from log.txt: {fast[0]}")
+        want = {"flash_fwd_tc": DATA_RESUME_LAYERS * rest, "flash_bwd_dq_tc": DATA_RESUME_LAYERS * rest,
+                "flash_bwd_dkv_tc": DATA_RESUME_LAYERS * rest, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        if launches != want:
+            raise AssertionError(f"resumed run: launches {launches}, want {want}")
+        diffs = {part: max(max_err(torch, r[part][n], c[part][n]) for n in c[part]) for part in ("params", "mu", "nu")}
+        diffs["losses 5-7"] = max(abs(a - b) for a, b in zip(r["losses"], c["losses"][DATA_SAVE_STEP:]))
+        if (r["step"], r["count"]) != (c["step"], c["count"]) or len(r["losses"]) != rest or any(diffs.values()):
+            raise AssertionError(f"resumed run is not bitwise the uninterrupted one: step {r['step']}/{c['step']}, "
+                                 f"count {r['count']}/{c['count']}, max abs differences {diffs}")
+        verdict = read_requeue_verdict(run_dir)
+        if not (text.count("Checkpoint: ") == 2 and verdict["kind"] == "completed"):
+            raise AssertionError(f"{run_dir}/log.txt does not hold both attempts, or the verdict {verdict} is not "
+                                 "completed")
+        log(f"[data] R equals C bitwise (params, AdamW moments and count, step, losses of steps 5-7); {run_dir}/log.txt "
+            f"holds both attempts ({len(text)} bytes); requeue.json reads back {json.dumps(verdict)}")
+        del pipe, stage, c, r
+        _free(torch)
+    finally:
+        RemotePath(DATA_RESUME_ROOT).rm()
+
+
+def phase_data(torch, fa, smi: str, p5: dict) -> None:
+    phase_native(smi)
+    root = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+    try:
+        phase_corpus(root, p5["steady_ms"], smi)
+        phase_data_train(torch, fa, root, smi, p5)
+        phase_data_resume(torch, fa, root, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -2406,6 +2799,9 @@ def main() -> None:
     phase_resnet18(torch, dev["smi"])
     phase_clip(torch, dev["smi"])
     log(f"[vision] phase 14 in {time.perf_counter() - t14:.1f} s")
+    t15 = time.perf_counter()
+    phase_data(torch, fa, dev["smi"], p5)
+    log(f"[data] phase 15 in {time.perf_counter() - t15:.1f} s")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values()) + list(bert_rows.values())}))
     print(dev["smi"])

@@ -15,7 +15,11 @@ from .pipeline import TrainingPipeline
 from .stage import DatasetNotFoundError, Stage, TrainValStage
 from .train_state import TrainState
 
+#: the reference package's version, which this port follows
+__version__ = "0.5.0"
+
 __all__ = [
+    "__version__",
     "data",
     "metrics",
     "optim",

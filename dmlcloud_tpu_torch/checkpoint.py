@@ -46,7 +46,15 @@ that layout: where a template is given, its own tensors (e.g. a live FSDP2
 module's DTensors) decide it, and DCP's metadata says where the saved shards
 are.
 
-Not here yet: remote (``gs://``) paths.
+Remote run directories (the reference's ``epath`` paths, checkpoint.py:36-100):
+a root given as a URL (``gs://bucket/runs``, ``memory://run``, ``file:///...``)
+stays a URL (``as_run_path`` returns a ``utils.paths.RemotePath`` over fsspec),
+and everything in the directory goes through fsspec: the contract files, the
+resume and sharding sidecars and ``requeue.json`` are written whole (an object
+store has no atomic rename), retention lists and deletes over fsspec, and DCP
+writes and reads through its fsspec storage (``FsspecWriter``/``FsspecReader``),
+which also writes ``.metadata`` last. ``log.txt`` is re-uploaded whole by
+``utils.logging``'s remote tee.
 """
 
 from __future__ import annotations
@@ -72,6 +80,7 @@ import torch.distributed.checkpoint as dcp
 from .parallel import runtime
 from .utils import slurm
 from .utils.config import Config, as_config
+from .utils.paths import RemotePath, is_remote_path
 
 _logger = logging.getLogger("dmlcloud_tpu_torch")
 
@@ -90,17 +99,52 @@ REQUEUE_FILE = "requeue.json"
 _COMMIT_FILE = ".metadata"
 
 
-def as_run_path(path: Any) -> Path:
-    """An absolute, user-expanded ``Path`` (stable equality across processes)."""
-    return Path(os.path.abspath(os.path.expanduser(os.fspath(path))))
+#: a run directory's path: local, or a URL
+RunPath = Path | RemotePath
 
 
-def atomic_write_text(target: Path, text: str) -> None:
-    """Crash-safe small-file write: a temporary file, then ``os.replace``."""
+def as_run_path(path: Any) -> RunPath:
+    """A URL (``gs://``, ``s3://``, ``memory://``, ...) as a ``RemotePath``,
+    untouched (``os.path.abspath`` would mangle the scheme into
+    ``<cwd>/gs:/bucket``); a local path absolute and user-expanded, as a
+    ``Path`` (stable equality across processes)."""
+    if isinstance(path, RemotePath):
+        return path
+    s = os.fspath(path)
+    if is_remote_path(s):
+        return RemotePath(s)
+    return Path(os.path.abspath(os.path.expanduser(s)))
+
+
+def atomic_write_text(target: RunPath, text: str) -> None:
+    """Crash-safe small-file write: a temporary file, then ``os.replace``.
+    On a URL the write is direct: an object store commits whole objects
+    atomically, and has no atomic rename."""
+    if isinstance(target, RemotePath) or is_remote_path(target):
+        as_run_path(target).write_text(text)
+        return
     target = Path(target)
     tmp = target.parent / f".{target.name}.tmp"
     tmp.write_text(text)
     os.replace(tmp, target)
+
+
+def _storage(path: RunPath, write: bool) -> dict:
+    """DCP's keyword for ``path``: the local ``checkpoint_id``, or an fsspec
+    writer or reader for a URL (the class lives in a private module of
+    ``torch.distributed.checkpoint``)."""
+    if not isinstance(path, RemotePath):
+        return {"checkpoint_id": path}
+    from torch.distributed.checkpoint._fsspec_filesystem import FsspecReader, FsspecWriter
+
+    return {"storage_writer": FsspecWriter(str(path))} if write else {"storage_reader": FsspecReader(str(path))}
+
+
+def _read_metadata(path: RunPath):
+    """DCP's metadata of the save at ``path``."""
+    if isinstance(path, RemotePath):
+        return _storage(path, write=False)["storage_reader"].read_metadata()
+    return dcp.FileSystemReader(path).read_metadata()
 
 
 def write_requeue_verdict(run_dir: Any, requeue: bool, reason: str, kind: str, **extra) -> None:
@@ -144,8 +188,9 @@ def generate_id(length: int = 8) -> str:
     return "".join(random.choices(alphabet, k=length))
 
 
-def generate_checkpoint_path(root: Any, name: str | None = None, dt: datetime | None = None) -> Path:
-    """``{root}/{name}-{YYYY.MM.DD-HH.MM}-{id}``: collision-free and sortable."""
+def generate_checkpoint_path(root: Any, name: str | None = None, dt: datetime | None = None) -> RunPath:
+    """``{root}/{name}-{YYYY.MM.DD-HH.MM}-{id}``: collision-free and sortable.
+    ``root`` may be a URL."""
     if name is None:
         name = "run"
     if dt is None:
@@ -154,7 +199,7 @@ def generate_checkpoint_path(root: Any, name: str | None = None, dt: datetime | 
     return as_run_path(root) / sanitize_filename(f"{name}-{stamp}-{generate_id()}")
 
 
-def find_slurm_checkpoint(root: Any) -> Path | None:
+def find_slurm_checkpoint(root: Any) -> RunPath | None:
     """Scan ``root`` for a run dir whose recorded Slurm job id matches the
     current job: how a requeued job finds its own previous checkpoint."""
     job_id = slurm.slurm_job_id()
@@ -334,8 +379,8 @@ class StateManager:
     call blocked (the whole save when synchronous; the copy to host memory
     when async) and, once written, the seconds the background commit took."""
 
-    def __init__(self, root: Path, max_to_keep: int | None, async_save: bool, policy: Any = None,
-                 metrics_file: Path | None = None):
+    def __init__(self, root: RunPath, max_to_keep: int | None, async_save: bool, policy: Any = None,
+                 metrics_file: RunPath | None = None):
         self.root = root
         self.max_to_keep = max_to_keep
         self.async_save = async_save
@@ -345,7 +390,7 @@ class StateManager:
         self._pending = None  # (step, future, commit-time recorded, metrics) of an async save
         self.last_save: dict | None = None
 
-    def _step_dirs(self) -> dict[int, Path]:
+    def _step_dirs(self) -> dict[int, RunPath]:
         if not self.root.is_dir():
             return {}
         return {int(p.name): p for p in self.root.iterdir() if p.is_dir() and p.name.isdigit()}
@@ -365,7 +410,7 @@ class StateManager:
         info = {"step": int(step), "bytes": _nbytes(state_dict), "async": self.async_save, "commit_s": None}
         t0 = time.perf_counter()
         if self.async_save:
-            ret = dcp.async_save(state_dict, checkpoint_id=path, no_dist=_no_dist(),
+            ret = dcp.async_save(state_dict, **_storage(path, write=True), no_dist=_no_dist(),
                                  process_group=runtime.side_group())
             future = getattr(ret, "upload_completion", ret)  # AsyncSaveResponse on newer torch
             t1 = time.perf_counter()
@@ -373,7 +418,7 @@ class StateManager:
             future.add_done_callback(lambda _f: (info.update(commit_s=time.perf_counter() - t1), committed.set()))
             self._pending = (int(step), future, committed, metrics)
         else:
-            dcp.save(state_dict, checkpoint_id=path, no_dist=_no_dist(), process_group=runtime.side_group())
+            dcp.save(state_dict, **_storage(path, write=True), no_dist=_no_dist(), process_group=runtime.side_group())
             t1 = time.perf_counter()
         info["blocking_s"] = t1 - t0
         self.last_save = info
@@ -425,16 +470,21 @@ class StateManager:
     def delete(self, step: int) -> None:
         if self._metrics is not None:
             self._metrics.pop(int(step), None)
-        if runtime.is_root():
-            shutil.rmtree(self.root / str(int(step)), ignore_errors=True)
+        if not runtime.is_root():
+            return
+        path = self.root / str(int(step))
+        if isinstance(path, RemotePath):
+            path.rm()
+        else:
+            shutil.rmtree(path, ignore_errors=True)
 
     def keys(self, step: int) -> set[str]:
         """Flattened keys (``params.embed.weight``, ...) saved at ``step``."""
-        return set(dcp.FileSystemReader(self.root / str(int(step))).read_metadata().state_dict_metadata)
+        return set(_read_metadata(self.root / str(int(step))).state_dict_metadata)
 
     def restore(self, step: int, state_dict: dict) -> dict:
         """Fill the tensors of ``state_dict`` in place from ``step``."""
-        dcp.load(state_dict, checkpoint_id=self.root / str(int(step)), no_dist=_no_dist(),
+        dcp.load(state_dict, **_storage(self.root / str(int(step)), write=False), no_dist=_no_dist(),
                  process_group=runtime.side_group())
         return state_dict
 
@@ -459,27 +509,27 @@ class CheckpointDir:
 
     # -- contract files -----------------------------------------------------
     @property
-    def config_file(self) -> Path:
+    def config_file(self) -> RunPath:
         return self.path / "config.yaml"
 
     @property
-    def indicator_file(self) -> Path:
+    def indicator_file(self) -> RunPath:
         return self.path / INDICATOR_FILE
 
     @property
-    def log_file(self) -> Path:
+    def log_file(self) -> RunPath:
         return self.path / "log.txt"
 
     @property
-    def slurm_file(self) -> Path:
+    def slurm_file(self) -> RunPath:
         return self.path / ".slurm-jobid"
 
     @property
-    def requeue_file(self) -> Path:
+    def requeue_file(self) -> RunPath:
         return self.path / REQUEUE_FILE
 
     @property
-    def state_dir(self) -> Path:
+    def state_dir(self) -> RunPath:
         return self.path / "state"
 
     @property
@@ -555,7 +605,13 @@ class CheckpointDir:
         ``save_retries`` times with exponential backoff before the ORIGINAL
         error surfaces. ``metrics`` ranks the save for a keep-best policy.
         ``sharding`` (``parallel.mesh.sharding_record``) is what the sharding
-        sidecar records of the entries named after a parameter."""
+        sidecar records of the entries named after a parameter. Single flight
+        across scopes too: every scope's writer issues its collectives on the
+        one side group, so two saves in flight at once would interleave them."""
+        manager = self.state_manager(scope)
+        for other in self._state_managers.values():
+            if other is not manager:
+                other.wait_until_finished()
         self._retry_transient(lambda: self.state_manager(scope).save(step, state, metrics=metrics),
                               what=f"save of step {step} (scope {scope!r})")
         self._write_sharding_sidecar(scope, int(step), state, sharding)
@@ -578,7 +634,7 @@ class CheckpointDir:
         raise first
 
     # -- sharding sidecar (elastic resharded restore) ------------------------
-    def _sharding_sidecar_file(self, scope: str | None, step: int) -> Path:
+    def _sharding_sidecar_file(self, scope: str | None, step: int) -> RunPath:
         # a subtree of its own: meta/<scope>/ holds the stage's resume sidecars
         return self.path / "meta" / "_sharding" / (scope or "_root") / f"{int(step)}.json"
 
@@ -632,7 +688,7 @@ class CheckpointDir:
             raise ValueError("restore_template needs the target mesh")
         step_dir = self.state_manager(scope).root / str(int(step))
         try:
-            meta = dcp.FileSystemReader(step_dir).read_metadata()
+            meta = _read_metadata(step_dir)
         except (OSError, ValueError) as exc:
             raise ValueError(f"no checkpoint metadata for step {step} (scope {scope!r})") from exc
         sidecar = self.read_sharding_sidecar(scope, step)

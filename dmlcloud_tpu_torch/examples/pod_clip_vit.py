@@ -28,8 +28,8 @@ host, at the recipe's load of 64 pairs per card:
   ``accuracy`` metric is the in-batch retrieval accuracy against the global
   batch, ``logit_scale`` the clamped scale; there is no validation.
 - The optimizer is the reference's: warmup-cosine AdamW (weight decay 0.2,
-  warmup 2 % of the steps). ``--checkpoint-dir`` takes local paths (remote
-  URLs are ROADMAP Queue 1 item 3) and, with ``--save-every-steps``, saves
+  warmup 2 % of the steps). ``--checkpoint-dir`` takes a local path or a URL
+  (``gs://bucket/runs``, used as it is) and, with ``--save-every-steps``, saves
   mid-epoch; a scheduler's eviction drains at the next step save.
 
 ``--toy`` (any machine; ``--device cpu`` on a CPU): the same path on a tiny
@@ -80,10 +80,13 @@ class SyntheticPairs:
     """Correlated (image, text) pairs, made per step: image class k has mean
     brightness k/8 and caption tokens from a class-specific band, so the
     contrastive objective has signal and in-batch accuracy rises. Each step
-    draws one global batch of ``global_batch`` pairs from one seeded stream,
-    the reference's ``SyntheticPairs`` draws bit for bit, and yields the
-    contiguous rows of data-parallel coordinate ``dp_rank`` of ``dp_size``.
-    Re-iterable (each epoch yields the same batches) and lazy."""
+    is one global batch of ``global_batch`` pairs from one seeded stream, the
+    reference's ``SyntheticPairs`` draws bit for bit, of which this process
+    yields the contiguous rows of data-parallel coordinate ``dp_rank`` of
+    ``dp_size``. Only those rows' images are drawn: the stream is advanced
+    past the others' (``_skip_floats``), so a process builds its own rows,
+    not the global batch. Re-iterable (each epoch yields the same batches)
+    and lazy."""
 
     def __init__(self, cfg: CLIPConfig, global_batch: int, steps: int, seed: int = 0, dp_size: int = 1,
                  dp_rank: int = 0):
@@ -96,19 +99,39 @@ class SyntheticPairs:
     def __len__(self):
         return self.steps
 
+    @staticmethod
+    def _skip_floats(rng: np.random.Generator, n: int) -> None:
+        """Advance ``rng`` past ``n`` float32 draws, as ``rng.random(n,
+        dtype=np.float32)`` would. Each float32 takes one 32-bit half of a
+        64-bit PCG64 output, the high half buffered for the next draw; a
+        buffered half is taken first, the whole pairs are skipped by
+        ``PCG64.advance`` (which drops the buffer), and an odd one leaves the
+        buffer as a real draw would."""
+        if n and rng.bit_generator.state["has_uint32"]:
+            rng.random(1, dtype=np.float32)
+            n -= 1
+        if n >= 2:
+            rng.bit_generator.advance(n // 2)
+        if n % 2:
+            rng.random(1, dtype=np.float32)
+
     def __iter__(self):
         cfg, rng = self.cfg, np.random.default_rng(self.seed)
         size = cfg.vision.image_size
         # bands span [0, vocab-1) so no caption token collides with the EOT id
         band = (cfg.text.vocab_size - 1) // 8
+        per_row = size * size * 3
+        start, stop = self.rows.start, self.rows.stop
         for _ in range(self.steps):
             classes = rng.integers(0, 8, size=self.batch)
-            imgs = rng.random((self.batch, size, size, 3), dtype=np.float32) * 0.3
-            imgs += (classes / 8.0).astype(np.float32)[:, None, None, None]
+            self._skip_floats(rng, start * per_row)
+            imgs = rng.random((stop - start, size, size, 3), dtype=np.float32) * 0.3
+            self._skip_floats(rng, (self.batch - stop) * per_row)
+            imgs += (classes[self.rows] / 8.0).astype(np.float32)[:, None, None, None]
             toks = rng.integers(0, band, size=(self.batch, cfg.text.max_seq_len))
             toks += (classes * band)[:, None]
             toks[:, -1] = cfg.text.vocab_size - 1  # EOT = the highest id in the row
-            yield {"image": imgs[self.rows], "tokens": toks.astype(np.int32)[self.rows]}
+            yield {"image": imgs, "tokens": toks.astype(np.int32)[self.rows]}
 
 
 class CLIPStage(dml.TrainValStage):
@@ -162,7 +185,7 @@ def build(argv: list[str] | None = None) -> tuple[dml.TrainingPipeline, CLIPStag
     ap.add_argument("--steps-per-epoch", type=int, default=100,
                     help="synthetic-data epoch length (a real run sizes this from the dataset)")
     ap.add_argument("--lr", type=float, default=1e-3)
-    ap.add_argument("--checkpoint-dir", type=str, default=None, help="a local run directory (or root, with --resume)")
+    ap.add_argument("--checkpoint-dir", type=str, default=None, help="a run directory (or root, with --resume), local or a URL")
     ap.add_argument("--save-every-steps", type=int, default=500)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda", help='"cuda" (default) or "cpu"')
@@ -173,10 +196,6 @@ def build(argv: list[str] | None = None) -> tuple[dml.TrainingPipeline, CLIPStag
         args.global_batch = min(args.global_batch, 16)
         args.epochs = min(args.epochs, 2)
         args.steps_per_epoch = min(args.steps_per_epoch, 4)
-    if args.checkpoint_dir and "://" in args.checkpoint_dir:
-        raise NotImplementedError("remote checkpoint directories are not ported yet (ROADMAP Queue 1 item 3); "
-                                  f"got {args.checkpoint_dir!r}")
-
     init_auto(args.device, verbose=True)
     steps_total = args.epochs * args.steps_per_epoch
     config = {

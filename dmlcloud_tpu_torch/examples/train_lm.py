@@ -2,7 +2,8 @@
 ``examples/train_lm.py``, with the same presets and the flags of the ported
 paths (``--attn dot|flash|ring``, ``--pack``, ``--window``,
 ``--checkpoint-dir``, ``--save-every-steps``, ``--ema``, ``--mfu``,
-``--chunked-loss``, ``--mesh``, ``--sample``).
+``--chunked-loss``, ``--mesh``, ``--sample``), plus ``--corpus``,
+``--pack-window`` and ``--layers``.
 
 The model registers with ``sharding=llama_partition_rules()``, as the
 reference's example does. Without ``--mesh`` the mesh is ``{data: world}``,
@@ -26,9 +27,19 @@ PyTorch versions):
         --checkpoint-dir runs --save-every-steps 4 --ema 0.999
 
 ``--checkpoint-dir`` creates a fresh run directory under the given root, as the
-reference's example does. To resume one, build the same pipeline with
-``build(argv, resume=True)``, where ``--checkpoint-dir`` names the run
-directory itself (or its root, under a requeued Slurm job), and run it.
+reference's example does; the root may be a URL (``gs://bucket/runs``,
+``memory://runs``), which is used as it is. To resume one, build the same
+pipeline with ``build(argv, resume=True)``, where ``--checkpoint-dir`` names
+the run directory itself (or its root, under a requeued Slurm job), and run it.
+
+``--corpus DIR`` trains on a ``.dmlshard`` corpus (``scripts/
+torch_build_corpus.py``) in place of the synthetic rows: ``ShardReader`` (this
+data-parallel coordinate's record-strided share) -> ``pack_stream(seq_len,
+pack_window=--pack-window)`` -> ``batch`` -> ``to_device(prefetch=2)``, the
+first ``--n-seqs`` packed rows of each epoch, with no validation set. The
+step sidecar then carries the pipeline's iterator state, from which a
+mid-epoch resume fast-forwards; ``stage.pack_stats`` counts the padding.
+``--layers N`` cuts the preset's depth.
 
 ``--sample N`` greedy-decodes N tokens after training from a prompt of the
 corpus (two rows of 16 tokens, ``stage.sample_prompt``) through the KV-cache
@@ -44,12 +55,13 @@ callers can read its tracked metrics and per-step losses.
 from __future__ import annotations
 
 import argparse
+import itertools
 
 import numpy as np
 
 import dmlcloud_tpu_torch as dml
+from dmlcloud_tpu_torch.data import DataPipeline, PackStats, ShardReader, pack_sequences
 from dmlcloud_tpu_torch.data import markov_tokens as synthetic_tokens
-from dmlcloud_tpu_torch.data import pack_sequences
 from dmlcloud_tpu_torch.models.generate import generate
 from dmlcloud_tpu_torch.models.transformer import (DecoderLM, TransformerConfig, chunked_lm_loss, llama_partition_rules,
                                                    lm_head_kernel, lm_loss)
@@ -64,12 +76,36 @@ PRESETS = {
 }
 
 
+class _FirstBatches:
+    """The first ``n`` batches of ``pipeline`` in each epoch."""
+
+    def __init__(self, pipeline: DataPipeline, n: int):
+        self.pipeline, self.n = pipeline, n
+
+    def set_epoch(self, epoch: int) -> None:
+        self.pipeline.set_epoch(epoch)
+
+    def __iter__(self):
+        return itertools.islice(iter(self.pipeline), self.n)
+
+    def __len__(self) -> int:
+        return self.n
+
+
+def _packed_rows(rows: list[dict]) -> np.ndarray:
+    """``pack_stream`` rows as one ``[B, 2, T]`` array: tokens, then segment ids."""
+    return np.stack([np.stack([r["tokens"], r["segment_ids"]]) for r in rows])
+
+
 class LMStage(dml.TrainValStage):
     #: tokens ``main`` greedy-decodes after training (``--sample``)
     sample_new_tokens = 0
 
     def pre_stage(self):
         cfg = self.config
+        preset = dict(PRESETS[cfg.preset])
+        if cfg.get("layers"):
+            preset["num_layers"] = int(cfg.layers)
         model_cfg = TransformerConfig(
             vocab_size=cfg.vocab_size,
             max_seq_len=cfg.seq_len,
@@ -77,10 +113,13 @@ class LMStage(dml.TrainValStage):
             tie_embeddings=bool(cfg.get("tie_embeddings", False)),
             remat=bool(cfg.get("remat", False)),
             sliding_window=cfg.get("window"),
-            **PRESETS[cfg.preset],
+            **preset,
         )
         model = DecoderLM(model_cfg, device=self.device)
         self.model = model
+        if cfg.get("corpus"):
+            self._corpus_datasets(cfg)
+            return
 
         if cfg.get("pack", False):
             # variable-length corpus packed into full rows: [N, 2, T] of
@@ -122,9 +161,36 @@ class LMStage(dml.TrainValStage):
 
         self.pipeline.register_dataset("train", loader(tokens[n_val:]))
         self.pipeline.register_dataset("val", loader(tokens[:n_val]))
-        self.pipeline.register_model("lm", model, sharding=llama_partition_rules())
-        schedule = warmup_cosine_decay_schedule(0.0, cfg.lr, 20, 2000)
+        self._register_model_and_optimizer()
+
+    def _register_model_and_optimizer(self):
+        self.pipeline.register_model("lm", self.model, sharding=llama_partition_rules())
+        schedule = warmup_cosine_decay_schedule(0.0, self.config.lr, 20, 2000)
         self.pipeline.register_optimizer("adamw", adamw(schedule), scheduler=schedule)
+
+    def _corpus_datasets(self, cfg):
+        """``--corpus``: this data-parallel coordinate's share of the shard
+        corpus (its record-strided share: each coordinate packs its own rows),
+        packed, batched and fed onto the device by the pipeline. Under
+        ``--mesh`` the batch is the global one, as in the synthetic path."""
+        mesh = self.pipeline.mesh
+        bs = rows = cfg.batch_size
+        if mesh is not None:
+            dp, dp_rank = data_parallel_size(mesh), data_parallel_rank(mesh)
+            if bs % dp:
+                raise ValueError(f"--batch-size {bs} is not divisible by the mesh's data-parallel size {dp}")
+            rows = bs // dp
+        else:
+            dp, dp_rank = runtime.world_size(), runtime.rank()
+        reader = ShardReader(cfg.corpus, rank=dp_rank, world_size=dp)
+        self.pack_stats = PackStats()
+        host = reader.pack_stream(cfg.seq_len, pack_window=int(cfg.get("pack_window", 0)), stats=self.pack_stats)
+        host = host.batch(rows, drop_remainder=True, collate=_packed_rows)
+        self.pipeline.register_dataset(
+            "train", DataPipeline.from_source(_FirstBatches(host, cfg.n_seqs // bs)).to_device(self.device))
+        first = [np.asarray(reader.store.record(g)) for g in range(min(2, reader.store.total_records))]
+        self.sample_prompt = np.stack([np.resize(doc, 16) for doc in first]).astype(np.int64)
+        self._register_model_and_optimizer()
 
     def gradient_clip(self):
         return 1.0
@@ -144,11 +210,15 @@ class LMStage(dml.TrainValStage):
         return 6.0 * n_params * self.config.batch_size * self.config.seq_len
 
     def segment_ids_of(self, batch):
-        # --pack rows are [B, 2, T]: tokens, then segment ids
-        return batch[:, 1] if self.config.get("pack", False) else None
+        # --pack and --corpus rows are [B, 2, T]: tokens, then segment ids
+        return batch[:, 1] if self._packed else None
+
+    @property
+    def _packed(self) -> bool:
+        return bool(self.config.get("pack", False) or self.config.get("corpus"))
 
     def step(self, state, batch):
-        if self.config.get("pack", False):
+        if self._packed:
             toks, segs = batch[:, 0], batch[:, 1]
         else:
             toks, segs = batch, None
@@ -190,10 +260,15 @@ def build(
     parser.add_argument("--mesh", type=str, default=None, help="e.g. data=2,fsdp=4 (one process per device)")
     parser.add_argument("--sample", type=int, default=0, metavar="N",
                         help="after training, greedy-decode N tokens from a corpus prompt (KV-cache generate)")
+    parser.add_argument("--corpus", type=str, default=None,
+                        help="train on this .dmlshard corpus directory (ShardReader -> pack_stream -> to_device)")
+    parser.add_argument("--pack-window", type=int, default=0,
+                        help="--corpus: first-fit-decreasing window of pack_stream (0: greedy chunks)")
+    parser.add_argument("--layers", type=int, default=None, help="cut the preset's depth to this many blocks")
     parser.add_argument("--device", default="cuda", help='"cuda" (default) or "cpu"')
     args = parser.parse_args(argv)
-    if args.pack and args.attn == "ring":
-        parser.error("--pack (segment_ids) is not supported with --attn ring")
+    if (args.pack or args.corpus) and args.attn == "ring":
+        parser.error("--pack and --corpus (segment_ids) are not supported with --attn ring")
     if args.attn == "ring" and "seq" not in parse_mesh_axes(args.mesh or "data=-1"):
         parser.error("--attn ring needs a seq axis in --mesh (e.g. --mesh seq=4)")
 
@@ -214,6 +289,9 @@ def build(
         "save_every_steps": args.save_every_steps,
         "mfu": args.mfu,
         "chunked_loss": args.chunked_loss,
+        "corpus": args.corpus,
+        "pack_window": args.pack_window,
+        "layers": args.layers,
         "seed": 0,
     }
     pipeline = dml.TrainingPipeline(config, name=f"lm-{args.preset}", device=args.device, telemetry=telemetry)

@@ -223,14 +223,17 @@ class BasicBlock(nn.Module):
 
 
 class ResNet(nn.Module):
-    """images ``[B, H, W, 3]`` -> logits ``[B, num_classes]`` fp32."""
+    """images ``[B, H, W, in_channels]`` -> logits ``[B, num_classes]`` fp32.
+    flax's ``nn.Conv`` takes its input channels from the first batch; here
+    they are ``in_channels`` (3 unless given)."""
 
     def __init__(self, stage_sizes: Sequence[int], block_cls: type, num_classes: int = 1000, num_filters: int = 64,
-                 dtype: torch.dtype = torch.bfloat16, device=None, generator: torch.Generator | None = None):
+                 dtype: torch.dtype = torch.bfloat16, device=None, generator: torch.Generator | None = None,
+                 in_channels: int = 3):
         super().__init__()
         device = resolve_device(device)
         self.stage_sizes, self.block_cls, self.dtype = list(stage_sizes), block_cls, dtype
-        self.conv_init = nn.Conv2d(3, num_filters, 7, bias=False, device=device)
+        self.conv_init = nn.Conv2d(in_channels, num_filters, 7, bias=False, device=device)
         self.bn_init = BatchNorm(num_filters, device=device)
         blocks, cin = [], num_filters
         for i, count in enumerate(stage_sizes):

@@ -49,16 +49,18 @@ class ViTConfig:
 
 
 class ViT(EncoderModel):
-    """images [B, H, W, C] -> logits [B, num_classes] fp32 (or features)."""
+    """images [B, H, W, C] -> logits [B, num_classes] fp32 (or features);
+    ``C`` is ``in_channels`` (flax's patch ``nn.Conv`` takes it from the first
+    batch)."""
 
-    def __init__(self, cfg: ViTConfig, device=None, generator: torch.Generator | None = None):
+    def __init__(self, cfg: ViTConfig, device=None, generator: torch.Generator | None = None, in_channels: int = 3):
         super().__init__()
         if cfg.pooling not in ("cls", "gap"):
             raise ValueError(f"unknown pooling {cfg.pooling!r}")
         device = resolve_device(device)
         self.cfg = cfg
         p, d = cfg.patch_size, cfg.hidden_dim
-        self.patch_embed = nn.Conv2d(3, d, p, stride=p, device=device)
+        self.patch_embed = nn.Conv2d(in_channels, d, p, stride=p, device=device)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d, device=device)) if cfg.pooling == "cls" else None
         self.pos_embed = AddLearnedPositions(cfg.num_tokens, d, device=device)
         self.encoder = TransformerEncoder(cfg.encoder, device)
@@ -83,16 +85,16 @@ class ViT(EncoderModel):
         return self.head(pooled.float())
 
 
-def ViT_S16(device=None, generator: torch.Generator | None = None, **kw) -> ViT:
+def ViT_S16(device=None, generator: torch.Generator | None = None, in_channels: int = 3, **kw) -> ViT:
     return ViT(ViTConfig(patch_size=16, hidden_dim=384, num_layers=12, num_heads=6, mlp_dim=1536, **kw), device,
-               generator)
+               generator, in_channels)
 
 
-def ViT_B16(device=None, generator: torch.Generator | None = None, **kw) -> ViT:
+def ViT_B16(device=None, generator: torch.Generator | None = None, in_channels: int = 3, **kw) -> ViT:
     return ViT(ViTConfig(patch_size=16, hidden_dim=768, num_layers=12, num_heads=12, mlp_dim=3072, **kw), device,
-               generator)
+               generator, in_channels)
 
 
-def ViT_L16(device=None, generator: torch.Generator | None = None, **kw) -> ViT:
+def ViT_L16(device=None, generator: torch.Generator | None = None, in_channels: int = 3, **kw) -> ViT:
     return ViT(ViTConfig(patch_size=16, hidden_dim=1024, num_layers=24, num_heads=16, mlp_dim=4096, **kw), device,
-               generator)
+               generator, in_channels)

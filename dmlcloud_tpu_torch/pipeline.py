@@ -41,7 +41,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from .checkpoint import CheckpointDir, find_slurm_checkpoint, generate_checkpoint_path, write_requeue_verdict
+from .checkpoint import (CheckpointDir, find_slurm_checkpoint, generate_checkpoint_path, is_remote_path,
+                         write_requeue_verdict)
 from .metrics import MetricTracker, Reduction
 from .parallel import mesh as mesh_lib
 from .parallel import runtime
@@ -219,7 +220,7 @@ class TrainingPipeline:
         if (self._verdict_written and not force) or self.checkpoint_dir is None or not runtime.is_root():
             return
         try:
-            if not self.checkpoint_dir.exists:
+            if not is_remote_path(self.checkpoint_dir.path) and not self.checkpoint_dir.exists:
                 return  # e.g. the run failed before _init_checkpointing created it
             write_requeue_verdict(self.checkpoint_dir.path, requeue, reason, kind, **extra)
             self._verdict_written = True
@@ -331,7 +332,9 @@ class TrainingPipeline:
 
     def register_dataset(self, name: str, dataset: Any, verbose: bool = True):
         """Register a per-process dataset under ``name`` ('train'/'val' are
-        the names TrainValStage looks up). Any iterable of batches works."""
+        the names TrainValStage looks up). Any iterable of batches works: a
+        ``DataPipeline`` (whose iterator state then rides the step saves), a
+        DataLoader, or a plain list."""
         if name in self.datasets:
             raise ValueError(f"Dataset with name {name} already exists")
         self.datasets[name] = dataset
@@ -523,14 +526,17 @@ class TrainingPipeline:
         tdir = opts.get("dir")
         if tdir is None and not isinstance(cfg, (bool, dict)):
             tdir = os.fspath(cfg)
+        # journals are local appends: a run directory on a URL cannot take
+        # them, so they go under the working directory then
+        local_run = self.checkpoint_dir is not None and not is_remote_path(self.checkpoint_dir.path)
         if tdir is None:
-            tdir = str(self.checkpoint_dir.path / "telemetry") if self.checkpoint_dir is not None else "telemetry"
+            tdir = str(self.checkpoint_dir.path / "telemetry") if local_run else "telemetry"
         self.telemetry_dir = os.path.abspath(tdir)
         self._journal = journal_mod.SpanJournal(self.telemetry_dir, rank=runtime.rank(),
                                                 ring_size=int(opts.get("ring_size", 1024)))
         journal_mod.activate(self._journal)
         self._journal.start()
-        if self.checkpoint_dir is not None:
+        if local_run:
             forensics_dir = str(self.checkpoint_dir.path / "forensics")
         else:
             forensics_dir = os.path.normpath(os.path.join(self.telemetry_dir, os.pardir, "forensics"))

@@ -29,7 +29,7 @@ What carries over unchanged:
   and one EMA update;
 - the feed: ``data.device_iterator`` with ``prefetch_depth()`` pinned copies
   in flight on a copy stream and optionally ``host_prefetch()`` batches read
-  on a background thread;
+  on a background thread (a pipeline that ends in ``to_device`` feeds itself);
 - data parallelism (the reference's ``sharding="replicate"``): at world
   size > 1 every process runs the step on its own per-rank batch and the
   gradients are averaged over the processes after the backward (and the
@@ -49,12 +49,14 @@ What carries over unchanged:
   stage's scope, step saves every ``checkpoint_every_steps()`` steps under
   ``<name>.steps`` with the coordinated preemption poll, JSON resume sidecars
   under ``meta/<scope>/``, and restore at stage start of a resumed pipeline,
-  mid-epoch included (the skipped batches are neither run nor copied to the
-  device);
+  mid-epoch included: a train dataset with an iterator state
+  (``DataPipeline.state_dict``, saved in the step sidecar as ``"data"``)
+  fast-forwards from it, any other skips the consumed batches (neither is run
+  nor copied to the device);
 - the flight recorder's side (``TrainingPipeline(telemetry=...)``):
   ``stage``, ``epoch``, ``step_dispatch`` and ``data_wait`` spans, and the
-  goodput buckets ``misc/data_wait_ms``, ``misc/ckpt_ms``, ``misc/goodput``
-  and ``misc/pad_fraction``.
+  goodput buckets ``misc/data_wait_ms``, ``misc/ckpt_ms``, ``misc/goodput``,
+  ``misc/pad_fraction`` and ``misc/shard_reader``.
 
 Int8 training, precompile/buckets and the lint/verify/sanitize arms come in
 later slices.
@@ -74,6 +76,8 @@ import numpy as np
 import torch
 
 from . import checkpoint as ckpt_lib
+from .data import store as _shard_store
+from .data.datasets import DataPipeline
 from .data.device import device_iterator
 from .metrics import MetricTracker, Reduction
 from .parallel import runtime
@@ -133,6 +137,12 @@ class Stage:
     @property
     def device(self) -> torch.device:
         return self.pipeline.device
+
+    @property
+    def mesh(self):
+        """The pipeline's ``DeviceMesh`` (None without ``set_mesh`` or a
+        registered model on more than one process)."""
+        return self.pipeline.mesh
 
     def track_reduce(
         self,
@@ -397,6 +407,9 @@ class TrainValStage(Stage):
         #: (one-shot, set by _restore_state from a step-save sidecar, already
         #: scaled to this run's data-parallel layout)
         self._resume_skip_steps = 0
+        #: the train dataset's iterator state from that sidecar (one-shot):
+        #: preferred to the batch skip when the dataset can load it
+        self._resume_data_state: dict | None = None
         #: wall-clock of the most recent state save: the preemption verdict's
         #: save-on-preempt latency
         self._last_save_latency_s: float | None = None
@@ -413,6 +426,8 @@ class TrainValStage(Stage):
         self._gp_data_wait_ns = 0
         self._gp_pad_slots = 0
         self._gp_token_slots = 0
+        #: ``data.store.reader_activity()`` at the epoch's start (``misc/shard_reader``)
+        self._gp_reader_mark = 0
         self._warned_mfu_peak = False
         #: how the trained model is laid out on the mesh (``MeshPlan``; None:
         #: replicated over the default mesh)
@@ -808,6 +823,7 @@ class TrainValStage(Stage):
         self._gp_data_wait_ns = 0
         self._gp_pad_slots = 0
         self._gp_token_slots = 0
+        self._gp_reader_mark = _shard_store.reader_activity()
         super()._pre_epoch()
 
     @property
@@ -830,6 +846,10 @@ class TrainValStage(Stage):
             if self._gp_token_slots:
                 self.track_reduce("misc/pad_fraction", round(self._gp_pad_slots / self._gp_token_slots, 6),
                                   prefixed=False)
+            if _shard_store.reader_activity() > self._gp_reader_mark:
+                # a ShardReader fetched blocks this epoch: the goodput advisor
+                # points at the reader's knobs, not the generic prefetch
+                self.track_reduce("misc/shard_reader", 1.0, reduction=Reduction.MAX, prefixed=False)
         super()._reduce_metrics()
 
     def _post_epoch(self):
@@ -919,7 +939,26 @@ class TrainValStage(Stage):
         if is_root():
             payload = {"epoch": self.current_epoch, "step_in_epoch": epoch_step, "world_size": runtime.world_size(),
                        "data_parallel_size": self._data_parallel_size(), "epoch_batches": self._epoch_batches()}
+            data = self._train_data_state()
+            if data is not None:
+                payload["data"] = data
             self._write_resume_sidecar(self._steps_scope, gstep, payload)
+
+    def _train_data_state(self) -> dict | None:
+        """The train dataset's iterator state (``DataPipeline.state_dict``)
+        as plain JSON values, or None when it has none."""
+        try:
+            ds = self.train_dataset()
+        except DatasetNotFoundError:
+            return None
+        if not hasattr(ds, "state_dict"):
+            return None
+        try:
+            return json.loads(json.dumps(ds.state_dict(), default=lambda v: v.item()))
+        except Exception:
+            self.logger.warning("train dataset state_dict() failed; a resume will skip by batch count instead",
+                                exc_info=True)
+            return None
 
     def _data_parallel_size(self) -> int:
         """Processes that feed distinct rows (tensor- and sequence-parallel
@@ -940,9 +979,12 @@ class TrainValStage(Stage):
             raw = json.loads(meta_file.read_text())
             world = int(raw.get("world_size", runtime.world_size()))
             batches = raw.get("epoch_batches")
-            return {"epoch": int(raw["epoch"]), "step_in_epoch": int(raw["step_in_epoch"]), "world_size": world,
+            meta = {"epoch": int(raw["epoch"]), "step_in_epoch": int(raw["step_in_epoch"]), "world_size": world,
                     "data_parallel_size": int(raw.get("data_parallel_size", world)),
                     "epoch_batches": None if batches is None else int(batches)}
+            if isinstance(raw.get("data"), dict):
+                meta["data"] = raw["data"]
+            return meta
         except Exception:
             self.logger.warning(f"No usable step-resume metadata at {meta_file}; falling back (last completed "
                                 "epoch if one exists, else weights-only step restore)")
@@ -1053,6 +1095,7 @@ class TrainValStage(Stage):
                                         f"the new data-parallel size {dp}; rounding down (up to {dp - 1} global "
                                         "batch(es) replay)")
             self._resume_skip_steps = skip
+            self._resume_data_state = step_meta.get("data")
             # the restored tracker may trail the resumed epoch: pad the gap
             self.tracker.fast_forward(self.current_epoch)
             self.logger.info(
@@ -1077,11 +1120,20 @@ class TrainValStage(Stage):
 
     def _feed(self, ds):
         """The device feed: ``data.device_iterator`` with ``prefetch_depth()``
-        copies in flight and ``host_prefetch()`` host batches read ahead."""
-        if self._telemetry_armed:
-            ds = self._count_padding(ds)
-        return device_iterator(ds, self.device, prefetch=int(self.prefetch_depth()),
-                               host_prefetch=int(self.host_prefetch()))
+        copies in flight and ``host_prefetch()`` host batches read ahead. A
+        ``DataPipeline`` goes through it by ``iter_through``, so that its
+        cursor counts the batches the step took, not those in flight; one that
+        already ends in ``to_device`` is fed as it is."""
+        if getattr(ds, "on_device", None) is not None:
+            return iter(ds)
+
+        def to_device(it):
+            if self._telemetry_armed:
+                it = self._count_padding(it)
+            return device_iterator(it, self.device, prefetch=int(self.prefetch_depth()),
+                                   host_prefetch=int(self.host_prefetch()))
+
+        return ds.iter_through(to_device) if isinstance(ds, DataPipeline) else to_device(ds)
 
     def _count_padding(self, ds):
         """Count padding slots (segment id 0, from ``segment_ids_of``) of the
@@ -1127,10 +1179,18 @@ class TrainValStage(Stage):
             # a torch DataLoader: its DistributedSampler reshuffles per epoch
             train_ds.sampler.set_epoch(self.current_epoch)
 
-        # mid-epoch resume: skip the batches the interrupted run consumed, on
-        # the host (no step runs and no copy reaches the device for them)
+        # mid-epoch resume: a dataset with an iterator state (DataPipeline)
+        # fast-forwards itself from the sidecar's (its cursor survives a change
+        # of world size, and later step saves keep checkpointing it); any
+        # other skips the batches the interrupted run consumed. Either way on
+        # the host: no step runs and no copy reaches the device for them
         skipped, self._resume_skip_steps = self._resume_skip_steps, 0
-        if skipped:
+        data_state, self._resume_data_state = self._resume_data_state, None
+        if data_state is not None and hasattr(train_ds, "load_state_dict"):
+            train_ds.load_state_dict(data_state)
+            self.logger.info(f"mid-epoch resume: train dataset fast-forwarded from saved iterator state {data_state} "
+                             f"for epoch {self.current_epoch}")
+        elif skipped:
             train_ds = itertools.islice(iter(train_ds), skipped, None)
             self.logger.info(f"mid-epoch resume: skipping the first {skipped} batches of epoch {self.current_epoch}")
         every_steps = int(self.checkpoint_every_steps()) if self.pipeline.checkpoint_dir is not None else 0

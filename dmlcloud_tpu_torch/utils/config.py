@@ -227,8 +227,13 @@ class Config(Mapping):
 
 
 def _as_epath(path):
-    """Local path coercion (the port has no object-store paths yet)."""
-    return Path(path)
+    """A ``Path``, or a ``RemotePath`` for a URL (``Path("gs://b")`` would
+    collapse the scheme to ``gs:/b``)."""
+    from .paths import RemotePath, is_remote_path
+
+    if isinstance(path, RemotePath):
+        return path
+    return RemotePath(path) if is_remote_path(path) else Path(path)
 
 
 def as_config(obj: Any) -> Config:

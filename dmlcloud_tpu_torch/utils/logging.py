@@ -6,8 +6,9 @@ Counterpart of ``dmlcloud_tpu/utils/logging.py``: rank-aware log handlers,
 ``log.txt``), the banner, and the reproducibility block, whose accelerator
 section reports the CUDA device (``torch.cuda.get_device_name``, the CUDA and
 torch versions, and ``nvidia-smi --query-gpu=name,power.limit``) in place of the
-TPU topology. The tee writes local paths only: the reference's remote
-(``gs://``) log file has no counterpart here yet.
+TPU topology. For a run directory on a URL the tee writes through
+``_RemoteLogFile``, which re-uploads ``log.txt`` whole (an object store cannot
+append).
 """
 
 from __future__ import annotations
@@ -17,11 +18,13 @@ import logging
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
 
 from .git import git_hash
+from .paths import RemotePath, is_remote_path
 
 logger = logging.getLogger("dmlcloud_tpu_torch")
 
@@ -38,10 +41,47 @@ BANNER = r"""
 ML_MODULES = ["torch", "numpy", "triton", "einops", "scipy"]
 
 
+class _RemoteLogFile:
+    """The ``log.txt`` tee for a URL (object stores have no append): buffers
+    the writes, keeps the PREVIOUS attempt's log in front of them (a requeued
+    run must not destroy the history of the attempt that died, which a
+    truncating write would), and uploads the whole text at most every
+    ``flush_interval`` seconds on ``flush`` and always on ``close``."""
+
+    def __init__(self, path: str | RemotePath, flush_interval: float = 30.0):
+        self._path = path if isinstance(path, RemotePath) else RemotePath(path)
+        self._flush_interval = flush_interval
+        self._last_upload = 0.0
+        try:
+            self._parts: list[str] = [self._path.read_text()] if self._path.exists() else []
+        except Exception:
+            self._parts = []
+
+    def write(self, s: str) -> int:
+        self._parts.append(s)
+        return len(s)
+
+    def flush(self) -> None:
+        now = time.monotonic()
+        if now - self._last_upload >= self._flush_interval:
+            self._upload()
+            self._last_upload = now
+
+    def _upload(self) -> None:
+        try:
+            self._path.write_text("".join(self._parts))
+        except Exception:  # a log upload must never kill the run
+            pass
+
+    def close(self) -> None:
+        self._upload()
+
+
 class IORedirector:
     """Tee ``sys.stdout``/``sys.stderr`` into a log file while still writing
     to the original streams. Installed root-only once the checkpoint dir
-    exists; ``uninstall`` restores the originals."""
+    exists (a URL's log through ``_RemoteLogFile``); ``uninstall`` restores
+    the originals."""
 
     class _Tee(io.TextIOBase):
         def __init__(self, parent: "IORedirector", stream):
@@ -75,8 +115,8 @@ class IORedirector:
         def fileno(self) -> int:
             return self.stream.fileno()
 
-    def __init__(self, log_file: str | Path):
-        self.log_path = Path(log_file)
+    def __init__(self, log_file: str | Path | RemotePath):
+        self.log_path = RemotePath(log_file) if is_remote_path(log_file) else Path(log_file)
         self.file = None
         self._orig_stdout = None
         self._orig_stderr = None
@@ -84,7 +124,10 @@ class IORedirector:
     def install(self) -> None:
         if self.file is not None:
             return
-        self.file = open(self.log_path, "a", buffering=1)
+        if isinstance(self.log_path, RemotePath):
+            self.file = _RemoteLogFile(self.log_path)
+        else:
+            self.file = open(self.log_path, "a", buffering=1)
         self._orig_stdout = sys.stdout
         self._orig_stderr = sys.stderr
         sys.stdout = IORedirector._Tee(self, self._orig_stdout)

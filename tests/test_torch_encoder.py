@@ -16,7 +16,8 @@ over the whole tree.
   raises; ``remat`` equals no remat, dropout included.
 - BERT: MLM logits, ``mlm_loss`` and the gradients on both paths, the
   classifier; the padded flash model equals the dot model at real positions.
-- ViT with ``cls`` and ``gap`` pooling and as a feature extractor.
+- ViT with ``cls`` and ``gap`` pooling and as a feature extractor, and on
+  one-channel images (``in_channels=1``).
 - CLIP's forward and ``clip_loss`` with gradients; the EOT read at the first
   argmax.
 - ``encoder_partition_rules`` give the reference's specs for BERT, ViT and
@@ -234,6 +235,27 @@ def test_vit_matches_jax(pooling, classes):
     assert out.shape == (2, classes or VIT["hidden_dim"])
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **TOL)
     assert _tree_rel(_grads(model, tv), jg) <= REL_TOL
+
+
+def test_one_channel_vit_matches_jax():
+    """A ViT on ``[B, 32, 32, 1]`` images: flax's patch ``nn.Conv`` takes one
+    input channel from the batch, the port's ``in_channels=1``; logits, then
+    gradients."""
+    rng = np.random.RandomState(9)
+    images = rng.rand(2, 32, 32, 1).astype(np.float32)
+    jm = jv.ViT(jv.ViTConfig(num_classes=10, dtype=jnp.float32, **VIT))
+    params = _perturbed(jm.init(jax.random.PRNGKey(4), images)["params"], 10)
+    assert params["patch_embed"]["kernel"].shape == (8, 8, 1, VIT["hidden_dim"])
+    w = rng.randn(2, 10).astype(np.float32)
+    (_, want), jg = jax.jit(jax.value_and_grad(lambda p: (jnp.sum(jm.apply({"params": p}, images) * w),
+                                                          jm.apply({"params": p}, images)), has_aux=True))(params)
+    model = tv.ViT(tv.ViTConfig(num_classes=10, dtype=torch.float32, **VIT), device="cpu", in_channels=1)
+    tv.load_flax_params(model, params)
+    out = model(torch.from_numpy(images))
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **TOL)
+    assert _tree_rel(_grads(model, tv), jg) <= REL_TOL
+    assert tv.ViT_S16(device="cpu", in_channels=1, num_classes=0, image_size=32).patch_embed.weight.shape[1] == 1
 
 
 def _clip_configs():

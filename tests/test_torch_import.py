@@ -123,6 +123,21 @@ _SCRIPT = textwrap.dedent(
                len(resnet.state_dict())]
     runtime.deinitialize()
 
+    # the slice-11 paths: a .dmlshard corpus through the native packer into train_lm, on a memory:// run dir
+    import numpy as np
+    from dmlcloud_tpu_torch.data import ShardReader, build_corpus
+    from dmlcloud_tpu_torch.native import _lib
+    docs = [np.arange(1, 2 + k % 40, dtype=np.int32) for k in range(120)]
+    corpus = tempfile.mkdtemp()
+    build_corpus(corpus, docs, shard_tokens=500)
+    _lib.reset_calls()
+    lm = main(["--device", "cpu", "--epochs", "1", "--n-seqs", "16", "--seq-len", "32", "--batch-size", "4",
+               "--corpus", corpus, "--checkpoint-dir", "memory://import-check", "--save-every-steps", "2"])
+    slice11 = [sum(len(d) for d in ShardReader(corpus)), _lib.CALLS["pack"] > 0,
+               str(lm.pipeline.checkpoint_dir.path).startswith("memory://import-check/"),
+               lm.pipeline.checkpoint_dir.latest_step("LMStage.steps")]
+    runtime.deinitialize()
+
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in BLOCKED)
     raised = {}
@@ -142,7 +157,8 @@ _SCRIPT = textwrap.dedent(
                 raised[name] = True
     print(json.dumps({"modules": modules, "loaded": loaded, "loss": loss, "goodput": goodput, "raised": raised,
                       "mnist_acc": mnist_acc, "collectives": collectives, "pod": [pod_loss, pod_fsdp],
-                      "slice8": slice8, "slice9": slice9, "slice10": slice10}))
+                      "slice8": slice8, "slice9": slice9, "slice10": slice10,
+                      "slice11": slice11}))
     """
 )
 
@@ -163,7 +179,8 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
                  "ops.ring_attention", "parallel.pipeline_parallel", "ops.paged_attention", "models.generate",
                  "serve", "serve.kv_pool", "serve.scheduler", "serve.engine", "examples.generate_text",
                  "models.bridge", "models.resnet", "models.encoder", "models.bert", "models.vit", "models.clip",
-                 "examples.pod_clip_vit"):
+                 "examples.pod_clip_vit", "utils.paths", "data.store", "native", "native._lib", "native.pack",
+                 "native.interleave"):
         assert f"dmlcloud_tpu_torch.{name}" in result["modules"], name
     assert result["loss"] == result["loss"] and result["loss"] > 0  # finite, trained
     assert 0 < result["goodput"] <= 1
@@ -175,5 +192,23 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
     assert result["slice9"] == [[2, 4], [2, 4], True, 0], result["slice9"]
     # 62 parameters and 40 running statistics: the buffers ride the checkpoints
     assert result["slice10"] == [True, [2, 3], True, [1, 16], 102], result["slice10"]
+    # every token of the corpus read back, packed natively, saved to the URL (4 steps of 4 rows)
+    assert result["slice11"] == [sum(1 + k % 40 for k in range(120)), True, True, 4], result["slice11"]
     for name, did_raise in result["raised"].items():
         assert did_raise, f"{name} without a device ran on the CPU instead of raising"
+
+
+def test_version_and_stage_mesh_are_the_references():
+    """``__version__`` is the reference package's, and ``Stage.mesh`` reads
+    the pipeline's mesh (reference stage.py:109-111), as stage code written
+    against the reference expects."""
+    import dmlcloud_tpu
+    import dmlcloud_tpu_torch as dml
+
+    assert dml.__version__ == dmlcloud_tpu.__version__ and "__version__" in dml.__all__
+    pipeline = dml.TrainingPipeline(device="cpu")
+    stage = dml.TrainValStage()
+    pipeline.append_stage(stage)
+    assert stage.mesh is None
+    pipeline.mesh = mesh = object()
+    assert stage.mesh is mesh

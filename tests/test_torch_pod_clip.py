@@ -8,6 +8,9 @@ CPU, against the JAX example and across processes.
   epochs' accuracy and logit scale alike.
 - ``--mesh fsdp=1`` (FSDP2 over a one-rank group) bitwise equal to the run
   without a mesh.
+- A data-parallel coordinate draws only its own rows' images (the stream is
+  advanced past the others'), equal to the full draw's slice, step by step.
+- A URL ``--checkpoint-dir`` is used as it is.
 - ``--mesh data=2``, ``--mesh fsdp=2`` and no mesh (the model replicated,
   the gradients averaged by the stage) over two gloo processes, each
   feeding its half of every global batch, against one process: losses and
@@ -22,6 +25,7 @@ import pickle
 import subprocess
 import sys
 import textwrap
+import tracemalloc
 from pathlib import Path
 
 import jax
@@ -155,9 +159,48 @@ def test_a_one_rank_fsdp_mesh_is_bitwise_the_run_without_a_mesh():
         np.testing.assert_array_equal(a, b)
 
 
+def test_each_process_draws_only_its_rows_of_images():
+    """A coordinate's draw equals the full draw's slice, and so do the draws
+    after it (the next steps), while the stream is advanced past the other
+    rows' images: ``_skip_floats(rng, n)`` leaves the generator exactly where
+    ``n`` float32 draws would, from a buffered half and without one."""
+    for start in (0, 1):
+        for n in (0, 1, 2, 5, 3072, 75264):
+            a, b = np.random.default_rng(11), np.random.default_rng(11)
+            a.random(start, dtype=np.float32)
+            b.random(start, dtype=np.float32)
+            a.random(n, dtype=np.float32)
+            pod_clip_vit.SyntheticPairs._skip_floats(b, n)
+            sa, sb = a.bit_generator.state, b.bit_generator.state
+            # the buffered half counts only while it is flagged
+            assert (sa["state"], sa["has_uint32"]) == (sb["state"], sb["has_uint32"]), (start, n)
+            assert not sa["has_uint32"] or sa["uinteger"] == sb["uinteger"], (start, n)
+            np.testing.assert_array_equal(a.random(7, dtype=np.float32), b.random(7, dtype=np.float32))
+    cfg = pod_clip_vit.clip_config("toy")
+    full = list(pod_clip_vit.SyntheticPairs(cfg, 12, 4))
+    quarters = [list(pod_clip_vit.SyntheticPairs(cfg, 12, 4, dp_size=4, dp_rank=r)) for r in range(4)]
+    for step, want in enumerate(full):
+        for key in ("image", "tokens"):
+            np.testing.assert_array_equal(np.concatenate([q[step][key] for q in quarters]), want[key])
+    # a coordinate's peak allocation is its own rows' images, not the global batch's
+    batch_bytes = 16 * cfg.vision.image_size ** 2 * 3 * 4
+    tracemalloc.start()
+    try:
+        next(iter(pod_clip_vit.SyntheticPairs(cfg, 16, 1, dp_size=8, dp_rank=3)))
+        _, peak = tracemalloc.get_traced_memory()
+    finally:
+        tracemalloc.stop()
+    assert peak < batch_bytes / 2, (peak, batch_bytes)
+
+
 def test_remote_checkpoint_directories_wait_for_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        pod_clip_vit.build(TOY + ["--checkpoint-dir", "gs://bucket/run"])
+    """Remote run directories are ported (ROADMAP Queue 1 item 3): the recipe
+    takes a URL as it is, no longer refusing it."""
+    pipeline, _ = pod_clip_vit.build(TOY + ["--checkpoint-dir", "memory://clip-runs"])
+    try:
+        assert str(pipeline.checkpoint_dir.path).startswith("memory://clip-runs/clip-toy-")
+    finally:
+        runtime.deinitialize()
 
 
 _WORKER = textwrap.dedent(

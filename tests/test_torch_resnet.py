@@ -18,6 +18,8 @@ numpy from a seed; everything is fp32 at 32x32.
 - flax's ``padding="SAME"`` at odd and even sizes, kernels 1 and 3, strides 1
   and 2 (the stride-2 3x3 convolution of an even input pads (0, 1)).
 - The ResNet-50 parameter count equals the JAX model's.
+- A one-channel ResNet-18 (``in_channels=1``, flax's ``nn.Conv`` reads the
+  channels off the batch) against the JAX model on ``[B, 32, 32, 1]``.
 - ``optim.sgd`` against ``optax.sgd`` over 5 steps, with and without
   (Nesterov) momentum and with a schedule.
 """
@@ -46,10 +48,10 @@ STATS_TOL = 1e-6
 SIZE, BATCH, CLASSES = 32, 8, 10
 
 
-def _variables(name: str, seed: int, perturb: bool = True) -> dict:
+def _variables(name: str, seed: int, perturb: bool = True, in_channels: int = 3) -> dict:
     """The port model's initial variables in the flax layout (the JAX init
     costs tens of seconds eagerly), the zero scales made small and random."""
-    model = getattr(tr, name)(num_classes=CLASSES, dtype=torch.float32, device="cpu",
+    model = getattr(tr, name)(num_classes=CLASSES, dtype=torch.float32, device="cpu", in_channels=in_channels,
                               generator=torch.Generator().manual_seed(seed))
     variables = tr.to_flax_params(model)
     rng = np.random.RandomState(seed)
@@ -124,6 +126,34 @@ def test_logits_statistics_and_gradients_match_jax(name, train):
         assert moved > 1e-2, "the train forward did not move the running statistics"
         # every parameter gets a gradient: the comparison covers the blocks' insides
         assert min(float(np.abs(g).max()) for g in jax.tree_util.tree_leaves(grads)) > 0
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_one_channel_resnet18_matches_jax(train):
+    """flax's ``nn.Conv`` takes its input channels from the batch; the port's
+    ``in_channels=1`` model loads such a tree (stem kernel ``(7, 7, 1, 64)``)
+    and matches it: logits, then gradients (and running statistics)."""
+    variables = _variables("ResNet18", seed=5, in_channels=1)
+    assert variables["params"]["conv_init"]["kernel"].shape == (7, 7, 1, 64)
+    rng = np.random.RandomState(6)
+    x = rng.rand(BATCH, SIZE, SIZE, 1).astype(np.float32)
+    y = rng.randint(0, CLASSES, BATCH)
+    if train:
+        with jax.enable_x64(True):
+            want_logits, want_grads, want_stats = _jax_run("ResNet18", variables, x, y, True, jnp.float64)
+    else:
+        want_logits, want_grads, want_stats = _jax_run("ResNet18", variables, x, y, False, jnp.float32)
+    model = tr.load_flax_params(tr.ResNet18(num_classes=CLASSES, dtype=torch.float32, device="cpu", in_channels=1),
+                                variables)
+    model.train(train)
+    logits = model(torch.from_numpy(x))
+    torch.nn.functional.cross_entropy(logits, torch.from_numpy(y)).backward()
+    np.testing.assert_allclose(logits.detach().numpy(), want_logits, atol=LOGIT_ATOL, rtol=0)
+    grads = tr.to_flax_params(model, tensors={n: p.grad for n, p in model.named_parameters()})["params"]
+    assert _tree_rel(grads, want_grads) <= REL_TOL
+    for a, b in zip(jax.tree_util.tree_leaves(tr.to_flax_params(model)["batch_stats"]),
+                    jax.tree_util.tree_leaves(want_stats)):
+        np.testing.assert_allclose(a, b, atol=STATS_TOL, rtol=STATS_TOL)
 
 
 def test_fp32_sides_agree_at_the_references_initialisation():
