@@ -145,7 +145,29 @@ Phases, each fatal on failure:
    the step sidecar's ``"data"`` (its ``log.txt`` says so, and no batch is
    skipped) and ends bitwise equal to C (parameters, AdamW moments and count,
    losses of steps 5-7); ``log.txt`` under the URL holds both attempts and
-   ``requeue.json`` reads back.
+   ``requeue.json`` reads back;
+16. compiled step: (a) phase 5's run with ``precompile=True`` and
+   ``compile_cache=`` a fresh directory, in a fresh process (cold): the step
+   as ``torch.compile`` regions (Inductor) with K1-K3 as custom ops, warmed
+   on zeros before the data loop; ``misc/compile_ms``, 0 graph breaks, the
+   data loop's launches equal to phase 5's (the precompile's own launches
+   printed beside), step-1 loss within 0.01 of ``PR1_FIRST_LOSS``, every loss
+   within ``COMPILED_LOSS_ATOL`` of phase 5's, peak memory under
+   ``PR1_PEAK_GIB``, the steady step, its idle share and device events
+   against phase 6's eager step; then ``utils.profiling.profile_steps`` over 2
+   compiled steps, ``roofline`` and ``format_roofline`` printed, the flash
+   kernels' rows counting the launches ``LAUNCHES`` counted, and
+   ``flops_from_compiled`` beside ``6 N D``; (b) the same command in a second
+   fresh process on the same cache directory (warm): cache hits and no miss
+   for the train step, ``misc/compile_ms`` below (a)'s, the losses bitwise
+   equal to (a)'s (both processes train with deterministic algorithms, warn
+   only: Inductor's embedding backward would otherwise add with atomics; the
+   graphs are guarded on that mode, so the steady step and the profile run
+   with it too); (c)
+   ragged batches of sizes ``RAGGED_SIZES`` through a precompiled linear
+   regression on the card, 2 epochs, with buckets ``RAGGED_BUCKETS`` (at most
+   3 signatures, ``misc/recompiles`` [0, 0]) and without (4 signatures,
+   recompiles in epoch 1).
 
 The last line of standard output is one JSON object with ``"ok": true``. With no
 card, or without the package beside it, the script exits non-zero and prints no
@@ -742,6 +764,10 @@ def log_profile(tag: str, what: str, wall_us: float, busy_us: float, events: lis
         log(f"[{tag}]   top: {_device_us(e) / 1e3:8.3f} ms  x{e.count:<4} {e.key[:90]}")
 
 
+#: phase 6's profiled eager step (idle share, device events), for phase 16
+EAGER_PROFILE: dict = {}
+
+
 def phase_steady(torch, stage) -> float:
     """Three more steps of the trained stage on one of its batches, each
     synchronised, then one under torch.profiler (after the main path's launch
@@ -762,8 +788,9 @@ def phase_steady(torch, stage) -> float:
     shares = {g: sum(_device_us(e) for e in events if pat in e.key) for g, pat in groups.items()}
     gemm = sum(_device_us(e) for e in events if re.search(r"gemm|xmma|cutlass|nvjet|sm90_", e.key, re.I)
                and not any(p in e.key for p in groups.values()))
+    EAGER_PROFILE.update(idle=max(0.0, 1 - busy_us / wall_us), events=sum(e.count for e in events))
     log(f"[steady] profiled step: wall {wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
-        f"(idle share {max(0.0, 1 - busy_us / wall_us):.3f})")
+        f"(idle share {EAGER_PROFILE['idle']:.3f}, {EAGER_PROFILE['events']} device events)")
     for g, us in [*shares.items(), ("matmuls (cuBLAS)", gemm),
                   ("everything else", busy_us - gemm - sum(shares.values()))]:
         log(f"[steady]   {g:<30} {us / 1e3:8.1f} ms  {us / busy_us:6.1%} of device time")
@@ -2738,6 +2765,227 @@ def phase_data_resume(torch, fa, root: str, smi: str) -> None:
         RemotePath(DATA_RESUME_ROOT).rm()
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the compiled step
+# ---------------------------------------------------------------------------
+
+#: every compiled loss within this of phase 5's eager one (bf16 activations;
+#: Inductor fuses the elementwise chains in fp32 registers where eager rounds
+#: between ops)
+COMPILED_LOSS_ATOL = 2e-2
+RAGGED_SIZES = (64, 64, 40, 24, 64, 64, 12, 64)
+RAGGED_BUCKETS = (16, 32, 64)
+#: a compiled-run process: build phase 5's pipeline with the compiled step,
+#: run it, measure, and write the result as JSON to argv[2]
+_COMPILED_RUN = r"""
+import json, math, os, statistics, sys, time
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.use_deterministic_algorithms(True, warn_only=True)
+torch.utils.deterministic.fill_uninitialized_memory = False
+import chip_smoke as c
+from torch._dynamo.utils import counters
+from dmlcloud_tpu_torch.compile import cache as cache_lib
+from dmlcloud_tpu_torch.examples.train_lm import build
+from dmlcloud_tpu_torch.ops import flash_attention as fa
+from dmlcloud_tpu_torch.telemetry.goodput import flops_from_compiled
+from dmlcloud_tpu_torch.utils import profiling
+
+cache_dir, out_path, profile_dir = sys.argv[1], sys.argv[2], sys.argv[3]
+pipeline, stage = build(c.TRAIN_ARGV, precompile=True, compile_cache=cache_dir)
+marks = {}
+precompile_phase = stage._run_precompile_phase
+
+def timed_precompile():
+    before = cache_lib.compile_counters()
+    precompile_phase()
+    torch.cuda.synchronize()
+    marks["precompile_launches"] = dict(fa.LAUNCHES)
+    after = cache_lib.compile_counters()
+    marks["precompile_counters"] = {k: after[k] - before[k] for k in after}
+
+stage._run_precompile_phase = timed_precompile
+torch.cuda.reset_peak_memory_stats()
+fa.reset_launch_counts()
+t0 = time.perf_counter()
+pipeline.run()
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+total = dict(fa.LAUNCHES)
+res = {"wall_s": wall, "launches_total": total, **marks,
+       "loop_launches": {k: total[k] - marks["precompile_launches"][k] for k in total},
+       "losses": [float(x) for x in stage.train_losses], "val": float(stage.tracker["val/loss"][-1]),
+       "compile_ms": float(stage.tracker["misc/compile_ms"][0]),
+       "recompiles": [int(x) for x in stage.tracker["misc/recompiles"]],
+       "graph_breaks": int(sum(counters["graph_break"].values())),
+       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+       "train_hit": stage._train_compiled.any_compiled().hit,
+       "val_hit": stage._val_compiled.any_compiled().hit,
+       "signatures": stage._train_compiled.signatures, "cache_stats": cache_lib.cache_stats()}
+if profile_dir != "-":
+    batch = next(iter(stage._feed(stage.train_dataset())))
+    res["steady_ms"], res["steady_times"] = c.steady_ms(torch, stage, batch)
+    wall_us, busy_us, events = c.profile_step(torch, stage, batch)
+    res["profile"] = {"wall_us": wall_us, "busy_us": busy_us, "events": sum(e.count for e in events)}
+    fa.reset_launch_counts()
+    profiling.profile_steps(stage._train_step, 2, profile_dir, batch)
+    res["profile_launches"] = dict(fa.LAUNCHES)
+    peaks, rows = profiling.roofline(profile_dir, steps=2)
+    res["roofline"] = {"peaks": peaks, "rows": rows, "text": profiling.format_roofline(peaks, rows)}
+    n_params = sum(p.numel() for p in stage.state.model.parameters())
+    stage._train_compiled.count_flops(batch)
+    res["flops_counted"] = flops_from_compiled(stage._train_compiled.any_compiled(), n_devices=1)
+    res["flops_6nd"] = 6.0 * n_params * 4 * 2048
+with open(out_path, "w") as f:
+    json.dump(res, f)
+"""
+
+
+def _compiled_run(root: str, tag: str, cache_dir: str, profile: bool) -> dict:
+    """One ``_COMPILED_RUN`` process (its output to a log file, not a pipe)."""
+    script, out = os.path.join(root, "compiled_run.py"), os.path.join(root, f"{tag}.json")
+    with open(script, "w") as f:
+        f.write(_COMPILED_RUN)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [here, os.environ.get("PYTHONPATH")])),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    prof_dir = os.path.join(root, f"{tag}-trace") if profile else "-"
+    t0 = time.perf_counter()
+    with open(os.path.join(root, f"{tag}.log"), "w") as logf:
+        rc = subprocess.run([sys.executable, script, cache_dir, out, prof_dir], env=env, cwd=here, stdout=logf,
+                            stderr=subprocess.STDOUT, timeout=900).returncode
+    if rc != 0:
+        with open(os.path.join(root, f"{tag}.log")) as f:
+            tail = f.read()[-6000:]
+        raise AssertionError(f"compiled run ({tag}) exited {rc}:\n{tail}")
+    with open(out) as f:
+        res = json.load(f)
+    res["process_s"] = time.perf_counter() - t0
+    return res
+
+
+def _ragged_run(torch, buckets, cache_dir: str) -> dict:
+    """bench.py's ``_ragged_config`` on the card: a linear regression over
+    ragged batches, precompiled, with or without shape buckets."""
+    import numpy as np
+
+    import dmlcloud_tpu_torch as dml
+    from dmlcloud_tpu_torch.compile import masked_mean
+    from dmlcloud_tpu_torch.optim import sgd
+
+    rng = np.random.RandomState(0)
+    w_true = rng.randn(32, 1).astype(np.float32)
+    batches = []
+    for n in RAGGED_SIZES:
+        x = rng.randn(n, 32).astype(np.float32)
+        batches.append({"x": x, "y": x @ w_true})
+
+    class RaggedStage(dml.TrainValStage):
+        def pre_stage(self):
+            model = torch.nn.Linear(32, 1, bias=False, device=self.device)
+            torch.nn.init.zeros_(model.weight)
+            self.pipeline.register_model("linear", model, verbose=False)
+            self.pipeline.register_optimizer("sgd", sgd(0.05))
+            self.pipeline.register_dataset("train", batches, verbose=False)
+
+        def step(self, state, batch):
+            per_sample = ((state.model(batch["x"]) - batch["y"]) ** 2).sum(-1)
+            if "sample_mask" in batch:
+                return masked_mean(per_sample, batch["sample_mask"])
+            return per_sample.mean()
+
+        def val_epoch(self):
+            pass
+
+    pipeline = dml.TrainingPipeline(name=f"ragged-{'buckets' if buckets else 'none'}", device="cuda",
+                                    precompile=True, buckets=buckets, compile_cache=cache_dir)
+    stage = RaggedStage()
+    pipeline.append_stage(stage, max_epochs=2)
+    pipeline.run()
+    return {"signatures": stage._train_compiled._cache_size(),
+            "recompiles": [int(x) for x in pipeline.tracker["misc/recompiles"]],
+            "loss": [float(x) for x in pipeline.tracker["train/loss"]]}
+
+
+def phase_compiled(torch, fa, smi: str, p5: dict) -> None:
+    root = tempfile.mkdtemp(prefix="chip_smoke_compiled_")
+    try:
+        cache_dir = os.path.join(root, "inductor")
+        cold = _compiled_run(root, "cold", cache_dir, profile=True)
+        warm = _compiled_run(root, "warm", cache_dir, profile=False)
+        _check_compiled(cold, warm, smi, p5)
+        for buckets in (RAGGED_BUCKETS, None):
+            t0 = time.perf_counter()
+            r = _ragged_run(torch, buckets, os.path.join(root, "ragged"))
+            log(f"[compiled] (c) ragged sizes {RAGGED_SIZES}, buckets {buckets}: {r['signatures']} signatures, "
+                f"misc/recompiles {r['recompiles']}, train/loss {[round(x, 4) for x in r['loss']]} "
+                f"({time.perf_counter() - t0:.1f} s)")
+            if buckets and (r["signatures"] > len(buckets) or r["recompiles"] != [0, 0]):
+                raise AssertionError(f"bucketed ragged run: {r}")
+            if not buckets and (r["signatures"] != len(set(RAGGED_SIZES)) or not r["recompiles"][0] > 0):
+                raise AssertionError(f"unbucketed ragged run: {r}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _check_compiled(cold: dict, warm: dict, smi: str, p5: dict) -> None:
+    want = p5["launches"]
+    for tag, r in (("a, cold", cold), ("b, warm", warm)):
+        log(f"[compiled] ({tag}) {smi}: process {r['process_s']:.1f} s (run {r['wall_s']:.1f} s); misc/compile_ms "
+            f"{r['compile_ms']:.0f}; graph breaks {r['graph_breaks']}; precompile cache counters "
+            f"{r['precompile_counters']} (train hit {r['train_hit']}, val hit {r['val_hit']}); data-loop launches "
+            f"{r['loop_launches']}; precompile's launches {r['precompile_launches']}; peak {r['peak_gib']:.2f} GiB; "
+            f"misc/recompiles {r['recompiles']}")
+        log(f"[compiled] ({tag}) losses {r['losses']}, val/loss {r['val']!r}")
+        if r["graph_breaks"]:
+            raise AssertionError(f"({tag}) {r['graph_breaks']} graph breaks")
+        if r["loop_launches"] != want:
+            raise AssertionError(f"({tag}) data-loop launches {r['loop_launches']}, phase 5's {want}")
+        if abs(r["losses"][0] - PR1_FIRST_LOSS) > 0.01:
+            raise AssertionError(f"({tag}) step-1 loss {r['losses'][0]:.4f} not within 0.01 of {PR1_FIRST_LOSS}")
+        gaps = [abs(a - b) for a, b in zip(r["losses"] + [r["val"]], p5["losses"] + [p5["val"]])]
+        log(f"[compiled] ({tag}) |compiled - eager| per loss (phase 5): max {max(gaps):.3g}; {gaps}")
+        if len(r["losses"]) != len(p5["losses"]) or max(gaps) > COMPILED_LOSS_ATOL:
+            raise AssertionError(f"({tag}) losses off phase 5's by {max(gaps):.3g} > {COMPILED_LOSS_ATOL}")
+        if r["peak_gib"] > PR1_PEAK_GIB:
+            raise AssertionError(f"({tag}) peak memory {r['peak_gib']:.2f} GiB above {PR1_PEAK_GIB}")
+    prof = cold["profile"]
+    idle = max(0.0, 1 - prof["busy_us"] / prof["wall_us"])
+    eager = EAGER_PROFILE
+    log(f"[compiled] (a) {smi}: steady compiled step {cold['steady_ms']:.1f} ms (median of "
+        f"{[round(t, 1) for t in cold['steady_times']]}) = {4 * 2048 / cold['steady_ms'] * 1e3:.0f} tokens/s, "
+        f"against phase 6's eager {p5['steady_ms']:.1f} ms (x{p5['steady_ms'] / cold['steady_ms']:.3f}); profiled "
+        f"step: wall {prof['wall_us'] / 1e3:.1f} ms, busy {prof['busy_us'] / 1e3:.1f} ms, idle share {idle:.3f}, "
+        f"{prof['events']} device events (eager: idle share {eager.get('idle', float('nan')):.3f}, "
+        f"{eager.get('events', 0)} device events)")
+    log("[compiled] (d) roofline of 2 profiled compiled steps:")
+    for line in cold["roofline"]["text"].splitlines():
+        log(f"[compiled] (d)   {line}")
+    rows = {r["category"]: r for r in cold["roofline"]["rows"]}
+    for name in ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc"):
+        n = rows.get(name, {}).get("n_per_step", 0) * 2
+        if n != cold["profile_launches"][name]:
+            raise AssertionError(f"roofline row {name}: {n} kernels in 2 steps, LAUNCHES counted "
+                                 f"{cold['profile_launches'][name]}")
+    flops = cold["flops_counted"]
+    log(f"[compiled] (d) flops_from_compiled {flops:.4g} FLOP per step (FlopCounterMode; K1-K3 count 0) "
+        f"against step_flops()'s 6ND {cold['flops_6nd']:.4g} (ratio {flops / cold['flops_6nd']:.3f})")
+    log(f"[compiled] (b) warm {smi}: misc/compile_ms {warm['compile_ms']:.0f} against cold {cold['compile_ms']:.0f} "
+        f"(x{cold['compile_ms'] / warm['compile_ms']:.2f}); cache {warm['cache_stats']['entries']} entries, "
+        f"{warm['cache_stats']['size_bytes'] / 1e6:.1f} MB")
+    counters = warm["precompile_counters"]
+    if not warm["train_hit"] or counters["fxgraph_miss"] or counters["autograd_miss"] or not (
+            counters["fxgraph_hit"] + counters["autograd_hit"]):
+        raise AssertionError(f"(b) warm precompile missed the cache: {counters}, train hit {warm['train_hit']}")
+    if not warm["compile_ms"] < cold["compile_ms"]:
+        raise AssertionError(f"(b) warm compile {warm['compile_ms']:.0f} ms not below cold {cold['compile_ms']:.0f}")
+    if warm["losses"] != cold["losses"] or warm["val"] != cold["val"]:
+        raise AssertionError(f"(b) warm losses {warm['losses']} / {warm['val']!r} not bitwise the cold run's "
+                             f"{cold['losses']} / {cold['val']!r}")
+    log("[compiled] (b) warm losses bitwise equal to the cold run's")
+
+
 def phase_data(torch, fa, smi: str, p5: dict) -> None:
     phase_native(smi)
     root = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
@@ -2802,6 +3050,9 @@ def main() -> None:
     t15 = time.perf_counter()
     phase_data(torch, fa, dev["smi"], p5)
     log(f"[data] phase 15 in {time.perf_counter() - t15:.1f} s")
+    t16 = time.perf_counter()
+    phase_compiled(torch, fa, dev["smi"], p5)
+    log(f"[compiled] phase 16 in {time.perf_counter() - t16:.1f} s")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values()) + list(bert_rows.values())}))
     print(dev["smi"])

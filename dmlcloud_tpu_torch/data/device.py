@@ -22,6 +22,7 @@ Two stages, both optional:
 from __future__ import annotations
 
 import collections
+import itertools
 from typing import Any, Iterable, Iterator
 
 import numpy as np
@@ -30,7 +31,30 @@ import torch
 from ..telemetry import journal as _journal
 from .datasets import _prefetch_iter
 
-__all__ = ["device_iterator"]
+__all__ = ["device_iterator", "peek_spec"]
+
+
+def peek_spec(it: Iterable[Any]) -> tuple[Any, Iterable[Any]]:
+    """Abstract spec (a ``compile.aot.TensorSpec`` pytree) of the first batch,
+    WITHOUT consuming it: returns ``(spec, iterable)`` where the iterable
+    still yields every batch including the peeked one.
+
+    Re-iterable sources (lists, ``DataPipeline``\\ s — anything whose
+    ``iter()`` returns a fresh iterator) come back untouched; one-shot
+    iterators come back as a chain that replays the peeked batch first. The
+    precompiler (compile/aot.py) uses this to derive the batch signature at
+    stage start when no ``batch_spec()`` is declared."""
+    from ..compile.aot import abstract_spec
+
+    src = iter(it)
+    try:
+        first = next(src)
+    except StopIteration:
+        raise ValueError("cannot peek the batch spec of an empty dataset") from None
+    spec = abstract_spec(first)
+    if src is it:  # one-shot iterator: replay the consumed batch
+        return spec, itertools.chain([first], src)
+    return spec, it
 
 
 def _map_tensors(batch: Any, fn) -> Any:

@@ -47,8 +47,10 @@ corpus (two rows of 16 tokens, ``stage.sample_prompt``) through the KV-cache
 keeps the tokens as ``stage.sample_output``; it is a single-process demo and is
 skipped at world size > 1.
 
-``build(argv, telemetry=...)`` arms the flight recorder
-(``TrainingPipeline(telemetry=...)``). ``main(argv)`` returns the stage, so
+``build(argv, telemetry=..., compile_cache=..., precompile=..., buckets=...)``
+passes those to ``TrainingPipeline``: the flight recorder, and the compiled
+step (``torch.compile`` of the train and val steps, warmed at stage start,
+with Inductor's persistent cache in ``compile_cache``). ``main(argv)`` returns the stage, so
 callers can read its tracked metrics and per-step losses.
 """
 
@@ -232,12 +234,13 @@ class LMStage(dml.TrainValStage):
 
 
 def build(
-    argv: list[str] | None = None, resume: bool = False, telemetry=None
+    argv: list[str] | None = None, resume: bool = False, telemetry=None, **compile_kwargs
 ) -> tuple[dml.TrainingPipeline, LMStage]:
     """The pipeline and stage that ``argv`` describes, not yet run; with
     ``resume``, a valid ``--checkpoint-dir`` is continued instead of a fresh
-    run directory being created under it; ``telemetry`` is passed to
-    ``TrainingPipeline``."""
+    run directory being created under it; ``telemetry`` and
+    ``compile_kwargs`` (``compile_cache``, ``precompile``, ``buckets``) are
+    passed to ``TrainingPipeline``."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--preset", choices=sorted(PRESETS), default="tiny")
     parser.add_argument("--epochs", type=int, default=2)
@@ -294,7 +297,8 @@ def build(
         "layers": args.layers,
         "seed": 0,
     }
-    pipeline = dml.TrainingPipeline(config, name=f"lm-{args.preset}", device=args.device, telemetry=telemetry)
+    pipeline = dml.TrainingPipeline(config, name=f"lm-{args.preset}", device=args.device, telemetry=telemetry,
+                                    **compile_kwargs)
     if args.mesh:
         pipeline.set_mesh(parse_mesh_axes(args.mesh))
     if args.checkpoint_dir:

@@ -324,6 +324,21 @@ class MLP(nn.Module):
         return out if self.tp is None else reduce_from_model(out, self.tp)
 
 
+def _compiled_once(fn):
+    """Under ``torch.compile``, trace ``fn`` once and reuse its graph for every
+    call with the same input structure (``torch.compiler.nested_compile_region``):
+    the blocks of a deep model compile as one, not once per layer. A no-op in
+    eager code, and where torch lacks the API."""
+    region = getattr(torch.compiler, "nested_compile_region", None)
+    return fn if region is None else region(fn)
+
+
+@_compiled_once
+def _block_forward(block: "DecoderBlock", x, cos, sin, seg_info):
+    x = x + block.attn(block.attn_norm(x), cos, sin, seg_info=seg_info)
+    return x + block.mlp(block.mlp_norm(x))
+
+
 class DecoderBlock(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
@@ -335,8 +350,7 @@ class DecoderBlock(nn.Module):
     def forward(self, x, cos, sin, seg_info=None, cache=None, offset=0, decode_pad=None, attend_len=None,
                 paged=None):
         if cache is None:
-            x = x + self.attn(self.attn_norm(x), cos, sin, seg_info=seg_info)
-            return x + self.mlp(self.mlp_norm(x))
+            return _block_forward(self, x, cos, sin, seg_info)
         attn_out, cache = self.attn(self.attn_norm(x), cos, sin, cache=cache, offset=offset, decode_pad=decode_pad,
                                     attend_len=attend_len, paged=paged)
         x = x + attn_out
@@ -468,7 +482,8 @@ class DecoderLM(nn.Module):
         fill [B])``."""
         cfg = self.cfg
         if adapters is not None:
-            raise NotImplementedError("per-row LoRA adapters are not ported yet (ROADMAP Queue 1 items 4 and 7)")
+            raise NotImplementedError("per-row LoRA adapters are not ported yet (ROADMAP Queue 1 items 4 and 9: "
+                                      "models/lora.py)")
         if pad_len is not None and cache is None:
             raise ValueError("pad_len (left-padded ragged prompts) is a decode-mode feature")
         if attend_len is not None and cache is None:

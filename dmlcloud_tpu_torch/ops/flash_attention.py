@@ -29,10 +29,15 @@ Each kernel has:
 
 The dispatchers take the kernel for a CUDA tensor and the plain version for a
 CPU tensor, and raise on anything else: there is no fallback from one to the
-other. ``_FlashFn``/``_FlashLseFn`` mirror the reference's custom_vjp pair
-``_flash``/``_flash_lse``: the forward saves ``q, k, v, out, lse``; the
-backward computes ``delta = rowsum(dO * O)`` with torch ops (shifted by the lse
-cotangent for the lse-returning variant), then runs dQ and dK/dV.
+other. The three kernels are ``torch.library`` custom ops,
+``dmlcloud_tpu_torch::flash_fwd`` (``(out, lse)``), ``::flash_dq`` and
+``::flash_dkv``, so that a ``torch.compile`` graph holds each as one node
+(``register_fake`` gives their output shapes) and their launches happen, and
+count in ``LAUNCHES``, at run time. ``flash_fwd``'s registered backward
+mirrors the reference's custom_vjp pair ``_flash``/``_flash_lse``: the forward
+saves ``q, k, v, out, lse``; the backward computes ``delta = rowsum(dO * O)``
+with torch ops (shifted by the lse cotangent, zeros when only ``out`` is
+used), then runs ``flash_dq`` and ``flash_dkv``.
 
 Layouts follow the reference's public API: q ``[B, T, H, D]``, k/v
 ``[B, S, KH, D]``, lse ``[B*H, T]`` fp32 inside, ``[B, T, H]`` from
@@ -500,55 +505,104 @@ def softmax_delta(out, do, lse_cotangent=None):
     return delta.contiguous()
 
 
-def attn_bwd(q, k, v, out, lse, do, seg, causal, scale, window, lse_cotangent=None):
-    """Backward of the pair: ``delta`` with torch ops, as the reference computes
-    it outside its kernels, then dQ and dK/dV."""
-    delta = softmax_delta(out, do, lse_cotangent)
-    do = do.contiguous()
+# ---------------------------------------------------------------------------
+# K1-K3 as torch.library custom ops: one opaque node each in a torch.compile
+# graph (Dynamo cannot trace a ctypes launch), with the kernel or its plain
+# version chosen at run time by the operands' device, as above
+# ---------------------------------------------------------------------------
+
+#: the ops take operands with the strides eager code gives them (contiguous);
+#: each body makes them contiguous anyway, so any strides are correct
+_OP_TAGS = (torch.Tag.needs_fixed_stride_order,)
+
+
+def _contig(*xs):
+    return tuple(None if x is None else x.contiguous() for x in xs)
+
+
+@torch.library.custom_op("dmlcloud_tpu_torch::flash_fwd", mutates_args=(), tags=_OP_TAGS)
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seg: torch.Tensor | None, causal: bool,
+                 scale: float, window: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1: ``(out [B,T,H,D], lse [B*H,T] fp32)``."""
+    q, k, v, seg = _contig(q, k, v, seg)
+    return attn_fwd(q, k, v, seg, causal, scale, window)
+
+
+@flash_fwd_op.register_fake
+def _(q, k, v, seg, causal, scale, window):
+    b, t, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b * h, t), dtype=torch.float32)
+
+
+@torch.library.custom_op("dmlcloud_tpu_torch::flash_dq", mutates_args=(), tags=_OP_TAGS)
+def flash_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                delta: torch.Tensor, seg: torch.Tensor | None, causal: bool, scale: float,
+                window: int | None) -> torch.Tensor:
+    """K2: dq ``[B,T,H,D]`` from the saved lse and ``delta``."""
+    q, k, v, do, lse, delta, seg = _contig(q, k, v, do, lse, delta, seg)
     if _route(q) == "cuda":
-        dq = attn_dq_cuda(q, k, v, do, lse, delta, seg, causal, scale, window)
-        dk, dv = attn_dkv_cuda(q, k, v, do, lse, delta, seg, causal, scale, window)
-        return dq, dk, dv
-    return _bwd_plain(q, k, v, do, lse, delta, seg, causal, scale, window)
+        return attn_dq_cuda(q, k, v, do, lse, delta, seg, causal, scale, window)
+    return attn_dq_plain(q, k, v, do, lse, delta, seg, causal, scale, window)
 
 
-class _FlashFn(torch.autograd.Function):
-    """``out`` of attention; the counterpart of the reference's ``_flash``."""
+@flash_dq_op.register_fake
+def _(q, k, v, do, lse, delta, seg, causal, scale, window):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("dmlcloud_tpu_torch::flash_dkv", mutates_args=(), tags=_OP_TAGS)
+def flash_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                 delta: torch.Tensor, seg: torch.Tensor | None, causal: bool, scale: float,
+                 window: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3: ``(dk, dv)`` ``[B,S,KH,D]``, GQA-summed in the kernel."""
+    q, k, v, do, lse, delta, seg = _contig(q, k, v, do, lse, delta, seg)
+    if _route(q) == "cuda":
+        return attn_dkv_cuda(q, k, v, do, lse, delta, seg, causal, scale, window)
+    return attn_dkv_plain(q, k, v, do, lse, delta, seg, causal, scale, window)
+
+
+@flash_dkv_op.register_fake
+def _(q, k, v, do, lse, delta, seg, causal, scale, window):
+    return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, seg, causal, scale, window = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse, seg)
+    ctx.args = (causal, scale, window)
+
+
+def _fwd_backward(ctx, g_out, g_lse):
+    """The reference's custom_vjp backward: ``delta`` shifted by the lse
+    cotangent (zeros when only ``out`` was used), then dQ and dK/dV."""
+    q, k, v, out, lse, seg = ctx.saved_tensors
+    delta = softmax_delta(out, g_out, g_lse)
+    dq = flash_dq_op(q, k, v, g_out, lse, delta, seg, *ctx.args)
+    dk, dv = flash_dkv_op(q, k, v, g_out, lse, delta, seg, *ctx.args)
+    return dq, dk, dv, None, None, None, None
+
+
+flash_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
+
+
+class _FlashFn:
+    """``out`` of attention; the counterpart of the reference's ``_flash``,
+    over the ``flash_fwd`` op (differentiable through its registered backward)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seg, causal, scale, window):
-        out, lse = attn_fwd(q, k, v, seg, causal, scale, window)
-        ctx.save_for_backward(q, k, v, out, lse, seg)
-        ctx.args = (causal, scale, window)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, out, lse, seg = ctx.saved_tensors
-        dq, dk, dv = attn_bwd(q, k, v, out, lse, g, seg, *ctx.args)
-        return dq, dk, dv, None, None, None, None
+    def apply(q, k, v, seg, causal, scale, window):
+        return flash_fwd_op(q, k, v, seg, causal, scale, window)[0]
 
 
-class _FlashLseFn(torch.autograd.Function):
+class _FlashLseFn:
     """``(out, lse [B*H, T])``, differentiable in both; the counterpart of the
     reference's ``_flash_lse``. Accepts what the public API rejects: a window
     without ``causal``, shifted and possibly non-positive (the ring's hops)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seg, causal, scale, window):
-        out, lse = attn_fwd(q, k, v, seg, causal, scale, window)
-        ctx.save_for_backward(q, k, v, out, lse, seg)
-        ctx.args = (causal, scale, window)
-        ctx.set_materialize_grads(False)
-        return out, lse
-
-    @staticmethod
-    def backward(ctx, g_out, g_lse):
-        q, k, v, out, lse, seg = ctx.saved_tensors
-        if g_out is None:
-            g_out = torch.zeros_like(out)
-        dq, dk, dv = attn_bwd(q, k, v, out, lse, g_out, seg, *ctx.args, lse_cotangent=g_lse)
-        return dq, dk, dv, None, None, None, None
+    def apply(q, k, v, seg, causal, scale, window):
+        return flash_fwd_op(q, k, v, seg, causal, scale, window)
 
 
 def flash_lse(q, k, v, segment_ids=None, causal: bool = True, sm_scale: float | None = None,

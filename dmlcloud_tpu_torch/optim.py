@@ -14,6 +14,10 @@ keep optax's conventions, which differ from ``torch.optim``'s:
 - the schedule is evaluated at the step count BEFORE the update, so the
   first update of the warmup schedule is taken at lr = 0.
 
+A compiled step (``TrainValStage.precompile()``) updates each parameter
+through ``update_param``, the same arithmetic per tensor, with the numbers of
+``step_scalars()`` as tensors.
+
 Like an optax transformation, ``adamw(...)`` and ``sgd(...)`` are not yet bound
 to parameters: each returns a factory that ``TrainState.create`` calls with the
 model's parameters. Optax's ``count`` is the attribute ``count``, outside
@@ -103,6 +107,12 @@ class AdamW(torch.optim.Optimizer):
         lr = (group or self.param_groups[0])["lr"]
         return float(lr(self.count)) if callable(lr) else float(lr)
 
+    def step_scalars(self) -> list[list[float]]:
+        """The numbers of the next update that change from step to step, per
+        param group: ``[lr(count), 1 - b1**(count+1), 1 - b2**(count+1)]``."""
+        c = self.count + 1
+        return [[self.current_lr(g), 1 - g["b1"] ** c, 1 - g["b2"] ** c] for g in self.param_groups]
+
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
@@ -137,6 +147,25 @@ class AdamW(torch.optim.Optimizer):
                 torch._foreach_add_(update, params, alpha=wd)
             torch._foreach_add_(params, update, alpha=-lr)
         self.count = count_inc
+
+    @staticmethod
+    @torch.no_grad()
+    def update_param(p: torch.Tensor, g: torch.Tensor, slots: dict, group: dict, scalars) -> None:
+        """``step`` for one parameter ``p`` of param group ``group``, with
+        gradient ``g`` and its ``slots`` (``state[p]``); ``scalars`` is the
+        group's row of ``step_scalars()`` as a tensor. The form a compiled step
+        calls once per parameter, compiled once per parameter shape (the
+        numbers that change every step are graph inputs, not constants); a
+        static method, so that the compiled graph reads no optimizer object."""
+        b1, b2, eps, wd = group["b1"], group["b2"], group["eps"], group["weight_decay"]
+        p, g = local_tensor(p), local_tensor(g)
+        mu, nu = local_tensor(slots["mu"]), local_tensor(slots["nu"])
+        mu.mul_(b1).add_(g, alpha=1 - b1)
+        nu.mul_(b2).addcmul_(g, g, value=1 - b2)
+        update = (mu / scalars[1]) / ((nu / scalars[2]).sqrt() + eps)
+        if wd:
+            update = update + wd * p
+        p.sub_(update * scalars[0])
 
 
 def adamw(
@@ -175,6 +204,10 @@ class SGD(torch.optim.Optimizer):
         lr = (group or self.param_groups[0])["lr"]
         return float(lr(self.count)) if callable(lr) else float(lr)
 
+    def step_scalars(self) -> list[list[float]]:
+        """The learning rate of the next update, per param group: ``[lr(count)]``."""
+        return [[self.current_lr(g)] for g in self.param_groups]
+
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
@@ -198,6 +231,19 @@ class SGD(torch.optim.Optimizer):
                     updates = traces
             torch._foreach_add_([local_tensor(p) for p in params], updates, alpha=-self.current_lr(group))
         self.count += 1
+
+    @staticmethod
+    @torch.no_grad()
+    def update_param(p: torch.Tensor, g: torch.Tensor, slots: dict, group: dict, scalars) -> None:
+        """``step`` for one parameter, as ``AdamW.update_param``."""
+        p, g = local_tensor(p), local_tensor(g)
+        momentum = group["momentum"]
+        update = g
+        if momentum is not None:
+            trace = local_tensor(slots["trace"])
+            trace.mul_(momentum).add_(g)
+            update = g + momentum * trace if group["nesterov"] else trace
+        p.sub_(update * scalars[0])
 
 
 def sgd(learning_rate: float | Schedule, momentum: float | None = None,

@@ -14,7 +14,10 @@ handling (``enable_preemption_handling`` :487, the requeue verdict of
 ``run``/``_post_run``/``_teardown``) follow the reference, and so do the
 flight recorder that ``telemetry=`` arms (:115-150; ``_arm_telemetry`` :711,
 ``_telemetry_ledger`` :775, ``_disarm_telemetry`` :801, with the ``"hang"``
-verdict that ``completed`` supersedes, :857-860) and the per-epoch metric
+verdict that ``completed`` supersedes, :857-860), the compiled step's knobs
+``compile_cache=``, ``precompile=`` and ``buckets=`` (:62-64, :102-113, with
+the cache configured before the first stage and its directory and stats
+logged by process 0, :652-657, :706, :841-849) and the per-epoch metric
 sinks ``enable_wandb`` and ``enable_tensorboard`` (:386-434).
 
 The device mesh (``set_mesh`` :200, ``_init_mesh`` :600) is a named
@@ -71,8 +74,30 @@ class TrainingPipeline:
         name: Optional[str] = None,
         device: str | torch.device | None = None,
         telemetry: Any = None,
+        compile_cache: Any = None,
+        precompile: bool = False,
+        buckets: Any = None,
     ):
-        """``telemetry`` arms the flight recorder (``dmlcloud_tpu_torch.telemetry``):
+        """The compiled step and its cold start (``dmlcloud_tpu_torch.compile``):
+
+        - ``compile_cache``: Inductor's persistent caches (FX graphs,
+          AOTAutograd, Triton kernels). ``True`` uses
+          ``$DMLCLOUD_COMPILE_CACHE_DIR`` (default
+          ``~/.cache/dmlcloud_tpu_torch/inductor``); a path selects the
+          directory — point every host at the same shared-FS dir (entries are
+          content-addressed; concurrent writers are safe; only process 0 logs
+          stats). None (default) leaves Inductor's configuration untouched.
+        - ``precompile``: default for ``Stage.precompile()`` — run the train
+          and val steps under ``torch.compile`` (Inductor, static shapes, no
+          graph breaks), warmed at stage start against the first batch's
+          abstract spec, before the data loop.
+        - ``buckets``: default for ``Stage.buckets()`` — pad ragged batch
+          dims to this ascending size set (with a zero-weight sample mask) so
+          the compiled-signature count stays bounded; also compiles the step.
+
+        With neither ``precompile`` nor ``buckets`` the step runs eagerly.
+
+        ``telemetry`` arms the flight recorder (``dmlcloud_tpu_torch.telemetry``):
         a per-process span journal (JSONL), the goodput ledger (``misc/goodput``
         and its buckets, a root-only end-of-run table and ``goodput.json``) and
         the hang watchdog (a forensics dump and a ``"hang"`` requeue verdict when
@@ -87,6 +112,10 @@ class TrainingPipeline:
         ):
             raise ValueError(f"telemetry must be None/bool, a directory path, or a config dict, got {telemetry!r}")
         self._telemetry_cfg = telemetry
+        self._compile_cache = compile_cache
+        self._compile_cache_dir: str | None = None
+        self._precompile = bool(precompile)
+        self._buckets = tuple(buckets) if buckets else None
         self.telemetry_dir: str | None = None
         self._journal = None
         self._watchdog = None
@@ -467,6 +496,11 @@ class TrainingPipeline:
             raise ValueError("No stages defined. Use append_stage() to add stages to the pipeline.")
         self._verdict_written = False
         self._verdict_kind = None
+        if self._compile_cache not in (None, False):
+            # before the first compilation, so that every graph is cacheable
+            from .compile.cache import configure_cache
+
+            self._compile_cache_dir = configure_cache(self._compile_cache)
         if not runtime.is_initialized():
             runtime.init_auto(self.device)
         # no process creates the directory before every process looked for it
@@ -503,6 +537,8 @@ class TrainingPipeline:
         diagnostics += "\n* CONFIG:\n"
         diagnostics += "\n".join(f"    {line}" for line in self.config.to_yaml(resolve=True).splitlines())
         self.logger.info(diagnostics)
+        if self._compile_cache_dir is not None and runtime.is_root():
+            self.logger.info("persistent compilation cache: %s", self._compile_cache_dir)
         self.pre_run()
 
     @runtime.root_only
@@ -616,6 +652,17 @@ class TrainingPipeline:
             self.checkpoint_dir.wait_until_finished()
         if self.telemetry_armed:
             self._telemetry_ledger()
+        # shared-FS aware: every process shares the cache dir, process 0 logs
+        if self._compile_cache_dir is not None and runtime.is_root():
+            from .compile.cache import cache_stats
+
+            stats = cache_stats()
+            self.logger.info(
+                "compile cache: %d entries (%.1f MB) at %s — this process: "
+                "%d AOT hit(s), %d miss(es), %.0f ms compiling",
+                stats["entries"], stats["size_bytes"] / 1e6, stats["dir"],
+                stats["aot_hits"], stats["aot_misses"], stats["aot_compile_ms"],
+            )
         self.logger.info(f"Finished training in {self.stop_time - self.start_time} ({self.stop_time})")
         if self.checkpointing_enabled:
             self.logger.info(f"Outputs have been saved to {self.checkpoint_dir}")

@@ -58,8 +58,20 @@ What carries over unchanged:
   goodput buckets ``misc/data_wait_ms``, ``misc/ckpt_ms``, ``misc/goodput``,
   ``misc/pad_fraction`` and ``misc/shard_reader``.
 
-Int8 training, precompile/buckets and the lint/verify/sanitize arms come in
-later slices.
+- the compiled step (stage.py:497-534, :887-1003, :1105-1115 of the
+  reference; ``compile/``), armed by ``precompile()`` or ``buckets()``: the
+  step runs as ``torch.compile`` regions (Inductor, static shapes, no graph
+  breaks) — the user's forward and loss, whose backward AOTAutograd
+  compiles, and the clip, the optimizer update and the EMA, one fused call
+  per parameter (one graph per parameter shape) — with the data-parallel
+  gradient average between them, eager; the validation step is a third. ``precompile()`` warms them in a timed phase at stage start
+  (``misc/compile_ms``) on zeros of the batch spec, leaving the state as it
+  was; ``buckets()`` pads ragged batches to a fixed set of sizes;
+  ``misc/recompiles`` counts signatures that compiled mid-run. Without either
+  the step is the eager one above.
+
+Int8 training, compiled steps on a mesh (``fsdp``, ``model``, ``seq``,
+``pipe``) and the lint/verify/sanitize arms come in later slices.
 """
 
 from __future__ import annotations
@@ -82,11 +94,11 @@ from .data.device import device_iterator
 from .metrics import MetricTracker, Reduction
 from .parallel import runtime
 from .parallel.data_parallel import all_reduce_gradients
-from .parallel.mesh import DATA, grad_sq_norm, sharding_record
+from .parallel.mesh import DATA, FSDP, MODEL, PIPE, SEQ, grad_sq_norm, sharding_record
 from .parallel.runtime import is_root
 from .parallel.tensor_parallel import local_tensor
 from .telemetry import journal as _journal
-from .train_state import TrainState, ema_like
+from .train_state import TrainState, ema_like, ema_weight
 from .utils.logging import DevNullIO, flush_log_handlers
 from .utils.profiling import StallTimer, device_kind, peak_flops_for_kind
 from .utils.table import ProgressTable
@@ -435,6 +447,23 @@ class TrainValStage(Stage):
         #: what a save's sharding sidecar records of the model (``mesh.sharding_record``)
         self._sharding = None
         self._batch_checked = False
+        #: the compiled step (compile/): signature registries over the train
+        #: and val steps, and the ``torch.compile`` regions they run, when
+        #: precompile()/buckets() are armed; else None, and the step is eager
+        self._train_compiled = None
+        self._val_compiled = None
+        self._train_guard = None
+        self._train_fwd = None
+        self._update_fn = None
+        self._val_fwd = None
+        self._sq_norm_fn = None
+        self._opt_update = None
+        self._buckets_resolved: tuple[int, ...] | None = None
+        #: gradient_clip() and ema_decay(), read once for the compiled update
+        self._clip = 0.0
+        self._decay = 0.0
+        #: FLOPs of one step counted during precompile (the MFU fallback)
+        self._cost_flops: float | None = None
 
     # -- overridables -------------------------------------------------------
     def train_dataset(self):
@@ -488,6 +517,47 @@ class TrainValStage(Stage):
         there (the CPU) gets a warning and no metric. 0 (default) disables.
         Rule of thumb for a transformer: ``6 * params * tokens per batch``."""
         return 0.0
+
+    def precompile(self) -> bool:
+        """Whether to compile the train/val steps and warm them at stage start
+        (``compile/aot.py``): the step runs under ``torch.compile`` (Inductor,
+        ``fullgraph=True``, static shapes), and the compile cost lands in a
+        timed precompile phase BEFORE the data loop (``misc/compile_ms``), so
+        shape mismatches error at stage start instead of step 1. The batch
+        signature comes from ``batch_spec()`` or, by default, from peeking the
+        first batch's shapes/dtypes (one signature per bucket when
+        ``buckets()`` is set). Default: the pipeline's ``precompile=`` flag
+        (False)."""
+        return bool(getattr(self.pipeline, "_precompile", False))
+
+    def buckets(self):
+        """Batch-dim bucket sizes for ragged batches, ascending (e.g.
+        ``(8, 32, 128)`` with 128 the full batch size), or None to disable.
+        Every host batch is padded up to the smallest fitting bucket before
+        the device transfer — mapping batches gain a zero-weight
+        ``bucket_mask_key()`` leaf (reduce per-sample losses with
+        ``compile.masked_mean`` to keep the math identical) — so the
+        compiled-signature count is bounded by ``len(buckets)`` instead of
+        growing with the data (``misc/recompiles`` tracks growth events per
+        epoch). Arming it compiles the step as ``precompile()`` does, without
+        the warm-up phase. Default: the pipeline's ``buckets=`` flag (None)."""
+        return getattr(self.pipeline, "_buckets", None)
+
+    def bucket_mask_key(self) -> str:
+        """Key under which bucketing injects the padding mask into mapping
+        batches (1.0 real row / 0.0 padded row)."""
+        from .compile.buckets import DEFAULT_MASK_KEY
+
+        return DEFAULT_MASK_KEY
+
+    def batch_spec(self):
+        """Declared abstract spec of one HOST train batch of this process (a
+        pytree of ``compile.aot.TensorSpec`` — or of example arrays —
+        matching what the train dataset yields). None (default) peeks the
+        first batch instead; declare it when the dataset is a one-shot
+        iterator or when you want stage-start validation against an explicit
+        contract."""
+        return None
 
     def device_prefetch(self) -> int:
         """Batches whose host-to-device copies are in flight ahead of the step
@@ -649,7 +719,7 @@ class TrainValStage(Stage):
         the clip sees them, as the reference's global mean gradient is."""
         state = self.state
         if accum == 1:
-            loss, metrics = self._unpack(self.train_step(state, batch))
+            loss, metrics = self._forward(batch)
             loss.backward()
         else:
             loss, metrics = self._accumulate(batch, accum)
@@ -659,6 +729,15 @@ class TrainValStage(Stage):
         elif not plan.fsdp and plan.dp_size > 1:
             all_reduce_gradients(state.model.parameters(), group=plan.grad_group)
         return loss, metrics
+
+    def _forward(self, batch) -> tuple[torch.Tensor, dict]:
+        """The user's forward and loss: the compiled region when armed."""
+        if self._train_fwd is not None:
+            return self._train_fwd(batch)
+        return self._forward_loss(batch)
+
+    def _forward_loss(self, batch) -> tuple[torch.Tensor, dict]:
+        return self._unpack(self.train_step(self.state, batch))
 
     def _accumulate(self, batch, accum: int) -> tuple[torch.Tensor, dict]:
         state = self.state
@@ -672,7 +751,7 @@ class TrainValStage(Stage):
                 # FSDP2 keeps the unsharded gradients summing until the last
                 # microbatch, whose backward reduce-scatters the sum once
                 state.model.set_requires_gradient_sync(i == accum - 1)
-            loss, metrics = self._unpack(self.train_step(state, mb))
+            loss, metrics = self._forward(mb)
             loss.backward()
             for p in low:
                 if p.grad is not None:
@@ -727,45 +806,275 @@ class TrainValStage(Stage):
                              "coordinate (parallel.mesh.data_parallel_rank)")
 
     def _train_step(self, batch) -> dict:
+        if self._train_guard is not None:
+            return self._train_guard(batch)
+        return self._run_train_step(batch)
+
+    def _run_train_step(self, batch) -> dict:
         state = self.state
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         if not self._batch_checked:
             self._check_peer_batches(batch)
         loss, metrics = self._backward(batch, int(self.gradient_accumulation()))
-        clip = float(self.gradient_clip())
-        if clip > 0.0:
-            grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-            self._clip_gradients(grads, clip)
-        state.apply_gradients()
-        decay = float(self.ema_decay())
-        if decay > 0.0:
-            state.update_ema(decay)
+        if self._update_fn is not None:
+            self._compiled_update()
+        else:
+            clip = float(self.gradient_clip())
+            if clip > 0.0:
+                grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+                self._clip_gradients(grads, clip)
+            state.apply_gradients()
+            decay = float(self.ema_decay())
+            if decay > 0.0:
+                state.update_ema(decay)
         metrics[self.loss_metric_name()] = loss.detach()
         return metrics
+
+    def _compiled_update(self) -> None:
+        """Clip, optimizer update and EMA through the compiled per-parameter
+        region, one call per parameter: every parameter's gradient scale, its
+        optimizer step and its EMA fold in one fused pass. One region over all
+        parameters at once would be one graph with every tensor in it, which
+        Inductor takes minutes to compile; per parameter, a model compiles one
+        graph per distinct parameter shape. The numbers that change every
+        step (learning rate, bias corrections) go in as a small tensor copied
+        from pinned memory without a host sync; the counters advance here."""
+        state = self.state
+        opt = state.optimizer
+        opt.init_state()
+        rows = torch.tensor(opt.step_scalars(), dtype=torch.float64)
+        if self.device.type == "cuda":
+            rows = rows.pin_memory().to(self.device, non_blocking=True)
+        scale = None
+        if self._clip > 0.0:
+            grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+            sq = torch.stack([self._sq_norm_fn(g) for g in grads]).square().sum()
+            scale = torch.clamp(self._clip * torch.rsqrt(torch.clamp(sq, min=1e-12)), max=1.0)
+        names = {p: n for n, p in state.model.named_parameters()}
+        ema, done = state.ema if self._decay > 0.0 else None, set()
+        for i, group in enumerate(opt.param_groups):
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                shadow = None if ema is None else ema.get(names[p])
+                if shadow is not None and shadow.is_floating_point():
+                    done.add(names[p])
+                else:
+                    shadow = None
+                self._update_fn(p, opt.state[p], group, rows[i], scale, shadow)
+        if ema is not None:
+            state.update_ema(self._decay, skip=done)  # parameters without a gradient
+        opt.count += 1
+        state.step += 1
+
+    def _update_param(self, p, slots: dict, group: dict, scalars, scale, shadow) -> None:
+        """One parameter's update (the compiled region): the clip's scale
+        rounded to the gradient's dtype, the optimizer's ``update_param`` (a
+        static method: the graph reads no optimizer object, whose every
+        parameter Dynamo would guard on), and the EMA fold of the updated
+        parameter into its fp32 ``shadow``."""
+        with torch.no_grad():
+            g = p.grad
+            if scale is not None:
+                g.mul_(scale.to(g.dtype))
+            self._opt_update(p, g, slots, group, scalars)
+            if shadow is not None:
+                shadow.lerp_(p if p.dtype == shadow.dtype else p.to(shadow.dtype), ema_weight(self._decay))
+
+    @staticmethod
+    def _sq_norm(g: torch.Tensor) -> torch.Tensor:
+        """The clip's per-gradient norm in fp32, as ``parallel.mesh.grad_sq_norm`` takes it."""
+        return torch.linalg.vector_norm(g, dtype=torch.float32)
 
     def _validates_on_ema(self) -> bool:
         return self.state.ema is not None and float(self.ema_decay()) > 0.0 and bool(self.val_with_ema())
 
-    @torch.no_grad()
     def _val_step(self, batch) -> dict:
+        if self._val_compiled is not None:
+            return self._val_compiled(batch)
+        return self._run_val_step(batch)
+
+    @torch.no_grad()
+    def _run_val_step(self, batch) -> dict:
         state = self.state
         state.model.eval()
-        if self._plan is None and self._validates_on_ema():
+        if self._plan is None and self._val_fwd is None and self._validates_on_ema():
             # the user's val_step reads state.model as usual and runs on the
             # average, cast to the parameters' dtypes (an fp32 shadow must not
-            # promote a bf16 model's forward to fp32); a sharded model has the
-            # average in its shards already (val_epoch)
+            # promote a bf16 model's forward to fp32); a sharded model, and a
+            # compiled step, have the average in the parameters already
+            # (val_epoch)
             params = dict(state.model.named_parameters())
             ema = {n: e if e.dtype == params[n].dtype else e.to(params[n].dtype) for n, e in state.ema.items()}
             state = dataclasses.replace(state, model=_Reparametrized(state.model, ema))
         try:
-            loss, metrics = self._unpack(self.val_step(state, batch))
+            if self._val_fwd is not None:
+                loss, metrics = self._val_fwd(batch)
+            else:
+                loss, metrics = self._unpack(self.val_step(state, batch))
         finally:
             if self._plan is not None and self._plan.fsdp:
                 _reshard(self.state.model)
         metrics[self.loss_metric_name()] = loss
         return metrics
+
+    def _val_forward(self, batch) -> tuple[torch.Tensor, dict]:
+        return self._unpack(self.val_step(self.state, batch))
+
+    # -- the compiled step (compile/) -----------------------------------------
+    def _setup_compiled_steps(self) -> None:
+        """Arm the compiled regions, the signature registries and (optionally)
+        the precompile phase. Inactive (the eager step, no wrapper) unless
+        ``precompile()`` or ``buckets()`` says otherwise."""
+        raw_buckets = self.buckets()
+        if raw_buckets:
+            from .compile.buckets import resolve_buckets
+
+            self._buckets_resolved = resolve_buckets(raw_buckets)
+        else:
+            self._buckets_resolved = None
+        if not self.precompile() and self._buckets_resolved is None:
+            return
+        plan = self._plan
+        if plan is not None and any(a in plan.axes for a in (FSDP, MODEL, SEQ, PIPE)):
+            raise NotImplementedError(
+                f"precompile()/buckets() on a mesh with axes {sorted(plan.axes)}: compiled steps on a mesh "
+                "(FSDP2, 'model', 'seq', 'pipe') are not ported yet (ROADMAP Queue 1 item 14); the 'data' axis "
+                "(sharding='replicate') is")
+        from .compile.aot import PrecompiledStep, compile_region, preserving
+        from .lint import TraceGuard
+
+        state = self.state
+        opt = state.optimizer
+        name = self.name
+        n_buckets = len(self._buckets_resolved or ())
+        self._clip = float(self.gradient_clip())
+        self._decay = float(self.ema_decay())
+        self._train_fwd = compile_region(self._forward_loss, f"{name}_train_forward")
+        self._val_fwd = compile_region(self._val_forward, f"{name}_val_forward")
+        if hasattr(opt, "update_param") and hasattr(opt, "step_scalars"):
+            opt.init_state()  # the moments exist before the warm-up snapshots them
+            self._opt_update = type(opt).update_param
+            self._update_fn = compile_region(self._update_param, f"{name}_update")
+            self._sq_norm_fn = compile_region(self._sq_norm, f"{name}_grad_norm")
+            n_shapes = len({(tuple(p.shape), p.dtype) for p in state.model.parameters()})
+        else:
+            n_shapes = 0
+            self.logger.warning(f"optimizer {type(opt).__name__} has no update_param/step_scalars: stage "
+                                f"{name!r} compiles its forward and backward, the update runs eagerly")
+        self._train_compiled = PrecompiledStep(
+            self._run_train_step, name=f"{name}.train_step", compile=False,
+            preserve=lambda: preserving(modules=[state.model], optimizers=[opt],
+                                        tensors=list((state.ema or {}).values()), holders=[state]),
+            recompile_limit=max(n_buckets, 2 * n_shapes))
+        self._val_compiled = PrecompiledStep(
+            self._run_val_step, name=f"{name}.val_step", compile=False,
+            preserve=lambda: preserving(tensors=list(state.model.buffers())), recompile_limit=n_buckets)
+        if self.precompile():
+            self._run_precompile_phase()
+        # the runtime retrace guard reads the registry's _cache_size(): any
+        # signature beyond the expected bucket set is a mid-run compile stall
+        self._train_guard = TraceGuard(self._train_compiled, max_traces=n_buckets or 1, action="warn",
+                                       name=f"{name}.train_step")
+
+    def _host_batch_spec(self, dataset_fn) -> Any:
+        """The abstract HOST batch for precompilation: ``batch_spec()`` if
+        declared (train only), else the peeked first batch; None when the
+        dataset is absent."""
+        from .compile.aot import abstract_spec
+
+        if dataset_fn == self.train_dataset:
+            declared = self.batch_spec()
+            if declared is not None:
+                return abstract_spec(declared)
+        try:
+            ds = dataset_fn()
+        except DatasetNotFoundError:
+            return None
+        if iter(ds) is ds:
+            raise ValueError(
+                f"precompile() needs the first batch's shapes, but stage {self.name!r} "
+                "feeds from a one-shot iterator that peeking would consume — declare "
+                "batch_spec() or register a re-iterable dataset"
+            )
+        from .data.device import peek_spec
+
+        spec, _ = peek_spec(ds)
+        return spec
+
+    def _run_precompile_phase(self) -> None:
+        """The timed precompile phase: run every expected train/val signature
+        once on zeros BEFORE the data loop, so compile cost is measured
+        (``misc/compile_ms``), cache hits are counted, and shape mismatches
+        fail here — at stage start."""
+        from .compile import aot
+        from .compile import cache as compile_cache
+        from .compile.buckets import bucket_spec
+
+        t0 = time.perf_counter()
+        stats0 = compile_cache.cache_stats()
+        mesh = self.mesh if self.mesh is not None else {DATA: runtime.world_size()}
+
+        def variants(host_spec):
+            if host_spec is None:
+                return []
+            if self._buckets_resolved:
+                out = [bucket_spec(host_spec, b, mask_key=self.bucket_mask_key()) for b in self._buckets_resolved]
+            else:
+                out = [host_spec]
+            for hs in out:
+                aot.validate_global_batch_spec(aot.global_batch_spec(hs, mesh), mesh)
+            return out
+
+        n_train = 0
+        for hs in variants(self._host_batch_spec(self.train_dataset)):
+            self._train_compiled.precompile(hs, device=self.device)
+            if n_train == 0 and self._telemetry_armed and float(self.step_flops()) <= 0:
+                # the MFU fallback's count (one eager step on zeros)
+                self._train_compiled.count_flops(hs, device=self.device)
+            n_train += 1
+        # val is best-effort: a stage may have no val dataset, or one whose
+        # first-batch peek is impossible — the val step then compiles lazily
+        n_val = 0
+        try:
+            for hs in variants(self._host_batch_spec(self.val_dataset)):
+                self._val_compiled.precompile(hs, device=self.device)
+                n_val += 1
+        except ValueError as e:
+            self.logger.warning(f"val-step precompile skipped: {e}")
+
+        elapsed_ms = (time.perf_counter() - t0) * 1e3
+        if not ("misc/compile_ms" in self.tracker and self.tracker.has_value("misc/compile_ms")):
+            self.track("misc/compile_ms", round(elapsed_ms, 3), prefixed=False)
+        stats1 = compile_cache.cache_stats()
+        if n_train or n_val:
+            self.logger.info(
+                f"precompile: {n_train} train + {n_val} val signature(s) in {elapsed_ms:.0f} ms "
+                f"(compile cache: {stats1['aot_hits'] - stats0['aot_hits']} hit(s), "
+                f"{stats1['aot_misses'] - stats0['aot_misses']} miss(es))"
+            )
+        else:
+            self.logger.warning(
+                f"precompile() on stage {self.name!r} found no batch spec to compile "
+                "against; the first step pays the compile as usual"
+            )
+
+    def _cost_analysis_flops(self) -> float:
+        """MFU fallback when ``step_flops()`` is not declared: FLOPs of one
+        step over all processes, counted during precompile
+        (``telemetry.goodput.flops_from_compiled``; 0.0 when nothing was
+        counted — the MFU metric is then skipped, never invented). Cached."""
+        if self._cost_flops is None:
+            val = 0.0
+            if self._train_compiled is not None:
+                record = self._train_compiled.any_compiled()
+                if record is not None:
+                    from .telemetry.goodput import flops_from_compiled
+
+                    val = flops_from_compiled(record, n_devices=runtime.world_size()) or 0.0
+            self._cost_flops = val
+        return self._cost_flops
 
     # -- lifecycle ----------------------------------------------------------
     def _configure_state_manager(self):
@@ -817,6 +1126,7 @@ class TrainValStage(Stage):
         self._configure_state_manager()
         if self.pipeline.resumed and (int(self.checkpoint_every()) > 0 or int(self.checkpoint_every_steps()) > 0):
             self._restore_state()
+        self._setup_compiled_steps()
 
     def _pre_epoch(self):
         self._stall.reset()  # misc/host_stall_ms is a per-epoch total
@@ -850,6 +1160,14 @@ class TrainValStage(Stage):
                 # a ShardReader fetched blocks this epoch: the goodput advisor
                 # points at the reader's knobs, not the generic prefetch
                 self.track_reduce("misc/shard_reader", 1.0, reduction=Reduction.MAX, prefixed=False)
+        if self._train_compiled is not None:
+            # signatures that showed up this epoch WITHOUT a precompiled graph:
+            # each one was a mid-run compilation (0 is the goal; the TraceGuard
+            # wrapper has already warned per growth event)
+            self.tracker.bump(
+                "misc/recompiles",
+                self._train_compiled.pop_recompiles() + self._val_compiled.pop_recompiles(),
+            )
         super()._reduce_metrics()
 
     def _post_epoch(self):
@@ -1125,15 +1443,24 @@ class TrainValStage(Stage):
         cursor counts the batches the step took, not those in flight; one that
         already ends in ``to_device`` is fed as it is."""
         if getattr(ds, "on_device", None) is not None:
-            return iter(ds)
+            return self._bucketed(iter(ds))
 
         def to_device(it):
             if self._telemetry_armed:
                 it = self._count_padding(it)
-            return device_iterator(it, self.device, prefetch=int(self.prefetch_depth()),
+            return device_iterator(self._bucketed(it), self.device, prefetch=int(self.prefetch_depth()),
                                    host_prefetch=int(self.host_prefetch()))
 
         return ds.iter_through(to_device) if isinstance(ds, DataPipeline) else to_device(ds)
+
+    def _bucketed(self, it):
+        """With ``buckets()`` armed, every batch padded up to its bucket (plus
+        the mask leaf), before the device copy when the batches are host ones."""
+        if not self._buckets_resolved:
+            return it
+        from .compile.buckets import bucket_iterator
+
+        return bucket_iterator(it, self._buckets_resolved, mask_key=self.bucket_mask_key())
 
     def _count_padding(self, ds):
         """Count padding slots (segment id 0, from ``segment_ids_of``) of the
@@ -1287,6 +1614,8 @@ class TrainValStage(Stage):
         the reference's formula; skipped, with one warning, on a device the
         peak table does not know."""
         flops = float(self.step_flops())
+        if flops <= 0 and self._telemetry_armed:
+            flops = self._cost_analysis_flops()
         if flops <= 0:
             return
         kind = device_kind(self.device)
@@ -1309,9 +1638,10 @@ class TrainValStage(Stage):
         deferred = bool(self.deferred_metrics())
         batches = 0
         swapped = None
-        if self._plan is not None and self._validates_on_ema():
+        if (self._plan is not None or self._val_fwd is not None) and self._validates_on_ema():
             # a sharded module gathers its parameters in its own forward
-            # hooks, so the average goes into its shards, once for the epoch
+            # hooks, and a compiled step reads the parameters it was compiled
+            # on, so the average goes into them, once for the epoch
             params = dict(self.state.model.named_parameters())
             swapped = [params[n] for n in self.state.ema]
             swapped = swapped, _swap_in(swapped, list(self.state.ema.values()))

@@ -14,20 +14,25 @@ Counterpart of ``dmlcloud_tpu/telemetry/``, armed by
 - **Hang watchdog** (``watchdog.py``): when span progress stops, or on an
   uncaught exception, a dump of all thread stacks, the last spans and the
   barrier state to ``forensics/rank<k>.json``, and a ``"hang"`` requeue verdict.
+- **Metrics registry** (``metrics_registry.py``): counters, gauges and
+  histograms with bounded label families, snapshots and Prometheus text.
 
 Everything here is stdlib only.
 """
 
-from . import goodput, journal, watchdog
-from .goodput import GoodputLedger, ledger_from_tracker
+from . import goodput, journal, metrics_registry, watchdog
+from .goodput import GoodputLedger, flops_from_compiled, ledger_from_tracker
 from .journal import SCHEMA_VERSION, SPAN_KINDS, SpanJournal, active_journal, load_journals, span, to_chrome_trace
+from .metrics_registry import MetricsRegistry, parse_prometheus_text, to_prometheus_text
 from .watchdog import HangWatchdog
 
 __all__ = [
     "goodput",
     "journal",
+    "metrics_registry",
     "watchdog",
     "GoodputLedger",
+    "flops_from_compiled",
     "ledger_from_tracker",
     "SCHEMA_VERSION",
     "SPAN_KINDS",
@@ -36,5 +41,8 @@ __all__ = [
     "load_journals",
     "span",
     "to_chrome_trace",
+    "MetricsRegistry",
+    "parse_prometheus_text",
+    "to_prometheus_text",
     "HangWatchdog",
 ]

@@ -20,15 +20,17 @@ histories back into rows, totals, a table, advice and ``goodput.json``. Rows,
 totals and advice are the reference's, key for key and word for word.
 
 MFU comes from ``Stage.step_flops()`` against ``utils.profiling``'s peak
-table; the reference's fallback to XLA's cost analysis
-(``flops_from_compiled``) waits for the port of ``compile/``.
+table, or, when that is undeclared and the step is precompiled, from
+``flops_from_compiled``: the FLOPs ``torch.utils.flop_counter`` counted over
+one step during the precompile phase (the reference reads XLA's cost
+analysis of the compiled executable).
 """
 
 from __future__ import annotations
 
 from typing import Any
 
-__all__ = ["GoodputLedger", "ledger_from_tracker", "advise_rows"]
+__all__ = ["GoodputLedger", "ledger_from_tracker", "advise_rows", "flops_from_compiled"]
 
 #: tracker metric -> ledger column (values in ms except goodput/mfu)
 _EPOCH_METRICS = {
@@ -218,3 +220,17 @@ def ledger_from_tracker(tracker) -> GoodputLedger:
     if "misc/compile_ms" in tracker:
         compile_ms = sum(v for v in tracker["misc/compile_ms"] if v is not None)
     return GoodputLedger(rows, compile_s=compile_ms / 1e3)
+
+
+def flops_from_compiled(compiled: Any, n_devices: int = 1) -> float | None:
+    """Whole-run FLOPs of one step from a precompiled signature's count
+    (``compile.aot.CompiledSignature.flops``: ``FlopCounterMode`` over one
+    call of the step during precompile), or None when nothing was counted.
+    The count covers one process's step; under data parallelism every device
+    runs it, hence ``* n_devices``. Like XLA's cost analysis of the
+    reference's Pallas calls, it has no formula for the flash kernels' custom
+    ops, which therefore count 0."""
+    flops = getattr(compiled, "flops", None)
+    if flops is None or not flops > 0:  # NaN/None/0 all mean "not counted"
+        return None
+    return float(flops) * int(n_devices)

@@ -71,17 +71,20 @@ class TrainState:
         self.step += 1
 
     @torch.no_grad()
-    def update_ema(self, decay: float) -> None:
+    def update_ema(self, decay: float, skip: set | frozenset = frozenset()) -> None:
         """Fold the current parameters into the EMA: ``ema += (1-d) * (p - ema)``,
         one fused ``torch._foreach_lerp_`` over the fp32 shadow (the
         reference's ``d*ema + (1-d)*p`` rounds differently, by about one fp32
         ulp). Non-float leaves cannot average: they track the parameters.
+        Names in ``skip`` are left alone (a compiled step folded them already).
         No-op without a shadow."""
         if self.ema is None:
             return
         params = dict(self.model.named_parameters())
         emas, targets = [], []
         for name, e in self.ema.items():
+            if name in skip:
+                continue
             p = params[name]
             if not e.is_floating_point():
                 e.copy_(p)
@@ -90,8 +93,7 @@ class TrainState:
             p = local_tensor(p)
             targets.append(p if p.dtype == e.dtype else p.to(e.dtype))
         if emas:
-            # the weight (1-d) in fp32, as the reference computes it
-            torch._foreach_lerp_(emas, targets, float(np.float32(1.0) - np.float32(decay)))
+            torch._foreach_lerp_(emas, targets, ema_weight(decay))
 
     # -- checkpoint view ----------------------------------------------------
     def state_dict(self) -> dict:
@@ -144,6 +146,13 @@ class TrainState:
         self.step = int(sd["step"])
         if hasattr(self.optimizer, "count"):
             self.optimizer.count = int(sd["opt_state"]["count"])
+
+
+@torch.compiler.assume_constant_result
+def ema_weight(decay: float) -> float:
+    """The EMA's weight ``1 - d`` in fp32, as the reference computes it (a
+    constant of a compiled step: ``decay`` is fixed for the stage)."""
+    return float(np.float32(1.0) - np.float32(decay))
 
 
 @torch.no_grad()

@@ -51,7 +51,10 @@ class _RemoteLogFile:
     def __init__(self, path: str | RemotePath, flush_interval: float = 30.0):
         self._path = path if isinstance(path, RemotePath) else RemotePath(path)
         self._flush_interval = flush_interval
-        self._last_upload = 0.0
+        #: monotonic time of the last upload; None until the first one, which
+        #: ``flush`` always makes (``time.monotonic`` counts from an arbitrary
+        #: point, on Linux the boot, so no fixed start value is "long ago")
+        self._last_upload: float | None = None
         try:
             self._parts: list[str] = [self._path.read_text()] if self._path.exists() else []
         except Exception:
@@ -63,7 +66,7 @@ class _RemoteLogFile:
 
     def flush(self) -> None:
         now = time.monotonic()
-        if now - self._last_upload >= self._flush_interval:
+        if self._last_upload is None or now - self._last_upload >= self._flush_interval:
             self._upload()
             self._last_upload = now
 

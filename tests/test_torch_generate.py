@@ -174,7 +174,7 @@ def test_decode_mode_guards_raise_as_the_reference_does():
                                                       torch.zeros(1, dtype=torch.long)))
     with pytest.raises(ValueError, match="packed-training"):
         tmodel(tok, cache=cache, segment_ids=torch.ones(1, 3, dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="items 4 and 7"):
+    with pytest.raises(NotImplementedError, match=r"items 4 and 9: models/lora\.py"):
         tmodel(tok, cache=cache, adapters=({}, torch.zeros(1, dtype=torch.long)))
     with pytest.raises(ValueError, match="past the cache"):
         tmodel(tok, cache=cache, offset=6)

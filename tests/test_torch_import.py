@@ -138,6 +138,21 @@ _SCRIPT = textwrap.dedent(
                lm.pipeline.checkpoint_dir.latest_step("LMStage.steps")]
     runtime.deinitialize()
 
+    # the slice-12 paths: the compiled step (Dynamo's aot_eager backend here), the metrics registry, the profiler
+    from dmlcloud_tpu_torch.compile import aot, cache_stats
+    from dmlcloud_tpu_torch.telemetry import MetricsRegistry, to_prometheus_text
+    from dmlcloud_tpu_torch.utils.profiling import profile_steps
+    aot.BACKEND = "aot_eager"
+    cpipe, cstage = build(["--device", "cpu", "--epochs", "1", "--n-seqs", "40", "--seq-len", "32", "--attn", "flash"],
+                          precompile=True, compile_cache=tempfile.mkdtemp())
+    cpipe.run()
+    registry = MetricsRegistry()
+    registry.counter("steps_total").inc(3)
+    slice12 = [cstage._train_compiled.signatures, [int(x) for x in cpipe.tracker["misc/recompiles"]],
+               cache_stats()["enabled"], to_prometheus_text(registry.snapshot()),
+               float(profile_steps(lambda: torch.ones(2).sum(), 2, tempfile.mkdtemp()))]
+    runtime.deinitialize()
+
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in BLOCKED)
     raised = {}
@@ -158,7 +173,7 @@ _SCRIPT = textwrap.dedent(
     print(json.dumps({"modules": modules, "loaded": loaded, "loss": loss, "goodput": goodput, "raised": raised,
                       "mnist_acc": mnist_acc, "collectives": collectives, "pod": [pod_loss, pod_fsdp],
                       "slice8": slice8, "slice9": slice9, "slice10": slice10,
-                      "slice11": slice11}))
+                      "slice11": slice11, "slice12": slice12}))
     """
 )
 
@@ -180,7 +195,8 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
                  "serve", "serve.kv_pool", "serve.scheduler", "serve.engine", "examples.generate_text",
                  "models.bridge", "models.resnet", "models.encoder", "models.bert", "models.vit", "models.clip",
                  "examples.pod_clip_vit", "utils.paths", "data.store", "native", "native._lib", "native.pack",
-                 "native.interleave"):
+                 "native.interleave", "compile", "compile.aot", "compile.buckets", "compile.cache", "lint",
+                 "lint.traceguard", "telemetry.metrics_registry"):
         assert f"dmlcloud_tpu_torch.{name}" in result["modules"], name
     assert result["loss"] == result["loss"] and result["loss"] > 0  # finite, trained
     assert 0 < result["goodput"] <= 1
@@ -194,6 +210,8 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
     assert result["slice10"] == [True, [2, 3], True, [1, 16], 102], result["slice10"]
     # every token of the corpus read back, packed natively, saved to the URL (4 steps of 4 rows)
     assert result["slice11"] == [sum(1 + k % 40 for k in range(120)), True, True, 4], result["slice11"]
+    # one precompiled signature, no mid-run compile; the cache configured; the registry's page; the last result
+    assert result["slice12"] == [1, [0], True, "# TYPE steps_total counter\nsteps_total 3\n", 2.0], result["slice12"]
     for name, did_raise in result["raised"].items():
         assert did_raise, f"{name} without a device ran on the CPU instead of raising"
 

@@ -134,6 +134,27 @@ def test_remote_log_file_keeps_the_previous_attempt(mem_root):
     assert isinstance(tee.log_path, RemotePath)
 
 
+def test_remote_log_file_first_flush_uploads_on_a_freshly_booted_host(mem_root, monkeypatch):
+    """``time.monotonic`` counts from the boot: on a host up for less than
+    ``flush_interval`` the first flush must still upload."""
+    import dmlcloud_tpu_torch.utils.logging as tlog
+
+    clock = [645.0]
+    monkeypatch.setattr(tlog.time, "monotonic", lambda: clock[0])
+    path = RemotePath(mem_root) / "log.txt"
+    log = _RemoteLogFile(path, flush_interval=3600.0)
+    log.write("line 1\n")
+    log.flush()
+    assert path.read_text() == "line 1\n"
+    log.write("line 2\n")
+    clock[0] += 3599.0
+    log.flush()  # within the interval of the first upload
+    assert path.read_text() == "line 1\n"
+    clock[0] += 1.0
+    log.flush()
+    assert path.read_text() == "line 1\nline 2\n"
+
+
 def _signal_after(stage, k: int) -> None:
     step = stage._train_step
     done = [0]
