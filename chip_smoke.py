@@ -167,7 +167,29 @@ Phases, each fatal on failure:
    ragged batches of sizes ``RAGGED_SIZES`` through a precompiled linear
    regression on the card, 2 epochs, with buckets ``RAGGED_BUCKETS`` (at most
    3 signatures, ``misc/recompiles`` [0, 0]) and without (4 signatures,
-   recompiles in epoch 1).
+   recompiles in epoch 1);
+17. int8, speculative, LoRA: (a) ``quantize_tree`` of the bf16 1b model
+   (seed 0), ``quantized_size`` and the resident weight GiB of both models,
+   ``generate`` of 8 rows x 128 prompt tokens, 128 new greedy, on each: ms per
+   decode step, peak memory, the fused int8 path's call count, the greedy
+   agreement; one decode step's logits on the int8 dense path against the
+   plain one (fp32 dequantized weights, fp32 matmul) within ``TOL``/``REL_TOL``
+   bf16; ``ServeEngine`` on the int8 model with phase 13's burst: TTFT p50,
+   decode tokens/s, 0 leaked blocks; (b) ``speculative_generate`` with the bf16
+   1b as target and its random 1-layer full-width twin as draft, k=4, 4 rows x
+   128 prompt tokens, 64 new greedy: rounds, accept rate, ms per token against
+   plain ``generate``, the token agreement and each mismatch's top-2 gap; then
+   the fp32 1b width at 2 layers with a random and a perfect draft: tokens equal
+   to ``generate``'s but at ties, the counts on the round algebra; (d) per-row
+   adapters (4 tenants, rank 16, ``in_axes=1``) on the 1b forward, each row
+   within ``TOL``/``REL_TOL`` bf16 of its tenant's merged model, then an
+   adapters-only finetune of the 1b (``LoraModel``, 4 steps): base bitwise
+   unchanged, optimizer-state bytes, ms per step, peak memory; (c) phase 5's
+   run at ``precision="int8"`` (set on the stage): launches equal to phase
+   5's, every loss within ``INT8_LOSS_REL`` of phase 5's, the steady step and
+   peak memory; ``quant_train_dot`` at the MLP's shape against its fp32
+   fake-quant plain version (``y``, ``dx`` at ``TOL``/``REL_TOL`` bf16, ``dw`` at
+   fp32).
 
 The last line of standard output is one JSON object with ``"ok": true``. With no
 card, or without the package beside it, the script exits non-zero and prints no
@@ -2997,6 +3019,481 @@ def phase_data(torch, fa, smi: str, p5: dict) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: int8 decode, speculative decoding, int8 training, LoRA
+# ---------------------------------------------------------------------------
+
+#: (a): rows, prompt tokens and new greedy tokens of the int8-vs-bf16 decode
+INT8_DECODE = dict(rows=8, prompt=128, new=128)
+#: (b): draft proposals per round, rows, prompt tokens, new greedy tokens
+SPEC = dict(k=4, rows=4, prompt=128, new=64)
+#: (b): the fp32 check's depth (target) at the 1b width; the draft has one layer
+SPEC_FP32_LAYERS = 2
+#: (c): every int8 train loss within this relative distance of phase 5's
+#: (the reference's own bound, tests/test_quant_train.py:140-155)
+INT8_LOSS_REL = 0.05
+#: (c): the MLP's up projection of one step: x [B*T, hidden] bf16, w [hidden, mlp]
+QTD_SHAPE = dict(m=4 * 2048, k=2048, n=5632)
+#: (d): tenants, rank, and the finetune's steps, rows and length
+LORA = dict(tenants=4, rank=16, alpha=16.0, t=128, steps=4, batch=4, seq=1024)
+
+
+def _resident_gib(model) -> float:
+    """The bytes of ``model``'s tensors (parameters and buffers, each storage
+    once), in GiB."""
+    seen, total = set(), 0
+    for t in list(model.parameters()) + list(model.buffers()):
+        key = t.untyped_storage().data_ptr()
+        if key not in seen:
+            seen.add(key)
+            total += t.untyped_storage().nbytes()
+    return total / 2**30
+
+
+def _timed_generate(torch, model, prompt, new):
+    """``generate``'s tokens, the ms per decode step (the prefill-only call's
+    time taken off) and the peak memory in GiB, after a warm-up call."""
+    from dmlcloud_tpu_torch.models.generate import generate
+
+    generate(model, prompt[:, :16], 2)  # first calls (cuBLAS handles, allocator) outside the timing
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generate(model, prompt, 1)
+    torch.cuda.synchronize()
+    prefill = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tokens = generate(model, prompt, new)
+    torch.cuda.synchronize()
+    full = time.perf_counter() - t0
+    return tokens, (full - prefill) / (new - 1) * 1e3, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _plain_quant_dot(x, qt, dtype):
+    """The plain version of the int8 dense path: dequantize to fp32, then an
+    fp32 matmul, the result cast to ``dtype``."""
+    w = qt.q.float() * qt.scale
+    return (x.float().reshape(-1, x.shape[-1]) @ w.reshape(w.shape[0], -1)).to(dtype).reshape(
+        *x.shape[:-1], *qt.q.shape[1:])
+
+
+def phase_int8_decode(torch, smi: str) -> dict:
+    """(a): ``quantize_tree`` of the bf16 1b, ``generate`` beside the bf16
+    model, one decode step's logits against the plain dense path, the
+    greedy-token agreement; then ``ServeEngine`` on the int8 model."""
+    import numpy as np
+
+    from dmlcloud_tpu_torch.examples.train_lm import PRESETS
+    from dmlcloud_tpu_torch.models import quant
+    from dmlcloud_tpu_torch.models.generate import decode_step, init_cache
+    from dmlcloud_tpu_torch.models.transformer import DecoderLM, TransformerConfig
+    from dmlcloud_tpu_torch.serve import ServeEngine
+
+    cfg = TransformerConfig(vocab_size=32000, max_seq_len=2048, **PRESETS["1b"])
+    _free(torch)
+    base_mem = torch.cuda.memory_allocated()
+    model = DecoderLM(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    bf16_alloc = (torch.cuda.memory_allocated() - base_mem) / 2**30
+    t0 = time.perf_counter()
+    qmodel = quant.quantize_tree(model)
+    torch.cuda.synchronize()
+    q_s = time.perf_counter() - t0
+    q_alloc = (torch.cuda.memory_allocated() - base_mem) / 2**30 - bf16_alloc
+    q_bytes, full_bytes = quant.quantized_size(qmodel)
+    n_quant = sum(isinstance(m, quant.QuantizedTensor) for m in qmodel.modules())
+    log(f"[int8] (a) quantize_tree of the bf16 1b ({n_quant} kernels) in {q_s:.2f} s: quantized_size "
+        f"{q_bytes / 2**30:.3f} GiB int8 vs {full_bytes / 2**30:.3f} GiB bf16 ({full_bytes / q_bytes:.2f}x); resident "
+        f"on the card: bf16 model {_resident_gib(model):.3f} GiB (fp32 master weights, cast per call; allocated "
+        f"{bf16_alloc:.3f}), int8 model {_resident_gib(qmodel):.3f} GiB (int8 kernels, fp32 embedding and norms "
+        f"shared with the bf16 model; the quantized kernels allocated {q_alloc:.3f}) [{smi}]")
+
+    rs = np.random.RandomState(17)
+    d = INT8_DECODE
+    prompt = torch.as_tensor(rs.randint(0, cfg.vocab_size, (d["rows"], d["prompt"]))).cuda()
+    bf16_tokens, bf16_ms, bf16_peak = _timed_generate(torch, model, prompt, d["new"])
+    calls = {"fused": 0}
+    fused = quant._fused_quant_dot
+
+    def counted(*args):
+        calls["fused"] += 1
+        return fused(*args)
+
+    quant._fused_quant_dot = counted
+    try:
+        int8_tokens, int8_ms, int8_peak = _timed_generate(torch, qmodel, prompt, d["new"])
+    finally:
+        quant._fused_quant_dot = fused
+    # one call per kernel per model call: the decode ran the int8 dense path
+    want_calls = n_quant * (3 + d["new"])
+    if calls["fused"] != want_calls:
+        raise AssertionError(f"int8 decode ran the fused int8 path {calls['fused']} times, want {want_calls}")
+    agree = float((int8_tokens == bf16_tokens).float().mean())
+    first = [int((r != 0).nonzero()[0]) if bool((r != 0).any()) else None for r in (int8_tokens != bf16_tokens)]
+    log(f"[int8] (a) generate {d['rows']} rows x {d['prompt']} prompt tokens, {d['new']} new greedy: bf16 "
+        f"{bf16_ms:.2f} ms per decode step, peak {bf16_peak:.2f} GiB; int8 {int8_ms:.2f} ms per decode step, peak "
+        f"{int8_peak:.2f} GiB ({int8_ms / bf16_ms:.3f}x the bf16 step; {calls['fused']} fused int8 dense calls); "
+        f"greedy-token agreement int8 vs bf16 {agree:.4f} (first differing step per row {first}) [{smi}]")
+
+    # one decode step: every int8 dense call held against the plain version on
+    # its own inputs; the LM head's call gives the step's logits
+    t = d["prompt"]
+    held = []
+
+    def checked(x, qt, dtype):
+        y = fused(x, qt, dtype)
+        name = "float32" if dtype == torch.float32 else "bfloat16"
+        held.append((name, *assert_close(torch, y, _plain_quant_dot(x, qt, dtype), name,
+                                         f"int8 dense call {len(held)} ({tuple(x.shape)} x {tuple(qt.q.shape)})")))
+        return y
+
+    logits = {}
+    for name, dot in (("int8", checked), ("plain", _plain_quant_dot)):
+        quant._fused_quant_dot = dot
+        try:
+            cache = init_cache(cfg, d["rows"], t + 1, dtype=cfg.dtype, device="cuda")
+            _, cache = decode_step(qmodel, prompt, cache, attend_len=t)
+            if name == "int8":
+                held.clear()  # the step, not the prefill
+            logits[name] = decode_step(qmodel, int8_tokens[:, :1], cache, offset=t)[0][:, 0]
+        finally:
+            quant._fused_quant_dot = fused
+    calls = list(held)
+    worst = {n: max(((e, r) for m, e, r in calls if m == n), default=(0.0, 0.0)) for n in ("bfloat16", "float32")}
+    log(f"[int8] (a) one decode step ({d['rows']} rows): each of its {len(calls)} int8 dense calls (bf16 operands, "
+        f"fp32-output GEMM, scale on the fp32 accumulator) against the plain version on the same inputs "
+        f"(dequantized fp32 weights, fp32 matmul): worst max abs / norm-relative err {worst['bfloat16'][0]:.3g} / "
+        f"{worst['bfloat16'][1]:.3g} over the bf16 layers (TOL {TOL['bfloat16']}, REL_TOL {REL_TOL['bfloat16']}); "
+        f"the logits (the fp32 LM head's call) {calls[-1][1]:.3g} / {calls[-1][2]:.3g} (TOL {TOL['float32']}, "
+        f"REL_TOL {REL_TOL['float32']}); the whole step run on each path end to end (their bf16 roundings "
+        f"compounding over {cfg.num_layers} layers, not gated): logits {max_err(torch, logits['int8'], logits['plain']):.3g} / "
+        f"{rel_err(torch, logits['int8'], logits['plain']):.3g} [{smi}]")
+    del logits, cache
+
+    # phase 13's burst of 16 requests on the int8 model
+    rs = np.random.RandomState(1)
+    lens = rs.randint(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1, SERVE_REQUESTS)
+    prompts = [rs.randint(0, cfg.vocab_size, n) for n in lens]
+    blocks = -(-(SERVE_PROMPTS[1] + SERVE_NEW) // SERVE_1B["block_size"])
+    engine = ServeEngine(qmodel, num_blocks=SERVE_1B["max_slots"] * blocks, **SERVE_1B)
+    if engine.model is not qmodel:
+        raise AssertionError("the engine widened or rehydrated the int8 kernels on the card")
+    warm = engine.submit(prompts[0][:256], 4)
+    engine.run()
+    if engine.status(warm) != "ok":
+        raise AssertionError(f"warm-up request ended {engine.status(warm)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sched = engine.scheduler
+    rids = [engine.submit(p, SERVE_NEW) for p in prompts]
+    step_ms, rows = [], []
+    t0 = time.perf_counter()
+    while not engine.idle:
+        decode_only = not sched.prefilling and (sched.num_waiting == 0 or sched.active >= sched.max_slots)
+        n = len(sched.running)
+        s0 = time.perf_counter()
+        engine.step()
+        if decode_only and n:
+            step_ms.append((time.perf_counter() - s0) * 1e3)
+            rows.append(n)
+    wall = time.perf_counter() - t0
+    seqs = [engine.sequence(r) for r in rids]
+    if engine.leaked_blocks() or any(s.status != "ok" or len(s.out) != SERVE_NEW for s in seqs):
+        raise AssertionError(f"int8 serving ended with {engine.leaked_blocks()} leaked blocks, statuses "
+                             f"{[s.status for s in seqs]}")
+    engine.pool.assert_consistent()
+    ttft = np.asarray([(s.first_token - s.arrival) * 1e3 for s in seqs])
+    log(f"[int8] (a) ServeEngine on the int8 1b, phase 13's burst ({SERVE_REQUESTS} requests, prompts "
+        f"{SERVE_PROMPTS[0]}-{SERVE_PROMPTS[1]}: {int(lens.sum())} tokens; {SERVE_NEW} new each; {SERVE_1B}): "
+        f"{wall:.2f} s, TTFT p50 {np.percentile(ttft, 50):.1f} ms, p99 {np.percentile(ttft, 99):.1f} ms; "
+        f"{len(step_ms)} decode-only steps, {statistics.median(step_ms):.2f} ms median, "
+        f"{sum(rows) / sum(step_ms) * 1e3:.1f} decode tokens/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; 0 leaked blocks [{smi}]")
+    del engine, qmodel
+    _free(torch)
+    return {"model": model, "cfg": cfg}
+
+
+def _top2_gap(torch, model, prompt_row, tokens) -> float:
+    """The top-2 logit gap of the token after ``prompt_row`` + ``tokens``."""
+    with torch.no_grad():
+        seq = torch.cat([prompt_row, tokens])[None]
+        top = model(seq)[0, -1].topk(2).values
+    return float(top[0] - top[1])
+
+
+def phase_spec(torch, smi: str, model, cfg) -> None:
+    """(b): the bf16 1b verified against its random 1-layer twin; then the
+    fp32 1b width at 2 layers, where tokens and counts are exact."""
+    import dataclasses
+
+    import numpy as np
+
+    from dmlcloud_tpu_torch.models.generate import generate
+    from dmlcloud_tpu_torch.models.speculative import speculative_generate
+    from dmlcloud_tpu_torch.models.transformer import DecoderLM
+
+    sp = SPEC
+    target = model
+    draft = DecoderLM(dataclasses.replace(cfg, num_layers=1), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(1))
+    rs = np.random.RandomState(23)
+    prompt = torch.as_tensor(rs.randint(0, cfg.vocab_size, (sp["rows"], sp["prompt"]))).cuda()
+    speculative_generate(target, draft, prompt[:1, :16], 4, k=sp["k"])  # warm-up
+    generate(target, prompt[:, :16], 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spec, (rounds, advanced, accepted) = speculative_generate(target, draft, prompt, sp["new"], k=sp["k"],
+                                                              return_stats=True)
+    torch.cuda.synchronize()
+    spec_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = generate(target, prompt, sp["new"])
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    rate = float(accepted.sum()) / (float(rounds.sum()) * sp["k"])
+    tokens = sp["rows"] * sp["new"]
+    mismatches = []
+    for r in range(sp["rows"]):
+        diff = (spec[r] != plain[r]).nonzero()
+        if diff.numel():
+            j = int(diff[0])
+            mismatches.append((r, j, round(_top2_gap(torch, target, prompt[r], plain[r, :j]), 5)))
+    log(f"[spec] (b) speculative_generate, bf16 1b target, random 1-layer full-width draft, k={sp['k']}, "
+        f"{sp['rows']} rows x {sp['prompt']} prompt tokens, {sp['new']} new greedy: rounds {rounds.tolist()}, accept "
+        f"rate {rate:.4f}, {spec_s / tokens * 1e3:.2f} ms per generated token vs plain generate "
+        f"{plain_s / tokens * 1e3:.2f} ms ({spec_s / plain_s:.2f}x; rows run one after another, one host read per "
+        f"round); token agreement with plain greedy {float((spec == plain).float().mean()):.4f}; first mismatch per "
+        f"row (row, step, top-2 logit gap of the plain run): {mismatches or 'none'} [{smi}]")
+    del target, draft
+    _free(torch)
+
+    # the fp32 1b width at 2 layers: tokens and counts exact
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, num_layers=SPEC_FP32_LAYERS)
+    target = DecoderLM(cfg32, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    draft = DecoderLM(dataclasses.replace(cfg32, num_layers=1), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(1))
+    out = {}
+    for name, drafter in (("random", draft), ("perfect", target)):
+        out[name] = speculative_generate(target, drafter, prompt, sp["new"], k=sp["k"], return_stats=True)
+    plain = generate(target, prompt, sp["new"])
+    ties = []
+    for name, (toks, (rounds, advanced, accepted)) in out.items():
+        for r in range(sp["rows"]):
+            diff = (toks[r] != plain[r]).nonzero()
+            if diff.numel():
+                j = int(diff[0])
+                gap = _top2_gap(torch, target, prompt[r], plain[r, :j])
+                ties.append((name, r, j, gap))
+                if not gap < TIE_MARGIN:
+                    raise AssertionError(f"fp32 speculative ({name} draft) row {r}: token {int(toks[r, j])} != plain "
+                                         f"{int(plain[r, j])} at step {j}, top-2 gap {gap:.3g} (not a tie)")
+        if not (bool((accepted == advanced - 1 - rounds).all()) and bool((advanced >= sp["new"]).all())
+                and bool((advanced <= sp["new"] + sp["k"]).all())):
+            raise AssertionError(f"fp32 speculative ({name} draft) counts off the round algebra: rounds "
+                                 f"{rounds.tolist()}, advanced {advanced.tolist()}, accepted {accepted.tolist()}")
+    p_rounds, _, p_accepted = out["perfect"][1]
+    if not bool((p_accepted == p_rounds * sp["k"]).all()):
+        raise AssertionError(f"a perfect draft was rejected: rounds {p_rounds.tolist()}, accepted "
+                             f"{p_accepted.tolist()}")
+    log(f"[spec] (b) fp32 1b width at {SPEC_FP32_LAYERS} layers, k={sp['k']}: random draft rounds "
+        f"{out['random'][1][0].tolist()}, accepted {out['random'][1][2].tolist()}; perfect draft rounds "
+        f"{p_rounds.tolist()}, accepted {p_accepted.tolist()} (every proposal); tokens "
+        + ("equal to plain generate's for both drafts" if not ties else f"equal to plain generate's but at ties {ties}")
+        + f"; counts on the round algebra (accepted = advanced - 1 - rounds) [{smi}]")
+    del target, draft
+    _free(torch)
+
+
+def phase_int8_train(torch, fa, smi: str, p5: dict) -> None:
+    """(c): phase 5's run at ``precision="int8"``, then ``quant_train_dot`` at
+    the MLP's shape against its plain version."""
+    from dmlcloud_tpu_torch.models import quant
+
+    pipe, stage = _build(TRAIN_ARGV, precision="int8")
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    pipe.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses, val = _losses(stage)
+    if launches != p5["launches"]:
+        raise AssertionError(f"int8 training launches {launches}, phase 5 {p5['launches']}")
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses, p5["losses"])]
+    if len(losses) != len(p5["losses"]) or not all(math.isfinite(x) for x in losses) or max(rels) > INT8_LOSS_REL:
+        raise AssertionError(f"int8 losses {losses} vs phase 5's {p5['losses']} (relative {rels})")
+    n_layers = len(stage._quant_layers)
+    batch = next(iter(stage._feed(stage.train_dataset())))
+    step_ms, times = steady_ms(torch, stage, batch)
+    log(f"[int8] (c) train_lm 1b at precision=\"int8\" ({n_layers} quantized dense layers): {wall:.1f} s; launches "
+        f"{launches} (phase 5's); losses {[round(x, 4) for x in losses]}, val/loss {val:.4f}, each within "
+        f"{max(rels):.4f} relative of phase 5's (bound {INT8_LOSS_REL}); steady step {step_ms:.1f} ms (median of "
+        f"{[round(t, 1) for t in times]}) vs phase 6's {p5['steady_ms']:.1f} ms; peak memory {peak:.2f} GiB vs "
+        f"phase 5's {PR1_PEAK_GIB} [{smi}]")
+    del stage, pipe, batch
+    _free(torch)
+
+    sh = QTD_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(sh["m"], sh["k"], device="cuda", generator=g).to(torch.bfloat16).requires_grad_(True)
+    w = (torch.randn(sh["k"], sh["n"], device="cuda", generator=g) / math.sqrt(sh["k"])).requires_grad_(True)
+    amax = w.detach().abs().amax(0, keepdim=True)
+    scale = torch.where(amax > 0, amax / 127.0, 1.0)
+    gy = torch.randn(sh["m"], sh["n"], device="cuda", generator=g).to(torch.bfloat16)
+    y = quant.quant_train_dot(x, w, scale)
+    y.backward(gy)
+    wq = torch.clamp(torch.round(w.detach() / scale), -127, 127) * scale  # the plain version: fake-quant in fp32
+    y_ref = (x.detach().float() @ wq).to(torch.bfloat16)
+    dx_ref = (gy.float() @ wq.t()).to(torch.bfloat16)
+    dw_ref = x.detach().float().t() @ gy.float()
+    errs = [assert_close(torch, y.detach(), y_ref, "bfloat16", "quant_train_dot y"),
+            assert_close(torch, x.grad, dx_ref, "bfloat16", "quant_train_dot dx"),
+            assert_close(torch, w.grad, dw_ref, "float32", "quant_train_dot dw")]
+    fwd_ms = cuda_ms(torch, lambda: quant.quant_train_dot(x.detach(), w.detach(), scale))
+    w_bf16 = w.detach().t().contiguous().to(torch.bfloat16)
+    lin_ms = cuda_ms(torch, lambda: torch.nn.functional.linear(x.detach(), w_bf16))
+    log(f"[int8] (c) quant_train_dot at x [{sh['m']}, {sh['k']}] bf16, w [{sh['k']}, {sh['n']}] fp32: y max abs err "
+        f"{errs[0][0]:.3g} / rel {errs[0][1]:.3g}, dx {errs[1][0]:.3g} / {errs[1][1]:.3g} (bf16 TOL/REL_TOL), dw "
+        f"{errs[2][0]:.3g} / {errs[2][1]:.3g} (fp32 TOL/REL_TOL) against the fp32 fake-quant plain version; forward "
+        f"{fwd_ms:.3f} ms (quantize + widen + bf16 GEMM with fp32 output) vs a bf16 F.linear {lin_ms:.3f} ms [{smi}]")
+    del x, w, gy, y
+    _free(torch)
+
+
+def phase_lora(torch, smi: str, model, cfg) -> None:
+    """(d): per-row adapters on the 1b's forward against each tenant's merged
+    model; then an adapters-only finetune of the 1b."""
+    import dataclasses
+
+    import numpy as np
+
+    from dmlcloud_tpu_torch import TrainingPipeline, TrainValStage, optim
+    from dmlcloud_tpu_torch.models import lora
+    from dmlcloud_tpu_torch.models.transformer import DecoderLM, lm_loss
+
+    lo = LORA
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def nonzero_b(node):
+        """The tree with every ``b`` drawn (lora_init's are zero: no delta)."""
+        if isinstance(node, dict):
+            return {k: nonzero_b(v) for k, v in node.items()}
+        return node if node is None else node.replace(b=0.02 * torch.randn(node.b.shape, device="cuda", generator=g))
+
+    tenants = [nonzero_b(lora.lora_init(g, model, rank=lo["rank"], in_axes=1)) for _ in range(lo["tenants"])]
+
+    def stack(*nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack(*(n[k] for n in nodes)) for k in nodes[0]}
+        if nodes[0] is None:
+            return None
+        return lora.LoraPair(a=torch.stack([n.a for n in nodes]),
+                             b=torch.stack([n.b * (lo["alpha"] / lo["rank"]) for n in nodes]))
+
+    rs = np.random.RandomState(29)
+    tokens = torch.as_tensor(rs.randint(0, cfg.vocab_size, (lo["tenants"], lo["t"]))).cuda()
+    ids = torch.arange(lo["tenants"], device="cuda")
+    stacked = stack(*tenants)
+    twin = DecoderLM(dataclasses.replace(cfg, dtype=torch.float32), device="cuda")
+    twin.load_state_dict(model.state_dict())
+    rows = []
+    with torch.no_grad():
+        got, got32 = model(tokens, adapters=(stacked, ids)), twin(tokens, adapters=(stacked, ids))
+        moved = max_err(torch, got, model(tokens))
+        for i, tree in enumerate(tenants):
+            merged = {name: torch.func.functional_call(m, lora.lora_merge(m, tree, lo["alpha"]), (tokens[i : i + 1],))[0]
+                      for name, m in (("bf16", model), ("fp32", twin))}
+            # fp32: the per-row factored delta is the merged weight's, to fp32 rounding
+            err32 = assert_close(torch, got32[i], merged["fp32"], "float32", f"tenant {i}'s fp32 adapted row")
+            # bf16: two roundings of one function; the adapted row may be no
+            # farther from its merged model than twice the merged model's own
+            # bf16 distance from fp32 (phase 13 (b)'s rounding rule), and at
+            # least REL_TOL bf16
+            rounding = rel_err(torch, merged["bf16"], merged["fp32"])
+            bound = max(REL_TOL["bfloat16"], 2 * rounding)
+            rel = rel_err(torch, got[i], merged["bf16"])
+            tol = TOL["bfloat16"]
+            outside = float((~torch.isclose(got[i], merged["bf16"], atol=tol["atol"], rtol=tol["rtol"])).float().mean())
+            if not bool(torch.isfinite(got[i]).all()) or not rel <= bound:
+                raise AssertionError(f"tenant {i}'s bf16 adapted row is {rel:.3g} off its merged model in norm "
+                                     f"(bound {bound:.3g}: the merged model's bf16 distance from fp32 {rounding:.3g})")
+            rows.append(dict(fp32=round(err32[0], 7), bf16_rel=round(rel, 5), bound=round(bound, 5),
+                             max_abs=round(max_err(torch, got[i], merged["bf16"]), 4), outside_tol=round(outside, 6)))
+            del merged
+    log(f"[lora] (d) per-row adapters on the 1b forward: {lo['tenants']} tenants, rank {lo['rank']}, in_axes=1, "
+        f"{lo['tenants']} rows x {lo['t']} tokens, each row against its tenant's merged model: fp32 twin within "
+        f"TOL/REL_TOL fp32 (max abs err per row {[r['fp32'] for r in rows]}); bf16 norm-relative "
+        f"{[r['bf16_rel'] for r in rows]} against bounds {[r['bound'] for r in rows]}, max abs err "
+        f"{[r['max_abs'] for r in rows]}, share of logits outside TOL bf16 {[r['outside_tol'] for r in rows]}; the "
+        f"adapters move the bf16 logits by up to {moved:.3g} [{smi}]")
+    del got, got32, twin, stacked
+    _free(torch)
+
+    seq_cfg = dataclasses.replace(cfg, attn_impl="flash", max_seq_len=lo["seq"])
+    data = [{"tokens": rs.randint(0, cfg.vocab_size, (lo["batch"], lo["seq"])).astype(np.int64)}
+            for _ in range(lo["steps"])]
+
+    class LoraStage(TrainValStage):
+        def pre_stage(self):
+            base_model = DecoderLM(seq_cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+            self.snapshot = {n: p.detach().clone() for n, p in base_model.named_parameters()}
+            adapters = lora.lora_init(torch.Generator(device="cuda").manual_seed(4), base_model, rank=lo["rank"])
+            self.pipeline.register_model("lm", lora.LoraModel(base_model, adapters, lo["alpha"]), verbose=False)
+            self.pipeline.register_optimizer("adamw", optim.adamw(1e-3))
+            self.pipeline.register_dataset("train", data, verbose=False)
+
+        def step(self, state, batch):
+            return lm_loss(state.model(batch["tokens"]), batch["tokens"])
+
+        def val_epoch(self):
+            pass
+
+    pipe = TrainingPipeline(name="lora-1b", device="cuda")
+    stage = LoraStage()
+    pipe.append_stage(stage, max_epochs=1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in stage.train_losses]
+    lm = stage.state.model
+    unchanged = all(torch.equal(lm.base.get_buffer(n), p) for n, p in stage.snapshot.items())
+    sd = stage.state.state_dict()
+    opt_bytes = sum(v.numel() * v.element_size() for slot in sd["opt_state"].values() if isinstance(slot, dict)
+                    for v in slot.values())
+    adapter_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    base_bytes = sum(b.numel() * b.element_size() for b in lm.base.buffers())
+    batch = next(iter(stage._feed(stage.train_dataset())))
+    step_ms, times = steady_ms(torch, stage, batch)
+    still = all(torch.equal(lm.base.get_buffer(n), p) for n, p in stage.snapshot.items())
+    if not (unchanged and still) or not all(math.isfinite(x) for x in losses) or opt_bytes > 3 * adapter_bytes:
+        raise AssertionError(f"LoRA finetune: base unchanged {unchanged}/{still}, losses {losses}, optimizer state "
+                             f"{opt_bytes} B vs adapters {adapter_bytes} B")
+    log(f"[lora] (d) adapters-only finetune of the 1b (rank {lo['rank']} on every kernel, flash attention, "
+        f"{lo['steps']} steps of {lo['batch']} x {lo['seq']}): {wall:.1f} s, losses {[round(x, 4) for x in losses]}; "
+        f"base bitwise unchanged ({base_bytes / 2**30:.2f} GiB of buffers); adapters {adapter_bytes / 2**20:.1f} MiB, "
+        f"optimizer state {opt_bytes / 2**20:.1f} MiB; {step_ms:.1f} ms per step (median of "
+        f"{[round(t, 1) for t in times]}); peak memory {peak:.2f} GiB [{smi}]")
+    del stage, pipe, lm, batch
+    _free(torch)
+
+
+def phase_quant_lora(torch, fa, smi: str, p5: dict) -> None:
+    """Phase 17: (a) int8 decode, (b) speculative decoding, (c) int8
+    training, (d) LoRA."""
+    ctx = phase_int8_decode(torch, smi)
+    phase_spec(torch, smi, ctx["model"], ctx["cfg"])
+    phase_lora(torch, smi, ctx["model"], ctx["cfg"])
+    del ctx
+    _free(torch)
+    phase_int8_train(torch, fa, smi, p5)
+
+
 def main() -> None:
     try:
         import torch
@@ -3053,6 +3550,9 @@ def main() -> None:
     t16 = time.perf_counter()
     phase_compiled(torch, fa, dev["smi"], p5)
     log(f"[compiled] phase 16 in {time.perf_counter() - t16:.1f} s")
+    t17 = time.perf_counter()
+    phase_quant_lora(torch, fa, dev["smi"], p5)
+    log(f"[int8] phase 17 in {time.perf_counter() - t17:.1f} s")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values()) + list(bert_rows.values())}))
     print(dev["smi"])

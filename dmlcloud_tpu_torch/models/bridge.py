@@ -56,17 +56,41 @@ def flax_view(shape, how) -> tuple[tuple[int, ...], tuple[int, ...], tuple[int |
     return perm, tuple(flax), tuple(dims)
 
 
-def flax_to_torch(arr: np.ndarray, how, shape) -> np.ndarray:
-    """``arr`` in the flax layout as the torch tensor of ``shape``."""
+def torch_shape(flax_shape, how) -> tuple[int, ...]:
+    """The torch shape whose flax view under ``how`` has ``flax_shape``: the
+    inverse of ``flax_view``'s shape."""
+    kind = how[0] if isinstance(how, tuple) else how
+    if kind == "scalar":
+        return (1,)
+    perm, split = ((tuple(range(len(flax_shape))), None) if kind == "same" else _KINDS[kind])
+    shape = [int(n) for n in flax_shape]
+    if split is not None:
+        shape[split:split + 2] = [shape[split] * shape[split + 1]]
+    out = [0] * len(perm)
+    for i, p in enumerate(perm):
+        out[p] = shape[i]
+    return tuple(out)
+
+
+def _permute(arr, perm):
+    return arr.permute(*perm) if isinstance(arr, torch.Tensor) else arr.transpose(perm)
+
+
+def flax_to_torch(arr, how, shape):
+    """``arr`` (a numpy array or a tensor) in the flax layout as the torch
+    tensor of ``shape``; for a tensor a view where torch can make one."""
     perm, flax, _ = flax_view(shape, how)
     if tuple(arr.shape) != flax:
-        raise ValueError(f"flax shape {arr.shape} does not fit torch {tuple(shape)} under {how!r}")
-    return arr.reshape([shape[p] for p in perm]).transpose(np.argsort(perm))
+        raise ValueError(f"flax shape {tuple(arr.shape)} does not fit torch {tuple(shape)} under {how!r}")
+    return _permute(arr.reshape([shape[p] for p in perm]), tuple(int(i) for i in np.argsort(perm)))
 
 
-def torch_to_flax(arr: np.ndarray, how) -> np.ndarray:
+def torch_to_flax(arr, how):
+    """``arr`` (a numpy array or a tensor) in the flax layout under ``how``;
+    for a tensor a view where torch can make one, through which autograd
+    reaches ``arr``."""
     perm, flax, _ = flax_view(arr.shape, how)
-    return arr.transpose(perm).reshape(flax)
+    return _permute(arr, perm).reshape(flax)
 
 
 @torch.no_grad()

@@ -6,6 +6,12 @@ Counterpart of ``dmlcloud_tpu/models/generate.py``: ``init_cache`` (:39),
 ``sample_logits_batched`` (:178), ``_pad_len_from_mask`` (:264), ``_check_len``
 (:282), ``generate`` (:289) and ``beam_search`` (:426).
 
+A model whose weights ``models.quant.quantize_tree`` quantized decodes as the
+reference decodes an int8 tree: ``generate`` and ``beam_search`` call
+``prepare_decode_params`` once per call (the reference's in-program
+``dequant_tree``/``widen_quant_tree``), and every model call runs the int8
+dense layers.
+
 The reference compiles each generation as one XLA program: a prefill, then at
 most ``_DECODE_CHUNKS`` ``lax.scan`` segments, each reading a statically
 bounded prefix of the cache (``attend_len``) that grows with the fill. Here
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from ..parallel.runtime import resolve_device
+from .quant import prepare_decode_params
 from .transformer import DecoderLM, TransformerConfig
 
 #: The most segments a decode is split into: within a segment every step reads
@@ -201,6 +208,7 @@ def generate(
     b, t = prompt.shape
     _check_len(model, t, max_new_tokens)
     pad_len = _pad_len_from_mask(prompt_mask, b, t, device)
+    model = prepare_decode_params(model, model.cfg.dtype)  # int8 kernels stay int8; the rest as it was
     # the cache in the model's compute dtype, so fp32 configs stay exact
     cache = init_cache(model.cfg, b, t + max_new_tokens, dtype=model.cfg.dtype, device=device)
     # prefill: one pass over the whole prompt fills slots [0, t); left padding
@@ -254,6 +262,7 @@ def beam_search(
     if not 0 <= pad_id < v:
         raise ValueError(f"pad_id must be in [0, vocab_size), got {pad_id}")
     pad_len = _pad_len_from_mask(prompt_mask, b, t, device)
+    model = prepare_decode_params(model, model.cfg.dtype)
     k = num_beams
     neg = -1e30
 

@@ -8,8 +8,15 @@ the packed ``segment_ids`` branch), ``MLP`` (:371), ``DecoderBlock`` (:388),
 decode modes of ``Attention``/``DecoderBlock``/``DecoderLM`` (:236-368,
 :393-432, :458-568): a dense KV cache stepped at ``offset`` with bounded reads
 (``attend_len``) and left-padded ragged prompts (``pad_len``), and paged
-decode through a block pool (``pages``, ``ops/paged_attention.py``). LoRA
-adapters, MoE and int8 come in later slices.
+decode through a block pool (``pages``, ``ops/paged_attention.py``). Every
+projection is a quant-aware dense layer (``models/quant.py`` ``QuantDense``/
+``QuantDenseGeneral``, the reference's :240-251, :362-367, :376-385,
+:554-560): a plain weight multiplies as before, an int8 ``QuantizedTensor``
+(``quantize_tree``) through the fused int8 dot, and under
+``TrainValStage(precision="int8")`` through ``quant_train_dot``. Per-row LoRA
+adapters (``adapters=(stacked_tree, ids)``, ``_adapter_add``, :210-228) add
+each row's own delta in the dense and decode modes. MoE comes with a later
+slice (ROADMAP Queue 1 item 4).
 
 A cache is the reference's tree, ``{"layer_i": {"k", "v"}}``, and is written
 IN PLACE: the JAX model returns an updated copy (``dynamic_update_slice``, a
@@ -58,6 +65,7 @@ from ..ops.ring_attention import ring_attention_sharded, seq_group
 from ..parallel.runtime import resolve_device
 from ..parallel.tensor_parallel import ModelGroup, copy_to_model, gather_from_model, local_tensor, reduce_from_model
 from .bridge import Row, dump_tree, load_tree
+from .quant import QuantDense, QuantDenseGeneral, _dump_quantized, _load_quantized
 
 
 @dataclass(frozen=True)
@@ -179,13 +187,25 @@ def _dot_attention(q, k, v, causal: bool = True, mask: torch.Tensor | None = Non
     return out.reshape(b, t, h, d)
 
 
-def _dense(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """flax Dense with ``dtype``: operands cast to ``dtype``, result in ``dtype``."""
-    return F.linear(x.to(dtype), weight.to(dtype))
+def _adapter_add(y: torch.Tensor, inp: torch.Tensor, name: str, adapters) -> torch.Tensor:
+    """``y`` plus the per-row LoRA delta of dense ``name`` when ``adapters``
+    carries a stacked pair for it. ``adapters`` is ``(subtree, ids)``: the
+    ``lora_init``-shaped subtree of the enclosing module (``LoraPair`` leaves
+    with ``a`` ``[N, d_in, r]`` and ``b`` ``[N, r, d_out]``, ``b`` pre-scaled by
+    alpha/rank) and the rows' adapter ids ``[B]``; or None. The delta is
+    ``lora.batched_lora_delta``'s fp32 ``(x @ a) @ b``, cast to ``y``'s dtype."""
+    if adapters is None:
+        return y
+    from .lora import LoraPair, batched_lora_delta
 
-
-def _linear(in_features: int, out_features: int, device) -> nn.Linear:
-    return nn.Linear(in_features, out_features, bias=False, device=device, dtype=torch.float32)
+    sub, ids = adapters
+    pair = (sub or {}).get(name)
+    if isinstance(pair, dict):
+        pair = pair.get("kernel")
+    if not isinstance(pair, LoraPair):
+        return y
+    delta = batched_lora_delta(inp, pair.a[ids], pair.b[ids])
+    return y + delta.reshape(y.shape).to(y.dtype)
 
 
 class Attention(nn.Module):
@@ -199,29 +219,29 @@ class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        d, h, kh, hd = cfg.hidden_dim, cfg.num_heads, cfg.kv_heads, cfg.head_dim
-        self.q_proj = _linear(d, h * hd, device)
-        self.k_proj = _linear(d, kh * hd, device)
-        self.v_proj = _linear(d, kh * hd, device)
-        self.o_proj = _linear(h * hd, d, device)
+        d, h, kh, hd, dt = cfg.hidden_dim, cfg.num_heads, cfg.kv_heads, cfg.head_dim, cfg.dtype
+        self.q_proj = QuantDenseGeneral(d, (h, hd), dt, device)
+        self.k_proj = QuantDenseGeneral(d, (kh, hd), dt, device)
+        self.v_proj = QuantDenseGeneral(d, (kh, hd), dt, device)
+        self.o_proj = QuantDense(h * hd, d, dt, device)
         self.tp: ModelGroup | None = None
         #: the ``seq`` group ring attention runs over (``apply_sequence_parallel``)
         self.seq: ModelGroup | None = None
 
     def forward(self, x, cos, sin, seg_info=None, cache=None, offset=0, decode_pad=None, attend_len=None,
-                paged=None):
+                paged=None, adapters=None):
         """The attention block's output; with ``cache`` (decode mode) also the
         cache, written in place: ``(out, cache)``."""
         cfg = self.cfg
         b, t, _ = x.shape
         hd = cfg.head_dim
-        wq, wk, wv, wo = (local_tensor(m.weight) for m in (self.q_proj, self.k_proj, self.v_proj, self.o_proj))
-        h, kh = wq.shape[0] // hd, wk.shape[0] // hd
         if self.tp is not None:
             x = copy_to_model(x, self.tp)
-        q = _dense(x, wq, cfg.dtype).view(b, t, h, hd)
-        k = _dense(x, wk, cfg.dtype).view(b, t, kh, hd)
-        v = _dense(x, wv, cfg.dtype).view(b, t, kh, hd)
+        # [B, T, heads, hd]: this rank's heads under tensor parallelism
+        q = _adapter_add(self.q_proj(x), x, "q_proj", adapters)
+        k = _adapter_add(self.k_proj(x), x, "k_proj", adapters)
+        v = _adapter_add(self.v_proj(x), x, "v_proj", adapters)
+        h = q.shape[2]
         if cache is not None:
             # the decode modes: paged rows sit at their own absolute positions,
             # left-padded rows count from their first real token
@@ -229,7 +249,8 @@ class Attention(nn.Module):
             q = apply_rope(q, cos, sin, offset=offset, positions=positions)
             k = apply_rope(k, cos, sin, offset=offset, positions=positions)
             out, cache = _decode_attention(cfg, q, k, v, cache, offset, decode_pad, attend_len, paged)
-            return _dense(out.reshape(b, t, h * hd), wo, cfg.dtype), cache
+            out = out.reshape(b, t, h * hd)
+            return _adapter_add(self.o_proj(out), out, "o_proj", adapters), cache
         if seg_info is not None:
             # packed rows: positions restart per segment; attention is causal
             # AND same-segment (flash masks from the raw ids, dot from the mask)
@@ -257,7 +278,8 @@ class Attention(nn.Module):
                 out = _dot_attention(q, k, v, mask=(q_pos >= k_pos) & _window_keep(q_pos, k_pos, cfg.sliding_window))
             else:
                 out = _dot_attention(q, k, v, causal=True)
-        out = _dense(out.reshape(b, t, h * hd), wo, cfg.dtype)
+        out = out.reshape(b, t, h * hd)
+        out = _adapter_add(self.o_proj(out), out, "o_proj", adapters)
         return out if self.tp is None else reduce_from_model(out, self.tp)
 
 
@@ -309,18 +331,18 @@ class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        self.gate_proj = _linear(cfg.hidden_dim, cfg.mlp_dim, device)
-        self.up_proj = _linear(cfg.hidden_dim, cfg.mlp_dim, device)
-        self.down_proj = _linear(cfg.mlp_dim, cfg.hidden_dim, device)
+        self.gate_proj = QuantDense(cfg.hidden_dim, cfg.mlp_dim, cfg.dtype, device)
+        self.up_proj = QuantDense(cfg.hidden_dim, cfg.mlp_dim, cfg.dtype, device)
+        self.down_proj = QuantDense(cfg.mlp_dim, cfg.hidden_dim, cfg.dtype, device)
         self.tp: ModelGroup | None = None
 
-    def forward(self, x):
-        dt = self.cfg.dtype
+    def forward(self, x, adapters=None):
         if self.tp is not None:
             x = copy_to_model(x, self.tp)
-        gate, up = local_tensor(self.gate_proj.weight), local_tensor(self.up_proj.weight)
-        h = F.silu(_dense(x, gate, dt)) * _dense(x, up, dt)
-        out = _dense(h, local_tensor(self.down_proj.weight), dt)
+        gate = _adapter_add(self.gate_proj(x), x, "gate_proj", adapters)
+        up = _adapter_add(self.up_proj(x), x, "up_proj", adapters)
+        h = F.silu(gate) * up
+        out = _adapter_add(self.down_proj(h), h, "down_proj", adapters)
         return out if self.tp is None else reduce_from_model(out, self.tp)
 
 
@@ -334,9 +356,19 @@ def _compiled_once(fn):
 
 
 @_compiled_once
-def _block_forward(block: "DecoderBlock", x, cos, sin, seg_info):
-    x = x + block.attn(block.attn_norm(x), cos, sin, seg_info=seg_info)
-    return x + block.mlp(block.mlp_norm(x))
+def _block_forward(block: "DecoderBlock", x, cos, sin, seg_info, adapters=None):
+    attn_ad, mlp_ad = _split_adapters(adapters)
+    x = x + block.attn(block.attn_norm(x), cos, sin, seg_info=seg_info, adapters=attn_ad)
+    return x + block.mlp(block.mlp_norm(x), adapters=mlp_ad)
+
+
+def _split_adapters(adapters):
+    """A layer's ``(subtree, ids)`` as its attention's and its MLP's (the ids
+    ride along), or ``(None, None)``."""
+    if adapters is None:
+        return None, None
+    sub, ids = adapters
+    return ((sub or {}).get("attn"), ids), ((sub or {}).get("mlp"), ids)
 
 
 class DecoderBlock(nn.Module):
@@ -348,13 +380,14 @@ class DecoderBlock(nn.Module):
         self.mlp = MLP(cfg, device)
 
     def forward(self, x, cos, sin, seg_info=None, cache=None, offset=0, decode_pad=None, attend_len=None,
-                paged=None):
+                paged=None, adapters=None):
         if cache is None:
-            return _block_forward(self, x, cos, sin, seg_info)
+            return _block_forward(self, x, cos, sin, seg_info, adapters)
+        attn_ad, mlp_ad = _split_adapters(adapters)
         attn_out, cache = self.attn(self.attn_norm(x), cos, sin, cache=cache, offset=offset, decode_pad=decode_pad,
-                                    attend_len=attend_len, paged=paged)
+                                    attend_len=attend_len, paged=paged, adapters=attn_ad)
         x = x + attn_out
-        return x + self.mlp(self.mlp_norm(x)), cache
+        return x + self.mlp(self.mlp_norm(x), adapters=mlp_ad), cache
 
 
 class DecoderLM(nn.Module):
@@ -371,6 +404,12 @@ class DecoderLM(nn.Module):
     row reads and writes the pool blocks its table names at its own absolute
     position. ``return_hidden=True`` without a cache returns the final hidden
     states instead of logits; with a cache, ``((logits, hidden), cache)``.
+    ``adapters=(stacked_tree, ids)`` adds per-row LoRA deltas, each row's
+    factors gathered by its adapter id, in every dense layer and the LM head
+    (multi-tenant serving; ``_adapter_add``).
+
+    A weight may be an int8 ``QuantizedTensor`` (``models.quant.quantize_tree``):
+    its layer then multiplies through the int8 path.
 
     Parameters live on ``device`` (default ``cuda``; raises without a card
     unless ``device="cpu"``), initialised from ``generator`` (default: seed 0
@@ -385,7 +424,9 @@ class DecoderLM(nn.Module):
         self.embed = nn.Embedding(cfg.vocab_size, cfg.hidden_dim, device=device, dtype=torch.float32)
         self.layers = nn.ModuleList(DecoderBlock(cfg, device) for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.hidden_dim, device=device)
-        self.lm_head = None if cfg.tie_embeddings else _linear(cfg.hidden_dim, cfg.vocab_size, device)
+        # the LM head multiplies in fp32 (flax QuantDense(dtype=float32))
+        self.lm_head = None if cfg.tie_embeddings else QuantDense(cfg.hidden_dim, cfg.vocab_size, torch.float32,
+                                                                  device)
         cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta, cfg.rope_scaling, device)
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
@@ -481,16 +522,17 @@ class DecoderLM(nn.Module):
         slots; ``attend_len``, the cache slots read; ``pages = (tables [B, NB],
         fill [B])``."""
         cfg = self.cfg
-        if adapters is not None:
-            raise NotImplementedError("per-row LoRA adapters are not ported yet (ROADMAP Queue 1 items 4 and 9: "
-                                      "models/lora.py)")
         if pad_len is not None and cache is None:
             raise ValueError("pad_len (left-padded ragged prompts) is a decode-mode feature")
         if attend_len is not None and cache is None:
             raise ValueError("attend_len (bounded cache reads) is a decode-mode feature")
-        if cache is not None and any(g is not None for g in (self.tp_embed, self.tp_head, *(
-                m.tp for layer in self.layers for m in (layer.attn, layer.mlp)))):
+        tensor_parallel = any(g is not None for g in (self.tp_embed, self.tp_head, *(
+            m.tp for layer in self.layers for m in (layer.attn, layer.mlp))))
+        if cache is not None and tensor_parallel:
             raise NotImplementedError("decode under tensor parallelism is not ported yet (ROADMAP Queue 1 item 4)")
+        if adapters is not None and tensor_parallel:
+            raise NotImplementedError("per-row LoRA adapters under tensor parallelism are not ported yet (ROADMAP "
+                                      "Queue 1 item 4)")
         paged = None
         if pages is not None:
             # rows sit at their own absolute positions (no left-padding), so
@@ -532,25 +574,34 @@ class DecoderLM(nn.Module):
         if self.tp_embed is not None:
             x = gather_from_model(x, self.tp_embed, dim=-1)
         new_cache = None if cache is None else {}
+        adapter_tree, adapter_ids = adapters if adapters is not None else (None, None)
         for i, layer in enumerate(self.layers):
+            name = f"layer_{i}"
+            layer_ad = None
+            if adapter_tree is not None and adapter_tree.get(name) is not None:
+                layer_ad = (adapter_tree[name], adapter_ids)
             if cache is not None:
-                name = f"layer_{i}"
                 x, new_cache[name] = layer(x, self.rope_cos, self.rope_sin, cache=cache[name], offset=offset,
-                                           decode_pad=decode_pad, attend_len=attend_len, paged=paged)
+                                           decode_pad=decode_pad, attend_len=attend_len, paged=paged,
+                                           adapters=layer_ad)
             elif cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, self.rope_cos, self.rope_sin, seg_info, use_reentrant=False)
+                x = checkpoint(layer, x, self.rope_cos, self.rope_sin, seg_info, adapters=layer_ad,
+                               use_reentrant=False)
             else:
-                x = layer(x, self.rope_cos, self.rope_sin, seg_info=seg_info)
+                x = layer(x, self.rope_cos, self.rope_sin, seg_info=seg_info, adapters=layer_ad)
         x = self.final_norm(x)
+        head_ad = None if adapter_tree is None else (adapter_tree, adapter_ids)
         if new_cache is not None:
-            logits = self._logits(x)
+            logits = self._logits(x, head_ad)
             return ((logits, x) if return_hidden else logits), new_cache
         if return_hidden:
             return x
-        return self._logits(x)
+        return self._logits(x, head_ad)
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """The fp32 LM head on the final hidden states."""
+    def _logits(self, x: torch.Tensor, adapters=None) -> torch.Tensor:
+        """The fp32 LM head on the final hidden states (plus the per-row
+        adapters' ``lm_head`` delta; a tied head takes none, as the
+        reference's)."""
         cfg = self.cfg
         if cfg.tie_embeddings:
             head = local_tensor(self.embed.weight)
@@ -560,12 +611,11 @@ class DecoderLM(nn.Module):
             tp = self.tp_embed
             x = copy_to_model(x, tp).narrow(-1, tp.rank * head.shape[1], head.shape[1])
             return reduce_from_model(F.linear(x.float(), head.float()), tp)
-        head = local_tensor(self.lm_head.weight)
         if self.tp_head is None:
-            return F.linear(x.float(), head.float())
+            return _adapter_add(self.lm_head(x), x, "lm_head", adapters)
         # vocab-parallel head: each rank's logits slice, gathered into the full
         # fp32 logits that lm_loss takes
-        return gather_from_model(F.linear(copy_to_model(x, self.tp_head).float(), head.float()), self.tp_head)
+        return gather_from_model(self.lm_head(copy_to_model(x, self.tp_head)), self.tp_head)
 
 
 def lm_head_kernel(model) -> tuple[torch.Tensor, ModelGroup | None]:
@@ -705,15 +755,35 @@ def load_flax_params(model: DecoderLM, tree: dict, tensors: dict[str, torch.Tens
     """Copy the JAX ``DecoderLM``'s params (a nested dict of numpy arrays,
     with or without the top-level ``"params"`` key) into ``model``, or into
     ``tensors``, a dict by parameter name in ``model``'s layout (the EMA
-    shadow ``TrainState.ema`` carries the JAX ``TrainState.ema`` tree so)."""
-    load_tree(tree.get("params", tree), _flax_layout(model.cfg),
-              dict(model.named_parameters() if tensors is None else tensors))
+    shadow ``TrainState.ema`` carries the JAX ``TrainState.ema`` tree so). A
+    quantized leaf (the reference's ``QuantizedTensor``, or a ``{"q", "scale"}``
+    dict) becomes the model's ``QuantizedTensor`` there, byte for byte."""
+    tree = tree.get("params", tree)
+    rows = _flax_layout(model.cfg)
+    if tensors is None:
+        rows = _load_quantized(model, tree, rows)
+    load_tree(tree, rows, dict(model.named_parameters() if tensors is None else tensors))
     return model
 
 
 def to_flax_params(model: DecoderLM, tensors: dict[str, torch.Tensor] | None = None) -> dict:
     """The inverse of ``load_flax_params``: a nested dict of float32 numpy
     arrays in the JAX ``DecoderLM``'s layout, from ``model``'s parameters or
-    from ``tensors`` in their layout. The parameters of a sharded model are
-    gathered to full tensors (on every rank)."""
-    return dump_tree(_flax_layout(model.cfg), dict(model.named_parameters() if tensors is None else tensors))
+    from ``tensors`` in their layout; a quantized weight as ``{"q": int8,
+    "scale": float32}``. The parameters of a sharded model are gathered to
+    full tensors (on every rank)."""
+    rows = _flax_layout(model.cfg)
+    if tensors is not None:
+        return dump_tree(rows, tensors)
+    quantized, rows = _dump_quantized(model, rows)
+    tree = dump_tree(rows, dict(model.named_parameters()))
+    _merge(tree, quantized)
+    return tree
+
+
+def _merge(dst: dict, src: dict) -> None:
+    for key, value in src.items():
+        if isinstance(value, dict) and set(value) != {"q", "scale"}:
+            _merge(dst.setdefault(key, {}), value)
+        else:
+            dst[key] = value

@@ -30,9 +30,12 @@ deadline_exceeded | shed | error``) through one exit path
 raises fails only the requests it was advancing (status ``error``, logged with
 its traceback) and the engine keeps serving the others.
 
+``prepare_decode_params`` runs once at construction, so an int8 model
+(``models.quant.quantize_tree``) serves with its kernels int8.
+
 Not ported yet, each raising ``NotImplementedError`` when given: speculative
 and Medusa decoding, LoRA adapters and the prefix cache (ROADMAP Queue 1
-items 9 and 10), the ledger, metrics, SLOs, watchdog, preemption and drain
+item 10), the ledger, metrics, SLOs, watchdog, preemption and drain
 (the serve telemetry and drain), the construction-time IR verify (item 13)
 and ``hbm_budget``. ``batch_buckets``/``table_buckets`` only pad shapes for
 XLA's compile cache in the reference; the port has no compile cache, so they
@@ -50,6 +53,7 @@ import numpy as np
 import torch
 
 from ..models.generate import decode_step, sample_logits_batched
+from ..models.quant import prepare_decode_params
 from .kv_pool import KVBlockPool
 from .scheduler import Scheduler, Request, _Sequence
 
@@ -84,13 +88,13 @@ def _paged_step(model, pools, tables, fill, tokens, last_idx, generator, tempera
 #: constructor arguments of the reference that wait for a later slice: their
 #: defaults, and what they wait for
 _NOT_PORTED = {
-    "spec_k": (0, "speculative decoding (ROADMAP Queue 1 items 9 and 10)"),
-    "draft_model": (None, "speculative decoding (ROADMAP Queue 1 items 9 and 10)"),
-    "draft_params": (None, "speculative decoding (ROADMAP Queue 1 items 9 and 10)"),
-    "draft_num_blocks": (None, "speculative decoding (ROADMAP Queue 1 items 9 and 10)"),
-    "medusa_k": (0, "Medusa decoding (ROADMAP Queue 1 items 9 and 10)"),
-    "medusa_heads": (None, "Medusa decoding (ROADMAP Queue 1 items 9 and 10)"),
-    "adapters": (None, "multi-tenant LoRA adapters (ROADMAP Queue 1 items 9 and 10)"),
+    "spec_k": (0, "speculative decoding (ROADMAP Queue 1 item 10)"),
+    "draft_model": (None, "speculative decoding (ROADMAP Queue 1 item 10)"),
+    "draft_params": (None, "speculative decoding (ROADMAP Queue 1 item 10)"),
+    "draft_num_blocks": (None, "speculative decoding (ROADMAP Queue 1 item 10)"),
+    "medusa_k": (0, "Medusa decoding (ROADMAP Queue 1 item 10)"),
+    "medusa_heads": (None, "Medusa decoding (ROADMAP Queue 1 item 10)"),
+    "adapters": (None, "multi-tenant LoRA adapters (ROADMAP Queue 1 item 10)"),
     "prefix_cache": (False, "prefix sharing (ROADMAP Queue 1 item 10)"),
     "run_dir": (None, "the serve telemetry and drain (ROADMAP Queue 1 item 10)"),
     "drain_budget_s": (5.0, "the serve telemetry and drain (ROADMAP Queue 1 item 10)"),
@@ -154,8 +158,9 @@ class ServeEngine:
             if value != default:
                 raise NotImplementedError(f"ServeEngine({name}=...) needs {what}, which is not ported yet")
         del batch_buckets, table_buckets  # XLA compile-cache buckets: nothing to pad here
-        self.model = model
         cfg = model.cfg
+        # one-time preparation: int8 kernels stay int8 (models/quant.py)
+        self.model = model = prepare_decode_params(model, cfg.dtype)
         self.device = model.embed.weight.device
         max_table = -(-cfg.max_seq_len // block_size)
         if num_blocks is None:
@@ -212,8 +217,8 @@ class ServeEngine:
         ``adapter`` (a LoRA tenant) and ``trace`` (a request-trace id) wait for
         adapters and the serve telemetry and raise when given."""
         if adapter is not None:
-            raise NotImplementedError("submit(adapter=...) needs multi-tenant LoRA adapters (ROADMAP Queue 1 items 9 "
-                                      "and 10), which are not ported yet")
+            raise NotImplementedError("submit(adapter=...) needs multi-tenant LoRA adapters in the engine (ROADMAP "
+                                      "Queue 1 item 10), which are not ported yet")
         if trace is not None:
             raise NotImplementedError("submit(trace=...) needs the serve telemetry (ROADMAP Queue 1 item 10), which "
                                       "is not ported yet")

@@ -29,8 +29,8 @@ its deficit but not the pool is sticky, so starvation-freedom survives).
 
 The hooks for a second (draft) pool, a speculative ``lookahead`` and a prefix
 cache are the reference's too; the port's engine passes none of them yet
-(speculative decoding and prefix sharing wait for ROADMAP Queue 1 items 9
-and 10). The scheduler is pure host-side bookkeeping; the engine owns every
+(speculative decoding and prefix sharing in the engine wait for ROADMAP
+Queue 1 item 10). The scheduler is pure host-side bookkeeping; the engine owns every
 device interaction.
 """
 

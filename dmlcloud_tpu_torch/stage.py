@@ -70,12 +70,25 @@ What carries over unchanged:
   ``misc/recompiles`` counts signatures that compiled mid-run. Without either
   the step is the eager one above.
 
-Int8 training, compiled steps on a mesh (``fsdp``, ``model``, ``seq``,
-``pipe``) and the lint/verify/sanitize arms come in later slices.
+- quantized training (stage.py:318-333, :409-416, :638-645, :674-716 of the
+  reference): ``TrainValStage(precision="int8")`` (or a ``precision()``
+  override) runs the train forward's matched dense layers through
+  ``models.quant.quant_train_dot`` with a per-channel scale delayed by one
+  step. ``make_state`` seeds the amax from the initial weights into a
+  persistent ``quant_amax`` buffer of each layer (so it rides the
+  checkpoint's ``"extras"``); after every update it is refreshed from the
+  updated weights, once per step whatever the microbatch count. The
+  optimizer, the EMA and checkpoints see plain fp32 parameters, and
+  validation runs at full precision.
+
+Compiled steps on a mesh (``fsdp``, ``model``, ``seq``, ``pipe``), int8
+training on such a mesh, and the lint/verify/sanitize arms come in later
+slices.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -404,8 +417,13 @@ class TrainValStage(Stage):
     in ``_pre_stage`` (override ``make_state`` to customise).
     """
 
-    def __init__(self):
+    def __init__(self, precision: str = "full"):
         super().__init__()
+        if precision not in ("full", "int8"):
+            raise ValueError(f'precision must be "full" or "int8", got {precision!r}')
+        self._precision = str(precision)
+        #: the dense layers the train forward quantizes (``precision() == "int8"``)
+        self._quant_layers: list = []
         self.is_train = True
         self.state: TrainState | None = None
         #: accumulates the wall-clock the host spends blocked on the device
@@ -494,6 +512,13 @@ class TrainValStage(Stage):
     def gradient_clip(self) -> float:
         """Global-norm clip threshold; 0 disables."""
         return 0.0
+
+    def precision(self) -> str:
+        """Matmul precision of the train step: ``"full"`` (the model's own
+        dtype) or ``"int8"`` (quantized training, ``models/quant.py``). A knob
+        method like its neighbours: a subclass may override it instead of
+        passing the constructor's argument."""
+        return self._precision
 
     def gradient_accumulation(self) -> int:
         """Microbatches per optimizer step (1 disables). Each batch is split
@@ -658,9 +683,16 @@ class TrainValStage(Stage):
         return None
 
     def make_state(self) -> TrainState:
-        """Build the TrainState from the pipeline registries."""
+        """Build the TrainState from the pipeline registries. At
+        ``precision() == "int8"`` it seeds the delayed amax from the initial
+        weights (step 1 quantizes with them, every later step with the
+        previous step's updated ones)."""
         entry = self.pipeline._model_entry(self.model_name())
         opt_name = self.pipeline._optimizer_for(entry.name)
+        if self.precision() == "int8":
+            from .models.quant import _seed_quant_training
+
+            self._quant_layers = _seed_quant_training(entry.module)
         return TrainState.create(
             model=entry.module,
             tx=self.pipeline.optimizers[opt_name],
@@ -731,10 +763,23 @@ class TrainValStage(Stage):
         return loss, metrics
 
     def _forward(self, batch) -> tuple[torch.Tensor, dict]:
-        """The user's forward and loss: the compiled region when armed."""
-        if self._train_fwd is not None:
-            return self._train_fwd(batch)
-        return self._forward_loss(batch)
+        """The user's forward and loss: the compiled region when armed; the
+        quantized layers quantize inside it (``precision() == "int8"``)."""
+        with self._quant_training():
+            if self._train_fwd is not None:
+                return self._train_fwd(batch)
+            return self._forward_loss(batch)
+
+    @contextlib.contextmanager
+    def _quant_training(self):
+        layers = self._quant_layers
+        for m in layers:
+            m.quant_train = True
+        try:
+            yield
+        finally:
+            for m in layers:
+                m.quant_train = False
 
     def _forward_loss(self, batch) -> tuple[torch.Tensor, dict]:
         return self._unpack(self.train_step(self.state, batch))
@@ -828,6 +873,11 @@ class TrainValStage(Stage):
             decay = float(self.ema_decay())
             if decay > 0.0:
                 state.update_ema(decay)
+        if self._quant_layers:
+            # delayed scaling: the next step quantizes with this step's updated weights
+            from .models.quant import _refresh_amax
+
+            _refresh_amax(self._quant_layers)
         metrics[self.loss_metric_name()] = loss.detach()
         return metrics
 
@@ -1118,6 +1168,10 @@ class TrainValStage(Stage):
             self.state = self.make_state()
         models = self.pipeline.models
         self._plan = self.pipeline._model_entry(self.model_name()).plan if models else None
+        if self._quant_layers and self._plan is not None and any(a in self._plan.axes for a in (FSDP, MODEL, SEQ,
+                                                                                                 PIPE)):
+            raise NotImplementedError(f'precision="int8" on a mesh with axes {sorted(self._plan.axes)} is not ported '
+                                      "yet (ROADMAP Queue 1 item 4); the 'data' axis (sharding='replicate') is")
         if models:
             entry = self.pipeline._model_entry(self.model_name())
             self._sharding = self._plan.record if self._plan is not None else sharding_record(

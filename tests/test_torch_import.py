@@ -12,7 +12,8 @@ one-rank ``pipe`` group and restores a save without a template
 (``restore_state(mesh=)``), decodes (``train_lm --sample``, ``generate``,
 ``beam_search``, ``examples.generate_text``) and serves requests through
 ``ServeEngine``, trains the CLIP recipe's toy, runs ResNet-18, a BERT with the
-flash path and a ViT, and checks that none of those
+flash path and a ViT, decodes an int8 model and speculatively, wraps a model
+in LoRA adapters, trains at ``precision="int8"``, and checks that none of those
 modules was loaded — and that, on a machine
 without CUDA, entry points called without a device raise instead of running
 on the CPU.
@@ -153,6 +154,20 @@ _SCRIPT = textwrap.dedent(
                float(profile_steps(lambda: torch.ones(2).sum(), 2, tempfile.mkdtemp()))]
     runtime.deinitialize()
 
+    # the slice-13 paths: int8 decode and training, LoRA, speculative decoding
+    from dmlcloud_tpu_torch.models import lora, quant, speculative
+    int8 = generate(quant.quantize_tree(tiny), prompt[None], 4)
+    spec = speculative.speculative_generate(tiny, tiny, prompt[None, :6], 4, k=2)
+    base = generate_text.build_model(argparse.Namespace(prompt_len=12, max_new=4, seed=0, device="cpu"))
+    adapted = lora.LoraModel(base, lora.lora_init(torch.Generator().manual_seed(0), base, rank=2))
+    qpipe, qstage = build(["--device", "cpu", "--epochs", "1", "--n-seqs", "40", "--seq-len", "32"])
+    qstage.precision = lambda: "int8"
+    qpipe.run()
+    slice13 = [list(int8.shape), spec.tolist() == generate(tiny, prompt[None, :6], 4).tolist(),
+               lora.lora_size(adapted.adapters()) > 0 and not list(adapted.base.parameters()),
+               float(qstage.tracker["train/loss"][-1]) > 0]
+    runtime.deinitialize()
+
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in BLOCKED)
     raised = {}
@@ -173,7 +188,7 @@ _SCRIPT = textwrap.dedent(
     print(json.dumps({"modules": modules, "loaded": loaded, "loss": loss, "goodput": goodput, "raised": raised,
                       "mnist_acc": mnist_acc, "collectives": collectives, "pod": [pod_loss, pod_fsdp],
                       "slice8": slice8, "slice9": slice9, "slice10": slice10,
-                      "slice11": slice11, "slice12": slice12}))
+                      "slice11": slice11, "slice12": slice12, "slice13": slice13}))
     """
 )
 
@@ -196,7 +211,8 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
                  "models.bridge", "models.resnet", "models.encoder", "models.bert", "models.vit", "models.clip",
                  "examples.pod_clip_vit", "utils.paths", "data.store", "native", "native._lib", "native.pack",
                  "native.interleave", "compile", "compile.aot", "compile.buckets", "compile.cache", "lint",
-                 "lint.traceguard", "telemetry.metrics_registry"):
+                 "lint.traceguard", "telemetry.metrics_registry", "models.quant", "models.lora",
+                 "models.speculative"):
         assert f"dmlcloud_tpu_torch.{name}" in result["modules"], name
     assert result["loss"] == result["loss"] and result["loss"] > 0  # finite, trained
     assert 0 < result["goodput"] <= 1
@@ -212,6 +228,8 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
     assert result["slice11"] == [sum(1 + k % 40 for k in range(120)), True, True, 4], result["slice11"]
     # one precompiled signature, no mid-run compile; the cache configured; the registry's page; the last result
     assert result["slice12"] == [1, [0], True, "# TYPE steps_total counter\nsteps_total 3\n", 2.0], result["slice12"]
+    # int8 tokens, speculative == plain greedy, adapters over a frozen base, an int8 training run
+    assert result["slice13"] == [[1, 4], True, True, True], result["slice13"]
     for name, did_raise in result["raised"].items():
         assert did_raise, f"{name} without a device ran on the CPU instead of raising"
 
