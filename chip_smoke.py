@@ -189,7 +189,24 @@ Phases, each fatal on failure:
    5's, every loss within ``INT8_LOSS_REL`` of phase 5's, the steady step and
    peak memory; ``quant_train_dot`` at the MLP's shape against its fp32
    fake-quant plain version (``y``, ``dx`` at ``TOL``/``REL_TOL`` bf16, ``dw`` at
-   fp32).
+   fp32);
+18. MoE, the 1b-moe configuration (the 1b preset with 8 experts, top-2,
+   capacity factor 1.25, in every second block: ``MOE``): (a) one
+   ``MoEMLP`` at its width (D 2048, M 5632, E 8) on 4 x 2048 bf16 tokens, the
+   index dispatch against the one-hot plain version (output and the
+   gradients of the input and of all four parameter groups within
+   ``TOL``/``REL_TOL`` bf16), the capacity, the dropped (token, choice) share
+   and both forms' ms forward and forward+backward; (b) 1b-moe at 8 layers
+   (4 MoE blocks) through a ``TrainingPipeline`` whose step returns
+   ``lm_loss + total_aux_loss``: 6 AdamW steps of 4 x 2048 tokens with finite
+   losses, a finite positive aux loss, and exactly 8 launches each of the
+   tensor-core K1-K3 per step and none of the CUDA-core kernels; the steady
+   step, tokens/s, peak memory and one profiled step; (c) an fp32 twin at 2
+   layers: each greedy decode step's logits within ``REL_TOL`` fp32 in norm
+   of the no-cache forward's; then ``generate`` on the bf16 1b-moe (8 rows x
+   128 prompt tokens, 64 new), ms per step; (d) ``quantize_tree`` of it (the
+   routers quantized): resident GiB against bf16, ``generate`` on the int8
+   model.
 
 The last line of standard output is one JSON object with ``"ok": true``. With no
 card, or without the package beside it, the script exits non-zero and prints no
@@ -3494,6 +3511,217 @@ def phase_quant_lora(torch, fa, smi: str, p5: dict) -> None:
     phase_int8_train(torch, fa, smi, p5)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: Mixture-of-Experts (the 1b-moe configuration)
+# ---------------------------------------------------------------------------
+
+#: 1b-moe: the 1b preset with 8 experts in every second block (top-2,
+#: capacity factor 1.25: the reference's MoE defaults), its depth cut to 8
+#: layers (4 MoE blocks) so that its fp32 state fits one card
+MOE = dict(num_experts=8, moe_every=2, moe_top_k=2, moe_capacity_factor=1.25)
+MOE_LAYERS = 8
+#: (a): one MoE layer at the 1b-moe width on B=4 rows of T=2048 tokens, bf16
+MOE_LAYER = dict(b=4, t=2048)
+#: (b): AdamW steps of B=4 rows of T=2048
+MOE_TRAIN = dict(b=4, t=2048, steps=6, lr=3e-4)
+#: (c): generate 8 rows x 128 prompt tokens, 64 new; the fp32 check at 2
+#: layers decodes 16 and runs at capacity factor 8 (= the expert count: no
+#: choice dropped, so a token routes the same in a decode step and in the
+#: no-cache forward)
+MOE_DECODE = dict(rows=8, prompt=128, new=64, check_layers=2, check_new=16)
+
+
+def _moe_cfg(torch, layers: int, dtype, **kw):
+    from dmlcloud_tpu_torch.examples.train_lm import PRESETS
+    from dmlcloud_tpu_torch.models.transformer import TransformerConfig
+
+    preset = dict(PRESETS["1b"], num_layers=layers)
+    return TransformerConfig(vocab_size=32000, max_seq_len=2048, attn_impl="flash", dtype=dtype,
+                             **dict(MOE, **kw), **preset)
+
+
+def phase_moe_layer(torch, smi: str) -> None:
+    """(a): the index dispatch against the one-hot plain version."""
+    from dmlcloud_tpu_torch.models.moe import MoEMLP
+
+    cfg = _moe_cfg(torch, 2, torch.bfloat16).moe_config()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    layer = MoEMLP(cfg, device="cuda")
+    layer.reset_parameters(gen)
+    with torch.no_grad():
+        std = math.sqrt(1.0 / cfg.hidden_dim) / 0.87962566103423978
+        torch.nn.init.trunc_normal_(layer.router.weight, 0.0, std, -2 * std, 2 * std, generator=gen)
+    b, t = MOE_LAYER["b"], MOE_LAYER["t"]
+    x = torch.randn(b, t, cfg.hidden_dim, device="cuda", generator=gen).to(torch.bfloat16)
+    g = torch.randn(b, t, cfg.hidden_dim, device="cuda", generator=gen).to(torch.bfloat16)
+    route = layer.route(x.reshape(-1, cfg.hidden_dim))
+    dropped = 1.0 - float(route.keep.float().mean())
+    outs = {}
+    for name, fwd in (("index", layer.forward), ("one-hot", layer.forward_onehot)):
+        xi = x.clone().requires_grad_(True)
+        layer.zero_grad()
+        y = fwd(xi)
+        y.backward(g)
+        outs[name] = [y.detach(), xi.grad] + [p.grad.clone() for p in
+                                              (layer.router.weight, layer.gate_proj, layer.up_proj, layer.down_proj)]
+    names = ["output", "dx", "router grad", "gate grad", "up grad", "down grad"]
+    errs = [assert_close(torch, got, want, "bfloat16", f"MoE index dispatch {n}")
+            for n, got, want in zip(names, outs["index"], outs["one-hot"])]
+    times = {}
+    for name, fwd in (("index", layer.forward), ("one-hot", layer.forward_onehot)):
+        xi = x.clone().requires_grad_(True)
+        times[name] = cuda_ms(torch, lambda: fwd(xi), reps=5)
+        times[name + " fwd+bwd"] = cuda_ms(torch, lambda: fwd(xi).backward(g), reps=5)
+    layer.zero_grad()
+    log(f"[moe] (a) MoEMLP D {cfg.hidden_dim}, M {cfg.mlp_dim}, E {cfg.num_experts}, top-{cfg.top_k}, cf "
+        f"{cfg.capacity_factor}, N {b * t} bf16: capacity {route.capacity}, dropped (token, choice) share "
+        f"{dropped:.4f}; index vs one-hot max abs err "
+        f"{', '.join(f'{n} {e[0]:.3g}' for n, e in zip(names, errs))}; ms: index {times['index']:.3f} fwd / "
+        f"{times['index fwd+bwd']:.3f} fwd+bwd, one-hot {times['one-hot']:.3f} / {times['one-hot fwd+bwd']:.3f} "
+        f"[{smi}]")
+    del layer, outs, x, g
+    _free(torch)
+
+
+def _moe_stage(torch, cfg, batches, lr):
+    """A ``TrainValStage`` training ``DecoderLM(cfg)`` (seed 0) on ``batches``
+    with AdamW; its step returns ``lm_loss + total_aux_loss`` (the reference's
+    pattern) and keeps each step's aux value."""
+    import dmlcloud_tpu_torch as dml
+    from dmlcloud_tpu_torch.models.moe import total_aux_loss
+    from dmlcloud_tpu_torch.models.transformer import DecoderLM, lm_loss
+    from dmlcloud_tpu_torch.optim import adamw
+
+    class MoEStage(dml.TrainValStage):
+        def pre_stage(self):
+            self.aux = []
+            model = DecoderLM(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+            self.pipeline.register_model("lm", model, verbose=False)
+            self.pipeline.register_optimizer("adamw", adamw(lr))
+            self.pipeline.register_dataset("train", batches, verbose=False)
+
+        def step(self, state, batch):
+            loss = lm_loss(state.model(batch), batch)
+            aux = total_aux_loss(state.model)
+            self.aux.append(aux.detach())
+            return loss + aux
+
+        def val_epoch(self):
+            pass
+
+    return MoEStage()
+
+
+def phase_moe_train(torch, fa, smi: str) -> dict:
+    """(b): 1b-moe at 8 layers through the ``TrainingPipeline``."""
+    import dmlcloud_tpu_torch as dml
+
+    cfg = _moe_cfg(torch, MOE_LAYERS, torch.bfloat16)
+    tr = MOE_TRAIN
+    gen = torch.Generator().manual_seed(0)
+    batches = [torch.randint(0, cfg.vocab_size, (tr["b"], tr["t"]), generator=gen) for _ in range(tr["steps"])]
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    pipe = dml.TrainingPipeline({"seed": 0}, name="moe", device="cuda")
+    stage = _moe_stage(torch, cfg, batches, tr["lr"])
+    pipe.append_stage(stage, max_epochs=1)
+    fa.reset_launch_counts()  # the MoE run starts here ...
+    t0 = time.perf_counter()
+    pipe.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in stage.train_losses]
+    aux = [float(a) for a in stage.aux]
+    n_params = sum(p.numel() for p in stage.state.model.parameters())
+    n = len(losses)
+    want = {"flash_fwd_tc": MOE_LAYERS * n, "flash_bwd_dq_tc": MOE_LAYERS * n, "flash_bwd_dkv_tc": MOE_LAYERS * n,
+            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    log(f"[moe] (b) 1b-moe at {MOE_LAYERS} layers ({n_params / 1e9:.3f} B parameters), {n} AdamW steps of "
+        f"{tr['b']} x {tr['t']} tokens: losses {losses}; aux {aux}; launches {launches}; {wall:.1f} s wall "
+        f"(model build included); peak {peak / 2**30:.2f} GiB [{smi}]")
+    if n != tr["steps"] or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"1b-moe: {n} steps, losses {losses}")
+    if not all(math.isfinite(a) and a > 0 for a in aux) or len(aux) != n:
+        raise AssertionError(f"1b-moe: aux losses {aux}")
+    if launches != want:
+        raise AssertionError(f"1b-moe: kernel launches {launches}, want {want}")
+    batch = next(iter(stage._feed(stage.train_dataset())))
+    step_ms, times = steady_ms(torch, stage, batch)
+    tokens = tr["b"] * tr["t"]
+    log(f"[moe] (b) steady step {step_ms:.1f} ms median of {[round(x, 1) for x in times]} = "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s [{smi}]")
+    wall_us, busy_us, events = profile_step(torch, stage, batch)
+    if busy_us:
+        log_profile("moe", f"1b-moe train step [{smi}]", wall_us, busy_us, events, top=10)
+    else:
+        log("[moe] profiler recorded no device time: idle share not measured")
+    out = {"launches": launches, "per_step": {k: v // n for k, v in launches.items()}, "step_ms": step_ms,
+           "peak_gib": peak / 2**30}
+    del stage, pipe, batch
+    _free(torch)
+    return out
+
+
+def phase_moe_decode(torch, smi: str) -> None:
+    """(c) decode 1b-moe, (d) its int8 model."""
+    import numpy as np
+
+    from dmlcloud_tpu_torch.models import quant
+    from dmlcloud_tpu_torch.models.generate import generate
+    from dmlcloud_tpu_torch.models.transformer import DecoderLM
+
+    d = MOE_DECODE
+    rs = np.random.RandomState(18)
+    # the fp32 check: each decode step's logits against the no-cache forward
+    cfg32 = _moe_cfg(torch, d["check_layers"], torch.float32, moe_capacity_factor=float(MOE["num_experts"]))
+    model32 = DecoderLM(cfg32, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    prompt = torch.as_tensor(rs.randint(0, cfg32.vocab_size, (d["rows"], d["prompt"]))).cuda()
+    tokens = generate(model32, prompt, d["check_new"])
+    with torch.no_grad():
+        dec = _decode_logits(torch, model32, prompt, tokens)
+        full = model32(torch.cat([prompt, tokens[:, :-1]], 1))[:, prompt.shape[1] - 1:]
+    rel = rel_err(torch, dec, full)
+    log(f"[moe] (c) fp32 1b-moe width at {d['check_layers']} layers (capacity factor {cfg32.moe_capacity_factor}): "
+        f"{d['check_new']} greedy decode steps' logits against the no-cache forward, norm-relative {rel:.3g} "
+        f"[{smi}]")
+    if not rel <= REL_TOL["float32"]:
+        raise AssertionError(f"1b-moe decode logits {rel:.3g} from the no-cache forward (> {REL_TOL['float32']})")
+    del model32
+    _free(torch)
+
+    cfg = _moe_cfg(torch, MOE_LAYERS, torch.bfloat16)
+    model = DecoderLM(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    prompt = torch.as_tensor(rs.randint(0, cfg.vocab_size, (d["rows"], d["prompt"]))).cuda()
+    toks, ms, peak = _timed_generate(torch, model, prompt, d["new"])
+    log(f"[moe] (c) generate, 1b-moe bf16 at {MOE_LAYERS} layers, {d['rows']} rows x {d['prompt']} prompt tokens, "
+        f"{d['new']} new: {ms:.2f} ms per decode step = {d['rows'] / ms * 1e3:.1f} tokens/s, peak {peak:.2f} GiB "
+        f"[{smi}]")
+    if tuple(toks.shape) != (d["rows"], d["new"]):
+        raise AssertionError(f"1b-moe generate gave {tuple(toks.shape)}")
+    qmodel = quant.quantize_tree(model)
+    routers = [m for name, m in qmodel.named_modules() if name.endswith("moe.router.weight")]
+    if len(routers) != MOE_LAYERS // 2 or not all(isinstance(r, quant.QuantizedTensor) for r in routers):
+        raise AssertionError(f"quantize_tree left the routers unquantized ({len(routers)} found)")
+    qtoks, qms, qpeak = _timed_generate(torch, qmodel, prompt, d["new"])
+    agree = float((qtoks == toks).float().mean())
+    log(f"[moe] (d) int8 1b-moe ({len(routers)} routers and every dense kernel quantized; the experts stay fp32): "
+        f"resident {_resident_gib(qmodel):.3f} GiB against {_resident_gib(model):.3f} GiB; generate {qms:.2f} ms per "
+        f"decode step, peak {qpeak:.2f} GiB; greedy agreement with bf16 {agree:.3f} [{smi}]")
+    if tuple(qtoks.shape) != (d["rows"], d["new"]):
+        raise AssertionError(f"int8 1b-moe generate gave {tuple(qtoks.shape)}")
+    del model, qmodel
+    _free(torch)
+
+
+def phase_moe(torch, fa, smi: str) -> dict:
+    phase_moe_layer(torch, smi)
+    out = phase_moe_train(torch, fa, smi)
+    phase_moe_decode(torch, smi)
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -3553,6 +3781,9 @@ def main() -> None:
     t17 = time.perf_counter()
     phase_quant_lora(torch, fa, dev["smi"], p5)
     log(f"[int8] phase 17 in {time.perf_counter() - t17:.1f} s")
+    t18 = time.perf_counter()
+    moe = phase_moe(torch, fa, dev["smi"])
+    log(f"[moe] phase 18 in {time.perf_counter() - t18:.1f} s; K1-K3 launches per 1b-moe step {moe['per_step']}")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values()) + list(bert_rows.values())}))
     print(dev["smi"])

@@ -96,7 +96,8 @@ def torch_to_flax(arr, how):
 @torch.no_grad()
 def load_tree(tree: dict, rows: Iterable[Row], tensors: dict[str, torch.Tensor]) -> None:
     """Copy the leaves of ``tree`` (nested dicts of arrays) at the rows' flax
-    paths into ``tensors`` by torch name; every tensor must be set."""
+    paths into ``tensors`` by torch name; every tensor must be set. A DTensor
+    (a sharded model) takes this rank's slice of its leaf."""
     left = dict(tensors)
     for path, name, how in rows:
         node = tree
@@ -107,6 +108,12 @@ def load_tree(tree: dict, rows: Iterable[Row], tensors: dict[str, torch.Tensor])
             arr = flax_to_torch(np.asarray(node, np.float32), how, dst.shape)
         except ValueError as exc:
             raise ValueError(f"{'/'.join(path)} -> {name}: {exc}") from None
+        if isinstance(dst, DTensor):
+            from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+            shape, offset = compute_local_shape_and_global_offset(dst.shape, dst.device_mesh, dst.placements)
+            arr = arr[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+            dst = dst.to_local()
         dst.copy_(torch.from_numpy(np.array(arr, np.float32, order="C")))
     if left:
         raise ValueError(f"flax tree left tensors unset: {sorted(left)}")

@@ -38,12 +38,16 @@ from .transformer import DecoderLM, TransformerConfig
 _DECODE_CHUNKS = 8
 
 
-def init_cache(cfg: TransformerConfig, batch_size: int, max_len: int | None = None, dtype=torch.bfloat16,
-               device=None) -> dict:
+def init_cache(cfg: TransformerConfig | DecoderLM, batch_size: int, max_len: int | None = None,
+               dtype=torch.bfloat16, device=None) -> dict:
     """Zeroed KV cache: ``{layer_i: {k, v: [B, S, KH, D]}}`` on ``device``
-    (default ``cuda``; raises without a card unless ``device="cpu"``)."""
+    (default ``cuda``; raises without a card unless ``device="cpu"``). Given
+    the model, ``KH`` is the KV heads of this rank (``kv_heads / model`` under
+    tensor parallelism); given a config, all of them."""
     device = resolve_device(device)
-    shape = (batch_size, max_len or cfg.max_seq_len, cfg.kv_heads, cfg.head_dim)
+    kv_heads = cfg.local_kv_heads if isinstance(cfg, DecoderLM) else cfg.kv_heads
+    cfg = cfg.cfg if isinstance(cfg, DecoderLM) else cfg
+    shape = (batch_size, max_len or cfg.max_seq_len, kv_heads, cfg.head_dim)
     return {f"layer_{i}": {"k": torch.zeros(shape, dtype=dtype, device=device),
                            "v": torch.zeros(shape, dtype=dtype, device=device)}
             for i in range(cfg.num_layers)}
@@ -210,7 +214,7 @@ def generate(
     pad_len = _pad_len_from_mask(prompt_mask, b, t, device)
     model = prepare_decode_params(model, model.cfg.dtype)  # int8 kernels stay int8; the rest as it was
     # the cache in the model's compute dtype, so fp32 configs stay exact
-    cache = init_cache(model.cfg, b, t + max_new_tokens, dtype=model.cfg.dtype, device=device)
+    cache = init_cache(model, b, t + max_new_tokens, dtype=model.cfg.dtype, device=device)
     # prefill: one pass over the whole prompt fills slots [0, t); left padding
     # puts every row's last real token in slot t - 1
     logits, cache = decode_step(model, prompt, cache, offset=0, pad_len=pad_len, attend_len=t)
@@ -267,7 +271,7 @@ def beam_search(
     neg = -1e30
 
     # prefill once per batch row, then tile the cache across beams
-    cache = init_cache(model.cfg, b, t + max_new_tokens, dtype=model.cfg.dtype, device=device)
+    cache = init_cache(model, b, t + max_new_tokens, dtype=model.cfg.dtype, device=device)
     logits, cache = decode_step(model, prompt, cache, offset=0, pad_len=pad_len, attend_len=t)
     cache = {name: {key: x.repeat_interleave(k, dim=0) for key, x in layer.items()} for name, layer in cache.items()}
     pad_len_k = None if pad_len is None else pad_len.repeat_interleave(k, dim=0)

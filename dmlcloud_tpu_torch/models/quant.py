@@ -42,6 +42,20 @@ the checkpoint's ``"extras"``), quantizes inside the train forward with
 gradient), and refreshes the amax from the post-update weights. The
 optimizer, the EMA and checkpoints see plain fp32 parameters; validation runs
 at full precision.
+
+**On a mesh** the weights are DTensors (``parallel.mesh.shard_module``: FSDP2
+over ``fsdp``, tensor parallelism over ``model``). A per-channel amax reduces
+over the flax kernel's input axis, which ``fsdp`` splits, and ``model`` splits
+for the row-parallel layers (``o_proj``, ``down_proj``): a shard's own amax
+would be the wrong scale. So each rank's amax goes into the full vector of
+output channels, max-reduced over every mesh dim that splits the weight
+(``_weight_amax``): every rank holds the reference's full per-channel amax.
+``quantize_tree`` quantizes each rank's shard with it and keeps ``q`` and
+``scale`` as DTensors laid out as the weight (in flax dims), so the tree dumps
+to the reference's bytes and a reference tree loads into a sharded model. The
+int8 dot multiplies a tensor-parallel layer's shard and gathers any other
+split first. The delayed amax of quantized training is the full vector, a
+replicated buffer; a tensor-parallel layer scales by its own channels' part.
 """
 
 from __future__ import annotations
@@ -54,10 +68,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..parallel.tensor_parallel import local_tensor
-from .bridge import flax_to_torch, torch_shape, torch_to_flax
+from .bridge import flax_to_torch, flax_view, torch_shape, torch_to_flax
 from .lora import _as_matcher, _paths, _weight, default_match
 
 __all__ = [
@@ -133,20 +147,33 @@ def _operand_dtype(q_dtype: torch.dtype, dtype: torch.dtype, device: torch.devic
     return dtype if device.type == "cuda" else torch.promote_types(torch.float32, dtype)
 
 
+def _forward_local(t: torch.Tensor) -> torch.Tensor:
+    """What a layer multiplies by of a ``QuantizedTensor`` buffer: a plain
+    tensor as it is; of a DTensor, this rank's ``model`` shard with every
+    other split gathered."""
+    if not isinstance(t, DTensor):
+        return t
+    names = t.device_mesh.mesh_dim_names or ()
+    keep = [p if i < len(names) and names[i] == "model" else Replicate() for i, p in enumerate(t.placements)]
+    if keep != list(t.placements):
+        t = t.redistribute(t.device_mesh, keep)
+    return t.to_local()
+
+
 def _fused_quant_dot(x: torch.Tensor, qt: QuantizedTensor, dtype: torch.dtype) -> torch.Tensor:
     """``x @ dequant(qt)`` without a dequantized weight: ``q`` widened to the
     operand dtype, an fp32 accumulator, the per-channel scale on the fp32
     result. Contracts ``x``'s last axis with ``q``'s first and returns
     ``[..., *out]`` in ``dtype``; needs ``_fusible(qt)``."""
-    q = qt.q
+    q, scale = _forward_local(qt.q), _forward_local(qt.scale)
     op = _operand_dtype(q.dtype, dtype, x.device)
     acc = _mm_f32(x.reshape(-1, x.shape[-1]).to(op), q.reshape(q.shape[0], -1).to(op))
-    return (acc * qt.scale.reshape(1, -1)).to(dtype).reshape(*x.shape[:-1], *q.shape[1:])
+    return (acc * scale.reshape(1, -1)).to(dtype).reshape(*x.shape[:-1], *q.shape[1:])
 
 
 def _dequant_dot(x: torch.Tensor, qt: QuantizedTensor, dtype: torch.dtype) -> torch.Tensor:
     """The unfusible layouts' path: a local dequantization, then the dot."""
-    w = qt.dequant(dtype)
+    w = (_forward_local(qt.q).float() * _forward_local(qt.scale)).to(dtype)
     return (x.to(dtype) @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
 
 
@@ -218,6 +245,75 @@ def _amax(w: torch.Tensor) -> torch.Tensor:
     return w.float().abs().amax(dim=tuple(range(min(1, w.dim() - 1))), keepdim=True)
 
 
+def _local_rows(w: DTensor) -> tuple[int, int]:
+    """(first row, rows) of this rank's shard of a 2-D DTensor weight."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    shape, offset = compute_local_shape_and_global_offset(w.shape, w.device_mesh, w.placements)
+    return int(offset[0]), int(shape[0])
+
+
+def _check_linear(how) -> None:
+    """A sharded weight is quantized as an ``nn.Linear`` (``[out, in]``) kernel."""
+    if (how[0] if isinstance(how, tuple) else how) not in ("t", "heads"):
+        raise ValueError(f"a sharded weight is quantized as an [out, in] dense kernel, not under {how!r}")
+
+
+@torch.no_grad()
+def _weight_amax(w: torch.Tensor, how) -> torch.Tensor:
+    """``_amax`` of the whole weight ``w`` (flax keepdims layout), also when
+    ``w`` is a DTensor: the shard's per-row amax, placed in the full vector of
+    output rows and max-reduced over each mesh dim that splits ``w``."""
+    if not isinstance(w, DTensor):
+        return _amax(torch_to_flax(w, how))
+    import torch.distributed as dist
+
+    _check_linear(how)
+    first, rows = _local_rows(w)
+    full = torch.zeros(w.shape[0], dtype=torch.float32, device=w.device)
+    local = w.to_local()
+    if local.numel():
+        full[first:first + rows] = local.float().abs().amax(dim=1)
+    for i, p in enumerate(w.placements):
+        if p.is_shard():
+            dist.all_reduce(full, op=dist.ReduceOp.MAX, group=w.device_mesh.get_group(i))
+    return full.reshape(1, *flax_view(w.shape, how)[1][1:])
+
+
+def _local_channels(full: torch.Tensor, w: torch.Tensor, how) -> torch.Tensor:
+    """The part of a full flax-keepdims amax or scale that goes with this
+    rank's shard of the weight ``w``: its output rows when ``w`` is a DTensor
+    split on its rows (dim 0), else all of it."""
+    if not isinstance(w, DTensor) or not any(p.is_shard(0) for p in w.placements):
+        return full
+    first, rows = _local_rows(w)
+    local_shape = flax_view((rows, w.shape[1]), how)[1]
+    return full.reshape(-1)[first:first + rows].reshape(1, *local_shape[1:])
+
+
+def _flax_placements(w: DTensor, how, scale: bool = False) -> list:
+    """The placements of ``w``'s mesh over the flax view of ``w`` (or over
+    its keepdims scale, which only a split of the output rows splits)."""
+    dims = flax_view(w.shape, how)[2]
+    out = []
+    for p in w.placements:
+        if not p.is_shard() or (scale and p.dim != 0):
+            out.append(Replicate())
+        else:
+            out.append(Shard(dims.index(p.dim)))
+    return out
+
+
+def _sharded_quant(q: torch.Tensor, scale: torch.Tensor, w: DTensor, how) -> QuantizedTensor:
+    """A ``QuantizedTensor`` of this rank's ``q`` and ``scale`` (flax layout)
+    as DTensors laid out as the weight ``w``."""
+    flax_shape = flax_view(w.shape, how)[1]
+    as_dt = lambda t, pl, shape: DTensor.from_local(t, w.device_mesh, pl, run_check=False, shape=torch.Size(shape),
+                                                    stride=torch.empty(shape, device="meta").stride())
+    return QuantizedTensor(as_dt(q, _flax_placements(w, how), flax_shape),
+                           as_dt(scale, _flax_placements(w, how, scale=True), (1, *flax_shape[1:])))
+
+
 def amax_tree(model: nn.Module, match: Callable[[str, Any], bool] | None = None) -> dict[str, torch.Tensor]:
     """Per-output-channel ``max|w|`` of every matched weight, by flax path, in
     the flax keepdims layout: the delayed-scale state of
@@ -227,9 +323,9 @@ def amax_tree(model: nn.Module, match: Callable[[str, Any], bool] | None = None)
     matcher = match or default_match
     out = {}
     for path, (name, how) in _paths(model).items():
-        leaf = torch_to_flax(local_tensor(_weight(model, name)), how)
-        if matcher(path, leaf):
-            out[path] = _amax(leaf)
+        w = _weight(model, name)
+        if matcher(path, torch_to_flax(local_tensor(w), how)):
+            out[path] = _weight_amax(w, how)
     return out
 
 
@@ -261,7 +357,7 @@ def _fusible(qt: QuantizedTensor) -> bool:
 def _structural_copy(module: nn.Module) -> nn.Module:
     """A copy of ``module``'s tree of submodules that shares every tensor, so
     that replacing a weight of the copy leaves the original as it was."""
-    new = module.__class__.__new__(module.__class__)
+    new = object.__new__(module.__class__)  # past FSDP2's __new__, which would construct one
     new.__dict__.update(module.__dict__)
     new._parameters = dict(module._parameters)
     new._buffers = dict(module._buffers)
@@ -326,10 +422,17 @@ def quantize_tree(model: nn.Module, match: Callable[[str, Any], bool] | str | No
     def quant(path, name, how, w):
         if isinstance(w, QuantizedTensor):
             return None
-        if isinstance(w, DTensor):
-            raise NotImplementedError("quantizing a sharded model is not ported yet (ROADMAP Queue 1 item 4)")
-        leaf = torch_to_flax(w, how)
-        return quantize(leaf) if matcher(path, leaf) else None
+        if not isinstance(w, DTensor):
+            leaf = torch_to_flax(w, how)
+            return quantize(leaf) if matcher(path, leaf) else None
+        # each rank's shard, with the full per-channel scale (module docstring)
+        leaf = torch_to_flax(w.to_local(), how)
+        if not matcher(path, leaf):
+            return None
+        amax = _weight_amax(w, how)
+        scale = _local_channels(torch.where(amax > 0, amax / 127.0, 1.0), w, how)
+        q = torch.clamp(torch.round(leaf.float() / scale), -127, 127).to(torch.int8)
+        return _sharded_quant(q, scale, w, how)
 
     return _map_weights(model, quant)
 
@@ -438,8 +541,9 @@ class QuantDense(nn.Linear):
         if isinstance(w, QuantizedTensor):
             y = _fused_quant_dot(x, w, dt) if _fusible(w) else _dequant_dot(x, w, dt)
         elif self.quant_train:
-            y = quant_train_dot(x.to(dt), torch_to_flax(local_tensor(w), self._flax_how()),
-                                _delayed_scale(getattr(self, QUANT_AMAX_KEY)))
+            how = self._flax_how()
+            amax = _local_channels(getattr(self, QUANT_AMAX_KEY), w, how)
+            y = quant_train_dot(x.to(dt), torch_to_flax(local_tensor(w), how), _delayed_scale(amax))
         else:
             return F.linear(x.to(dt), local_tensor(w).to(dt))
         return y.reshape(*x.shape[:-1], -1)
@@ -492,8 +596,20 @@ def _load_quantized(model: nn.Module, tree: dict, rows: list) -> list:
         qs = _quant_leaf(node)
         if qs is not None:
             device = current.device
-            _put(model, name, QuantizedTensor(torch.from_numpy(np.array(qs[0], np.int8)).to(device),
-                                              torch.from_numpy(np.array(qs[1], np.float32)).to(device)))
+            q = torch.from_numpy(np.array(qs[0], np.int8)).to(device)
+            scale = torch.from_numpy(np.array(qs[1], np.float32)).to(device)
+            if isinstance(current, DTensor):
+                # a sharded model: this rank's slice of q and of the scale
+                from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+                _check_linear(how)
+                local = []
+                for t, pl in ((q, _flax_placements(current, how)), (scale, _flax_placements(current, how, True))):
+                    shape, offset = compute_local_shape_and_global_offset(t.shape, current.device_mesh, pl)
+                    local.append(t[tuple(slice(o, o + n) for o, n in zip(offset, shape))].contiguous())
+                _put(model, name, _sharded_quant(*local, current, how))
+            else:
+                _put(model, name, QuantizedTensor(q, scale))
             continue
         if isinstance(current, QuantizedTensor):
             _put(model, name, nn.Parameter(torch.zeros(torch_shape(current.shape, how), device=current.device)))
@@ -514,7 +630,8 @@ def _dump_quantized(model: nn.Module, rows: list) -> tuple[dict, list]:
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = {"q": w.q.to(torch.int8).cpu().numpy(), "scale": w.scale.float().cpu().numpy()}
+        full = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
+        node[path[-1]] = {"q": full(w.q).to(torch.int8).cpu().numpy(), "scale": full(w.scale).float().cpu().numpy()}
     return tree, plain
 
 
@@ -548,4 +665,4 @@ def _seed_quant_training(model: nn.Module, match: Callable[[str, Any], bool] | N
 def _refresh_amax(layers: list[QuantDense]) -> None:
     """Each layer's amax from its current (updated) weight."""
     for layer in layers:
-        getattr(layer, QUANT_AMAX_KEY).copy_(_amax(torch_to_flax(local_tensor(layer.weight), layer._flax_how())))
+        getattr(layer, QUANT_AMAX_KEY).copy_(_weight_amax(layer.weight, layer._flax_how()))

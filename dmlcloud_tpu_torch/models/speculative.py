@@ -166,8 +166,8 @@ def _row_spec_decode(target: DecoderLM, draft: DecoderLM, prompt: torch.Tensor, 
     # slack: the last round may propose past the output; those writes land in
     # the slack and are cut off at the end
     cache_len = t + max_new_tokens + k + 1
-    tcache = init_cache(target.cfg, 1, cache_len, dtype=target.cfg.dtype, device=device)
-    dcache = init_cache(draft.cfg, 1, cache_len, dtype=draft.cfg.dtype, device=device)
+    tcache = init_cache(target, 1, cache_len, dtype=target.cfg.dtype, device=device)
+    dcache = init_cache(draft, 1, cache_len, dtype=draft.cfg.dtype, device=device)
     row = prompt[None]
     tlogits, tcache = decode_step(target, row, tcache, offset=0, pad_len=pad_len, attend_len=t)
     _, dcache = decode_step(draft, row, dcache, offset=0, pad_len=pad_len, attend_len=t)

@@ -15,14 +15,24 @@ projection is a quant-aware dense layer (``models/quant.py`` ``QuantDense``/
 (``quantize_tree``) through the fused int8 dot, and under
 ``TrainValStage(precision="int8")`` through ``quant_train_dot``. Per-row LoRA
 adapters (``adapters=(stacked_tree, ids)``, ``_adapter_add``, :210-228) add
-each row's own delta in the dense and decode modes. MoE comes with a later
-slice (ROADMAP Queue 1 item 4).
+each row's own delta in the dense and decode modes. With ``num_experts > 0``
+every ``moe_every``-th block holds a Mixture-of-Experts MLP
+(``models/moe.py`` ``MoEMLP``, the reference's :416-429) in the place of the
+dense one, in every mode; its auxiliary loss is read after the forward with
+``moe.total_aux_loss(model)``.
 
 A cache is the reference's tree, ``{"layer_i": {"k", "v"}}``, and is written
 IN PLACE: the JAX model returns an updated copy (``dynamic_update_slice``, a
 paged scatter), the port writes the slots into the tensors it was given and
 returns the same tree. A caller that needs the old contents (beam search's
 reorder) copies first.
+
+On a mesh (``parallel.mesh.shard_module``) the model runs tensor parallel
+over ``model`` (heads, the MLP's and the experts' hidden dims, the
+embedding's features, the LM head's vocab; ``apply_tensor_parallel``) in
+every mode, the decode modes on a cache of the rank's KV heads
+(``local_kv_heads``) and per-row adapters on the rank's slices of their
+factors; and expert parallel over ``expert`` (``apply_expert_parallel``).
 
 ``attn_impl="ring"`` runs attention as ring attention over the ``seq`` axis
 (``cfg.seq_axis``) of the mesh the model is registered on
@@ -65,6 +75,7 @@ from ..ops.ring_attention import ring_attention_sharded, seq_group
 from ..parallel.runtime import resolve_device
 from ..parallel.tensor_parallel import ModelGroup, copy_to_model, gather_from_model, local_tensor, reduce_from_model
 from .bridge import Row, dump_tree, load_tree
+from .moe import MoEMLP, moe_partition_rules
 from .quant import QuantDense, QuantDenseGeneral, _dump_quantized, _load_quantized
 
 
@@ -87,9 +98,21 @@ class TransformerConfig:
     # Sliding-window attention (Mistral convention): each token attends to
     # itself + the previous W-1.
     sliding_window: int | None = None
+    # MoE: every ``moe_every``-th block holds an MoEMLP (models/moe.py) in the
+    # place of the dense MLP (0 experts = dense everywhere); experts shard over
+    # the ``expert`` mesh axis by moe_partition_rules()
+    num_experts: int = 0
+    moe_every: int = 2
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
     # recompute each block in the backward pass (torch.utils.checkpoint)
     remat: bool = False
     seq_axis: str = "seq"  # mesh axis used when attn_impl == 'ring'
+    # The reference's residual-stream sharding constraint (with_sharding_constraint
+    # after the embedding and every block): a layout hint to XLA's sharding
+    # propagation that changes no value. Eager torch lays activations out by the
+    # code that makes them, so the field is accepted and changes nothing.
+    act_sharding: object = None
 
     def __post_init__(self):
         if self.attn_impl not in ("dot", "flash", "ring"):
@@ -100,6 +123,17 @@ class TransformerConfig:
     @property
     def kv_heads(self) -> int:
         return self.num_kv_heads or self.num_heads
+
+    def is_moe(self, i: int) -> bool:
+        """Whether block ``i`` holds an MoE MLP (the reference's :527)."""
+        return self.num_experts > 0 and self.moe_every > 0 and i % self.moe_every == self.moe_every - 1
+
+    def moe_config(self):
+        from .moe import MoEConfig
+
+        return MoEConfig(num_experts=self.num_experts, top_k=self.moe_top_k,
+                         capacity_factor=self.moe_capacity_factor, hidden_dim=self.hidden_dim,
+                         mlp_dim=self.mlp_dim, dtype=self.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -187,13 +221,20 @@ def _dot_attention(q, k, v, causal: bool = True, mask: torch.Tensor | None = Non
     return out.reshape(b, t, h, d)
 
 
-def _adapter_add(y: torch.Tensor, inp: torch.Tensor, name: str, adapters) -> torch.Tensor:
+def _adapter_add(y: torch.Tensor, inp: torch.Tensor, name: str, adapters, tp: ModelGroup | None = None,
+                 split: str = "out") -> torch.Tensor:
     """``y`` plus the per-row LoRA delta of dense ``name`` when ``adapters``
     carries a stacked pair for it. ``adapters`` is ``(subtree, ids)``: the
     ``lora_init``-shaped subtree of the enclosing module (``LoraPair`` leaves
     with ``a`` ``[N, d_in, r]`` and ``b`` ``[N, r, d_out]``, ``b`` pre-scaled by
     alpha/rank) and the rows' adapter ids ``[B]``; or None. The delta is
-    ``lora.batched_lora_delta``'s fp32 ``(x @ a) @ b``, cast to ``y``'s dtype."""
+    ``lora.batched_lora_delta``'s fp32 ``(x @ a) @ b``, cast to ``y``'s dtype.
+
+    Under tensor parallelism (``tp``) the layer holds this rank's slice: a
+    column-parallel one (``split="out"``) takes its slice of ``b``'s output
+    columns; a row-parallel one (``split="in"``) gets its slice of the input,
+    so its partial ``(x_r @ a[rows_r]) @ b`` joins the partial output the
+    caller then sums over the group, and the delta counts once."""
     if adapters is None:
         return y
     from .lora import LoraPair, batched_lora_delta
@@ -204,7 +245,15 @@ def _adapter_add(y: torch.Tensor, inp: torch.Tensor, name: str, adapters) -> tor
         pair = pair.get("kernel")
     if not isinstance(pair, LoraPair):
         return y
-    delta = batched_lora_delta(inp, pair.a[ids], pair.b[ids])
+    a, b = pair.a[ids], pair.b[ids]
+    if tp is not None:
+        if split == "out":
+            w = b.shape[-1] // tp.size
+            b = b[..., tp.rank * w:(tp.rank + 1) * w]
+        else:
+            w = a.shape[1] // tp.size
+            a = a[:, tp.rank * w:(tp.rank + 1) * w]
+    delta = batched_lora_delta(inp, a, b)
     return y + delta.reshape(y.shape).to(y.dtype)
 
 
@@ -235,22 +284,25 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, t, _ = x.shape
         hd = cfg.head_dim
-        if self.tp is not None:
-            x = copy_to_model(x, self.tp)
+        tp = self.tp
+        if tp is not None:
+            x = copy_to_model(x, tp)
         # [B, T, heads, hd]: this rank's heads under tensor parallelism
-        q = _adapter_add(self.q_proj(x), x, "q_proj", adapters)
-        k = _adapter_add(self.k_proj(x), x, "k_proj", adapters)
-        v = _adapter_add(self.v_proj(x), x, "v_proj", adapters)
+        q = _adapter_add(self.q_proj(x), x, "q_proj", adapters, tp)
+        k = _adapter_add(self.k_proj(x), x, "k_proj", adapters, tp)
+        v = _adapter_add(self.v_proj(x), x, "v_proj", adapters, tp)
         h = q.shape[2]
         if cache is not None:
             # the decode modes: paged rows sit at their own absolute positions,
-            # left-padded rows count from their first real token
+            # left-padded rows count from their first real token; under tensor
+            # parallelism the cache holds this rank's KV heads
             positions = paged[2] if paged is not None else None if decode_pad is None else decode_pad[1]
             q = apply_rope(q, cos, sin, offset=offset, positions=positions)
             k = apply_rope(k, cos, sin, offset=offset, positions=positions)
             out, cache = _decode_attention(cfg, q, k, v, cache, offset, decode_pad, attend_len, paged)
             out = out.reshape(b, t, h * hd)
-            return _adapter_add(self.o_proj(out), out, "o_proj", adapters), cache
+            out = _adapter_add(self.o_proj(out), out, "o_proj", adapters, tp, "in")
+            return (out if tp is None else reduce_from_model(out, tp)), cache
         if seg_info is not None:
             # packed rows: positions restart per segment; attention is causal
             # AND same-segment (flash masks from the raw ids, dot from the mask)
@@ -279,8 +331,8 @@ class Attention(nn.Module):
             else:
                 out = _dot_attention(q, k, v, causal=True)
         out = out.reshape(b, t, h * hd)
-        out = _adapter_add(self.o_proj(out), out, "o_proj", adapters)
-        return out if self.tp is None else reduce_from_model(out, self.tp)
+        out = _adapter_add(self.o_proj(out), out, "o_proj", adapters, tp, "in")
+        return out if tp is None else reduce_from_model(out, tp)
 
 
 def _decode_attention(cfg, q, k, v, cache, offset, decode_pad, attend_len, paged):
@@ -337,13 +389,14 @@ class MLP(nn.Module):
         self.tp: ModelGroup | None = None
 
     def forward(self, x, adapters=None):
-        if self.tp is not None:
-            x = copy_to_model(x, self.tp)
-        gate = _adapter_add(self.gate_proj(x), x, "gate_proj", adapters)
-        up = _adapter_add(self.up_proj(x), x, "up_proj", adapters)
+        tp = self.tp
+        if tp is not None:
+            x = copy_to_model(x, tp)
+        gate = _adapter_add(self.gate_proj(x), x, "gate_proj", adapters, tp)
+        up = _adapter_add(self.up_proj(x), x, "up_proj", adapters, tp)
         h = F.silu(gate) * up
-        out = _adapter_add(self.down_proj(h), h, "down_proj", adapters)
-        return out if self.tp is None else reduce_from_model(out, self.tp)
+        out = _adapter_add(self.down_proj(h), h, "down_proj", adapters, tp, "in")
+        return out if tp is None else reduce_from_model(out, tp)
 
 
 def _compiled_once(fn):
@@ -359,7 +412,7 @@ def _compiled_once(fn):
 def _block_forward(block: "DecoderBlock", x, cos, sin, seg_info, adapters=None):
     attn_ad, mlp_ad = _split_adapters(adapters)
     x = x + block.attn(block.attn_norm(x), cos, sin, seg_info=seg_info, adapters=attn_ad)
-    return x + block.mlp(block.mlp_norm(x), adapters=mlp_ad)
+    return x + block.ffn(block.mlp_norm(x), mlp_ad)
 
 
 def _split_adapters(adapters):
@@ -372,12 +425,26 @@ def _split_adapters(adapters):
 
 
 class DecoderBlock(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    """Attention and an MLP, each pre-normed on the residual stream; with
+    ``use_moe`` the MLP is an ``MoEMLP`` (attribute ``moe``, else ``mlp``),
+    which takes no per-row adapters (the reference's :427-429)."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, use_moe: bool = False):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.hidden_dim, device=device)
         self.attn = Attention(cfg, device)
         self.mlp_norm = RMSNorm(cfg.hidden_dim, device=device)
-        self.mlp = MLP(cfg, device)
+        if use_moe:
+            self.moe = MoEMLP(cfg.moe_config(), device)
+        else:
+            self.mlp = MLP(cfg, device)
+
+    def ffn(self, x, adapters=None, across_data: bool = True):
+        """The block's MLP on the normed stream: the dense one with the
+        layer's adapters, or the MoE one."""
+        if hasattr(self, "moe"):
+            return self.moe(x, across_data=across_data)
+        return self.mlp(x, adapters=adapters)
 
     def forward(self, x, cos, sin, seg_info=None, cache=None, offset=0, decode_pad=None, attend_len=None,
                 paged=None, adapters=None):
@@ -387,7 +454,8 @@ class DecoderBlock(nn.Module):
         attn_out, cache = self.attn(self.attn_norm(x), cos, sin, cache=cache, offset=offset, decode_pad=decode_pad,
                                     attend_len=attend_len, paged=paged, adapters=attn_ad)
         x = x + attn_out
-        return x + self.mlp(self.mlp_norm(x), adapters=mlp_ad), cache
+        # each process decodes its own rows: no routing across data-parallel ranks
+        return x + self.ffn(self.mlp_norm(x), mlp_ad, across_data=False), cache
 
 
 class DecoderLM(nn.Module):
@@ -422,7 +490,7 @@ class DecoderLM(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         self.embed = nn.Embedding(cfg.vocab_size, cfg.hidden_dim, device=device, dtype=torch.float32)
-        self.layers = nn.ModuleList(DecoderBlock(cfg, device) for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(DecoderBlock(cfg, device, cfg.is_moe(i)) for i in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.hidden_dim, device=device)
         # the LM head multiplies in fp32 (flax QuantDense(dtype=float32))
         self.lm_head = None if cfg.tie_embeddings else QuantDense(cfg.hidden_dim, cfg.vocab_size, torch.float32,
@@ -448,6 +516,8 @@ class DecoderLM(nn.Module):
                 nn.init.trunc_normal_(module.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
             elif isinstance(module, RMSNorm):
                 module.weight.fill_(1.0)
+            elif isinstance(module, MoEMLP):  # its expert weights; the router is a Linear
+                module.reset_parameters(generator)
 
     def flax_layout(self) -> list[Row]:
         """(flax path, parameter name, transform) of every parameter: the
@@ -458,12 +528,20 @@ class DecoderLM(nn.Module):
         """The modules FSDP2 wraps one by one (then the root)."""
         return list(self.layers)
 
+    @property
+    def local_kv_heads(self) -> int:
+        """The KV heads this rank's attention runs, and its decode cache holds:
+        ``kv_heads / model`` under tensor parallelism."""
+        tp = self.layers[0].attn.tp if len(self.layers) else None
+        return self.cfg.kv_heads // (1 if tp is None else tp.size)
+
     def apply_tensor_parallel(self, tp: ModelGroup, dims: dict[str, int]) -> None:
         """Run the forward on ``model``-axis shards: ``dims`` maps each
         parameter split over the ``tp`` group to the torch dim it is split on.
         Accepted: per block, all of q/k/v (dim 0, by heads) with o (dim 1), or
-        none; all of gate/up (dim 0) with down (dim 1), or none; the
-        embedding's features (dim 1); the LM head's vocab (dim 0). Anything
+        none; all of gate/up (dim 0) with down (dim 1), or none; in an MoE
+        block all of the experts' gate/up (dim 2) with down (dim 1), or none;
+        the embedding's features (dim 1); the LM head's vocab (dim 0). Anything
         else raises a ``ValueError`` naming the parameter."""
         cfg, m = self.cfg, tp.size
         dims = dict(dims)
@@ -488,8 +566,11 @@ class DecoderLM(nn.Module):
             if split(p + "attn.", {f"{n}_proj.weight": 0 if n != "o" else 1 for n in "qkvo"},
                      {"num_heads": cfg.num_heads, "num_kv_heads": cfg.kv_heads}):
                 split_modules.append(layer.attn)
-            if split(p + "mlp.", {"gate_proj.weight": 0, "up_proj.weight": 0, "down_proj.weight": 1},
-                     {"mlp_dim": cfg.mlp_dim}):
+            if hasattr(layer, "moe"):
+                if split(p + "moe.", {"gate_proj": 2, "up_proj": 2, "down_proj": 1}, {"mlp_dim": cfg.mlp_dim}):
+                    split_modules.append(layer.moe)
+            elif split(p + "mlp.", {"gate_proj.weight": 0, "up_proj.weight": 0, "down_proj.weight": 1},
+                       {"mlp_dim": cfg.mlp_dim}):
                 split_modules.append(layer.mlp)
         embed = split("", {"embed.weight": 1}, {"hidden_dim": cfg.hidden_dim})
         head = not cfg.tie_embeddings and split("", {"lm_head.weight": 0}, {"vocab_size": cfg.vocab_size})
@@ -498,9 +579,46 @@ class DecoderLM(nn.Module):
             raise ValueError(f"{name}: a 'model' split on dim {d} cannot run here (norms stay replicated)")
         # every placement checked: only now switch the forward over
         for module in split_modules:
-            module.tp = tp
+            if isinstance(module, MoEMLP):
+                module.apply_shard(tp)
+            else:
+                module.tp = tp
         self.tp_embed = tp if embed else None
         self.tp_head = tp if head else None
+
+    def apply_expert_parallel(self, ep: ModelGroup, dims: dict[str, int]) -> None:
+        """Run each MoE block on this rank's experts: ``dims`` maps each
+        parameter split over the ``expert`` group ``ep`` to its torch dim.
+        Accepted: per MoE block, all of the experts' gate/up/down on dim 0 (the
+        expert dim), which the group's size must divide. Anything else raises
+        a ``ValueError`` naming the parameter."""
+        dims = dict(dims)
+        moes = []
+        for i, layer in enumerate(self.layers):
+            names = [f"layers.{i}.moe.{n}_proj" for n in ("gate", "up", "down")]
+            got = [dims.pop(n, None) for n in names]
+            if all(d is None for d in got):
+                continue
+            if got != [0, 0, 0]:
+                raise ValueError(f"{names[0]}: an 'expert' split cannot run here; expert parallelism needs gate, up "
+                                 "and down split on dim 0 (the expert dim)")
+            if self.cfg.num_experts % ep.size:
+                raise ValueError(f"{names[0]}: num_experts {self.cfg.num_experts} is not divisible by the 'expert' "
+                                 f"axis ({ep.size})")
+            moes.append(layer.moe)
+        if dims:
+            name, d = next(iter(dims.items()))
+            raise ValueError(f"{name}: an 'expert' split on dim {d} cannot run here (only the experts' dim 0)")
+        for moe in moes:
+            moe.apply_shard(ep, ep.rank * (self.cfg.num_experts // ep.size))
+
+    def apply_data_parallel(self, group) -> None:
+        """The MoE blocks route over the tokens of the data-parallel ``group``
+        (``parallel.mesh.data_parallel_group``; None: this process's), as the
+        reference's step routes the global batch."""
+        for layer in self.layers:
+            if hasattr(layer, "moe"):
+                layer.moe.apply_data_parallel(group)
 
     def apply_sequence_parallel(self, mesh) -> None:
         """Run ``attn_impl="ring"`` attention over the ``cfg.seq_axis`` axis of
@@ -526,13 +644,6 @@ class DecoderLM(nn.Module):
             raise ValueError("pad_len (left-padded ragged prompts) is a decode-mode feature")
         if attend_len is not None and cache is None:
             raise ValueError("attend_len (bounded cache reads) is a decode-mode feature")
-        tensor_parallel = any(g is not None for g in (self.tp_embed, self.tp_head, *(
-            m.tp for layer in self.layers for m in (layer.attn, layer.mlp))))
-        if cache is not None and tensor_parallel:
-            raise NotImplementedError("decode under tensor parallelism is not ported yet (ROADMAP Queue 1 item 4)")
-        if adapters is not None and tensor_parallel:
-            raise NotImplementedError("per-row LoRA adapters under tensor parallelism are not ported yet (ROADMAP "
-                                      "Queue 1 item 4)")
         paged = None
         if pages is not None:
             # rows sit at their own absolute positions (no left-padding), so
@@ -611,11 +722,13 @@ class DecoderLM(nn.Module):
             tp = self.tp_embed
             x = copy_to_model(x, tp).narrow(-1, tp.rank * head.shape[1], head.shape[1])
             return reduce_from_model(F.linear(x.float(), head.float()), tp)
-        if self.tp_head is None:
+        tp = self.tp_head
+        if tp is None:
             return _adapter_add(self.lm_head(x), x, "lm_head", adapters)
-        # vocab-parallel head: each rank's logits slice, gathered into the full
-        # fp32 logits that lm_loss takes
-        return gather_from_model(self.lm_head(copy_to_model(x, self.tp_head)), self.tp_head)
+        # vocab-parallel head: each rank's logits slice (and its slice of the
+        # adapters' delta), gathered into the full fp32 logits
+        x = copy_to_model(x, tp)
+        return gather_from_model(_adapter_add(self.lm_head(x), x, "lm_head", adapters, tp), tp)
 
 
 def lm_head_kernel(model) -> tuple[torch.Tensor, ModelGroup | None]:
@@ -709,11 +822,11 @@ def llama_partition_rules() -> list[tuple[str, tuple]]:
     """The reference's sharding rules for this model family, matched against
     the flax paths (``parallel.mesh.make_param_policy``): embeddings and heads
     over ``model`` (tensor parallel), ``fsdp`` over the other large dim. Axes
-    the mesh lacks are dropped. The reference's list also carries the MoE
-    rules (``moe_partition_rules``); they come with MoE (ROADMAP Queue 1 item 4)."""
+    the mesh lacks are dropped. The MoE rules (``moe_partition_rules``) come
+    first, as in the reference, so expert-parallel configs shard out of the box."""
     from ..parallel.mesh import P
 
-    return [
+    return list(moe_partition_rules()) + [
         # vocab over fsdp, features over model: the token gather never crosses
         # the model axis (each TP shard gathers its feature slice)
         ("embed/embedding", P("fsdp", "model")),
@@ -741,8 +854,15 @@ def _flax_layout(cfg: TransformerConfig) -> list[Row]:
         for n in ("q", "k", "v"):
             rows.append(((flax, "attn", f"{n}_proj", "kernel"), f"{port}.attn.{n}_proj.weight", heads))
         rows.append(((flax, "attn", "o_proj", "kernel"), f"{port}.attn.o_proj.weight", "t"))
-        for n in ("gate", "up", "down"):
-            rows.append(((flax, "mlp", f"{n}_proj", "kernel"), f"{port}.mlp.{n}_proj.weight", "t"))
+        if cfg.is_moe(i):
+            # the expert weights are params named "moe/gate_proj" ... inside the
+            # module "moe": the '/' is part of one key
+            rows.append(((flax, "moe", "router", "kernel"), f"{port}.moe.router.weight", "t"))
+            for n in ("gate", "up", "down"):
+                rows.append(((flax, "moe", f"moe/{n}_proj"), f"{port}.moe.{n}_proj", "same"))
+        else:
+            for n in ("gate", "up", "down"):
+                rows.append(((flax, "mlp", f"{n}_proj", "kernel"), f"{port}.mlp.{n}_proj.weight", "t"))
         rows.append(((flax, "attn_norm", "scale"), f"{port}.attn_norm.weight", "same"))
         rows.append(((flax, "mlp_norm", "scale"), f"{port}.mlp_norm.weight", "same"))
     rows.append((("final_norm", "scale"), "final_norm.weight", "same"))

@@ -33,10 +33,18 @@ reads a mesh's shape also takes a plain ``{axis: size}`` dict.
 - without a sharded parameter on ``fsdp``, the gradients are averaged over
   the data-parallel ranks (``data`` x ``fsdp``) by the stage, as in the
   replicated case;
+- the ``expert`` axis keeps, on each rank, its ``E / expert`` experts of an
+  MoE block (the expert dim, dim 0 of ``moe/gate_proj`` ...) as a DTensor
+  ``Shard(0)`` on the ``expert`` sub-mesh (the rest replicated there), and
+  switches the MoE blocks to their local experts
+  (``DecoderLM.apply_expert_parallel``). The batch is split over ``data``
+  and ``fsdp`` only, as the reference's is, so ``expert`` peers see the same
+  rows. ``expert`` and ``model`` both above 1 raise ``NotImplementedError``
+  (ROADMAP Queue 1 item 15);
 - the ``seq`` axis shards no parameter: a model with ``attn_impl="ring"``
   runs its attention over the axis's group (``apply_sequence_parallel``),
-  and ``seq`` peers, like ``model`` peers, feed the same rows and count once
-  in the metrics.
+  and ``seq`` peers, like ``model`` and ``expert`` peers, feed the same rows
+  and count once in the metrics.
 
 ``sharding_record`` is what a checkpoint's sharding sidecar records: the
 policy's spec of every parameter (by flax path, as the reference records
@@ -65,7 +73,8 @@ DATA, FSDP, MODEL, SEQ, EXPERT, PIPE = "data", "fsdp", "model", "seq", "expert",
 __all__ = ["DATA", "FSDP", "MODEL", "SEQ", "EXPERT", "PIPE", "P", "MeshPlan", "parse_mesh_axes", "mesh_shape",
            "create_mesh", "auto_mesh_axes", "auto_mesh", "mesh_axes", "data_axes", "data_parallel_size",
            "data_parallel_rank", "respec_for_mesh", "spec_to_jsonable", "spec_from_jsonable", "path_str",
-           "make_param_policy", "sharding_for", "sharding_record", "placements", "shard_module", "grad_sq_norm",
+           "make_param_policy", "sharding_for", "sharding_record", "placements", "expert_placements", "shard_module",
+           "grad_sq_norm",
            "data_parallel_group"]
 
 
@@ -400,6 +409,8 @@ class MeshPlan:
     fsdp: bool
     #: the ``model`` axis in use by the forward (None: no tensor parallelism)
     tp: ModelGroup | None
+    #: the ``expert`` axis the MoE blocks' experts are split over (None: none)
+    ep: ModelGroup | None = None
     #: processes over ``data`` x ``fsdp``, and the group the stage averages
     #: gradients over when FSDP2 does not (None: the default group)
     dp_size: int = 1
@@ -407,12 +418,13 @@ class MeshPlan:
     #: the data-parallel processes (``data`` x ``fsdp``) when they are not
     #: all processes (None: the default group, or one process)
     dp_group: Any = None
-    #: processes that differ only along ``model`` and ``seq`` (they feed the
-    #: same batch); None: no such peers
+    #: processes that differ only along ``model``, ``seq`` and ``expert``
+    #: (they feed the same batch); None: no such peers
     peer_group: Any = None
     peer_size: int = 1
     #: one process per data-parallel coordinate: the metric exchange counts
-    #: these (tensor- and sequence-parallel peers count once); None: every process
+    #: these (tensor-, sequence- and expert-parallel peers count once); None:
+    #: every process
     metric_ranks: list[int] | None = field(default=None)
     #: the sharding sidecar's record of the model (``sharding_record``)
     record: dict | None = None
@@ -442,10 +454,19 @@ def placements(model: torch.nn.Module, mesh: Any, policy: Any) -> tuple[dict[str
     an axes dict), and the torch dims the ``fsdp`` and a ``model`` axis of
     size > 1 shard, by parameter name. Raises ``ValueError`` for a placement
     the port cannot lay out (a ``head_dim`` split over ``model``, a parameter
-    split over another axis, ``fsdp`` and ``model`` on one dim)."""
+    split over another axis than ``fsdp``, ``model`` and ``expert``, ``fsdp``
+    and ``model`` or ``expert`` on one dim)."""
+    specs, fsdp_dim, model_dim, _ = expert_placements(model, mesh, policy)
+    return specs, fsdp_dim, model_dim
+
+
+def expert_placements(model: torch.nn.Module, mesh: Any,
+                      policy: Any) -> tuple[dict[str, P], dict[str, int], dict[str, int], dict[str, int]]:
+    """``placements``, and the torch dims an ``expert`` axis of size > 1
+    shards, by parameter name."""
     axes = mesh_axes(mesh)
     fn = make_param_policy(policy)
-    specs, fsdp_dim, model_dim = {}, {}, {}
+    specs, fsdp_dim, model_dim, expert_dim = {}, {}, {}, {}
     for r in _layout(model):
         spec = fn(r.path, torch.empty(r.shape, device="meta"), axes)
         specs[r.name] = spec
@@ -463,12 +484,15 @@ def placements(model: torch.nn.Module, mesh: Any, policy: Any) -> tuple[dict[str
                             f"{r.name} ({r.path}): spec {spec} splits flax dim {i} of {r.shape} over {MODEL!r}, "
                             "which the torch model cannot execute (a head_dim split)")
                     model_dim[r.name] = r.dims[i]
-                elif ax not in (FSDP, MODEL) and axes[ax] > 1:
+                elif ax == EXPERT and axes[EXPERT] > 1:
+                    expert_dim[r.name] = r.dims[i]
+                elif ax not in (FSDP, MODEL, EXPERT) and axes[ax] > 1:
                     raise ValueError(f"{r.name} ({r.path}): sharding a parameter over {ax!r} (spec {spec}) is not "
                                      "supported by the port")
-        if r.name in fsdp_dim and fsdp_dim[r.name] == model_dim.get(r.name):
-            raise ValueError(f"{r.name} ({r.path}): spec {spec} puts {FSDP!r} and {MODEL!r} on one dim")
-    return specs, fsdp_dim, model_dim
+        for ax, split in ((MODEL, model_dim), (EXPERT, expert_dim)):
+            if r.name in fsdp_dim and fsdp_dim[r.name] == split.get(r.name):
+                raise ValueError(f"{r.name} ({r.path}): spec {spec} puts {FSDP!r} and {ax!r} on one dim")
+    return specs, fsdp_dim, model_dim, expert_dim
 
 
 def shard_module(model: torch.nn.Module, mesh, policy: Any = "replicate") -> MeshPlan:
@@ -479,28 +503,38 @@ def shard_module(model: torch.nn.Module, mesh, policy: Any = "replicate") -> Mes
 
     axes = mesh_axes(mesh)
     names = list(mesh.mesh_dim_names)
-    _, fsdp_dim, model_dim = placements(model, axes, policy)
+    _, fsdp_dim, model_dim, expert_dim = expert_placements(model, axes, policy)
+    if model_dim and expert_dim:
+        raise NotImplementedError(f"mesh {axes}: experts split over both {EXPERT!r} and {MODEL!r} are not ported yet "
+                                  "(ROADMAP Queue 1 item 15)")
     record = sharding_record(model, axes, policy)
     params = dict(model.named_parameters())
-    tp = None
-    if model_dim:
-        if fsdp_dim and names.index(MODEL) < max(names.index(a) for a in data_axes(axes)):
-            raise ValueError(f"mesh {axes}: with FSDP the {MODEL!r} axis must come after {data_axes(axes)}")
-        apply_tp = getattr(model, "apply_tensor_parallel", None)
-        if apply_tp is None:
-            first = next(iter(model_dim))
-            raise ValueError(f"{first}: {type(model).__name__} cannot run tensor parallel (a {MODEL!r} placement)")
-        tp = ModelGroup(mesh.get_group(MODEL), mesh.get_local_rank(MODEL), axes[MODEL])
-        apply_tp(tp, dict(model_dim))
-        tp_mesh = mesh[MODEL]
+    tp = ep = None
+    for axis, split, how, verb in ((MODEL, model_dim, "apply_tensor_parallel", "tensor parallel"),
+                                   (EXPERT, expert_dim, "apply_expert_parallel", "expert parallel")):
+        if not split:
+            continue
+        if fsdp_dim and names.index(axis) < max(names.index(a) for a in data_axes(axes)):
+            raise ValueError(f"mesh {axes}: with FSDP the {axis!r} axis must come after {data_axes(axes)}")
+        apply = getattr(model, how, None)
+        if apply is None:
+            first = next(iter(split))
+            raise ValueError(f"{first}: {type(model).__name__} cannot run {verb} (a {axis!r} placement)")
+        group = ModelGroup(mesh.get_group(axis), mesh.get_local_rank(axis), axes[axis])
+        apply(group, dict(split))
+        if axis == MODEL:
+            tp = group
+        else:
+            ep = group
+        sub = mesh[axis]
         with torch.no_grad():
             for name, p in params.items():
                 owner, attr = _owner(model, name)
-                if name in model_dim:
-                    local = p.detach().chunk(tp.size, dim=model_dim[name])[tp.rank].contiguous()
-                    dt = DTensor.from_local(local, tp_mesh, [Shard(model_dim[name])], run_check=False)
+                if name in split:
+                    local = p.detach().chunk(group.size, dim=split[name])[group.rank].contiguous()
+                    dt = DTensor.from_local(local, sub, [Shard(split[name])], run_check=False)
                 else:
-                    dt = DTensor.from_local(p.detach(), tp_mesh, [Replicate()], run_check=False)
+                    dt = DTensor.from_local(p.detach(), sub, [Replicate()], run_check=False)
                 owner.register_parameter(attr, torch.nn.Parameter(dt, requires_grad=p.requires_grad))
         params = dict(model.named_parameters())
 
@@ -522,13 +556,13 @@ def shard_module(model: torch.nn.Module, mesh, policy: Any = "replicate") -> Mes
     elif getattr(getattr(model, "cfg", None), "attn_impl", None) == "ring":
         raise ValueError(f"attn_impl='ring' needs a {seq_axis!r} axis in the mesh {axes}")
 
-    plan = MeshPlan(axes=axes, fsdp=bool(fsdp_dim), tp=tp, dp_size=data_parallel_size(axes),
+    plan = MeshPlan(axes=axes, fsdp=bool(fsdp_dim), tp=tp, ep=ep, dp_size=data_parallel_size(axes),
                     record=record)
     if plan.dp_size > 1:
         plan.dp_group = _subgroup(mesh, data_axes(axes))
         if not plan.fsdp:
             plan.grad_group = plan.dp_group
-    peers = [a for a in (MODEL, seq_axis) if axes.get(a, 1) > 1]
+    peers = [a for a in (MODEL, seq_axis, EXPERT) if axes.get(a, 1) > 1]
     if peers:
         plan.peer_size = math.prod(axes[a] for a in peers)
         plan.peer_group = mesh.get_group(peers[0]) if len(peers) == 1 else _subgroup(mesh, peers)

@@ -37,9 +37,14 @@ Not ported yet, each raising ``NotImplementedError`` when given: speculative
 and Medusa decoding, LoRA adapters and the prefix cache (ROADMAP Queue 1
 item 10), the ledger, metrics, SLOs, watchdog, preemption and drain
 (the serve telemetry and drain), the construction-time IR verify (item 13)
-and ``hbm_budget``. ``batch_buckets``/``table_buckets`` only pad shapes for
-XLA's compile cache in the reference; the port has no compile cache, so they
-are accepted and pad nothing: each call runs at its batch's own shape.
+and ``hbm_budget``. ``batch_buckets``/``table_buckets`` pad shapes for
+XLA's compile cache in the reference; the port has no compile cache, so for
+a dense model they pad nothing: each call runs at its batch's own shape, and
+the tokens are the same. An MoE model is padded as the reference pads it:
+its routing sees every row, padding too (the capacity grows with the token
+count), so each prefill chunk runs at ``prefill_chunk`` tokens and each
+decode batch at its power-of-two bucket (``batch_buckets``), the padded rows
+token 0 with no blocks.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ import numpy as np
 import torch
 
 from ..models.generate import decode_step, sample_logits_batched
+from ..models.moe import MoEMLP
 from ..models.quant import prepare_decode_params
 from .kv_pool import KVBlockPool
 from .scheduler import Scheduler, Request, _Sequence
@@ -71,6 +77,16 @@ class DuplicateRequest(ValueError):
         super().__init__(f"idempotency token {token!r} already admitted as request {rid}")
         self.token = token
         self.rid = int(rid)
+
+
+def _pow2_buckets(limit: int) -> tuple[int, ...]:
+    """1, 2, 4, ... capped at (and always including) ``limit`` (the
+    reference's engine.py:325)."""
+    out, b = [], 1
+    while b < limit:
+        out.append(b)
+        b *= 2
+    return tuple(sorted(set(out + [int(limit)])))
 
 
 def _paged_step(model, pools, tables, fill, tokens, last_idx, generator, temperature, top_k, top_p, sample: bool):
@@ -157,15 +173,19 @@ class ServeEngine:
             default, what = _NOT_PORTED[name]
             if value != default:
                 raise NotImplementedError(f"ServeEngine({name}=...) needs {what}, which is not ported yet")
-        del batch_buckets, table_buckets  # XLA compile-cache buckets: nothing to pad here
+        del table_buckets  # XLA compile-cache buckets: nothing to pad here
         cfg = model.cfg
+        #: an MoE model runs the reference's padded shapes (module docstring)
+        self._moe = any(isinstance(m, MoEMLP) for m in model.modules())
+        self.batch_buckets = tuple(sorted({int(b) for b in batch_buckets})) if batch_buckets else _pow2_buckets(
+            max_slots)
         # one-time preparation: int8 kernels stay int8 (models/quant.py)
         self.model = model = prepare_decode_params(model, cfg.dtype)
         self.device = model.embed.weight.device
         max_table = -(-cfg.max_seq_len // block_size)
         if num_blocks is None:
             num_blocks = max_slots * max_table
-        self.pool = KVBlockPool.for_model(cfg, num_blocks=num_blocks, block_size=block_size, dtype=cache_dtype,
+        self.pool = KVBlockPool.for_model(model, num_blocks=num_blocks, block_size=block_size, dtype=cache_dtype,
                                           device=self.device)
         self.scheduler = Scheduler(self.pool, max_slots, prefill_chunk, max_waiting=max_waiting,
                                    shed_policy=shed_policy, fairness=fairness, drr_quantum=drr_quantum)
@@ -367,16 +387,17 @@ class ServeEngine:
 
     # -- device calls --------------------------------------------------------
     def _call(self, seqs, tables: np.ndarray, fill: np.ndarray, tokens: np.ndarray, last_idx: np.ndarray):
-        """One ``_paged_step`` on the batch ``seqs``; the new tokens come back
-        to the host in one copy."""
+        """One ``_paged_step`` on the batch ``seqs`` (and any padded rows past
+        them, greedy); the new tokens come back to the host in one copy."""
         dev = self.device
         as_dev = lambda a: torch.from_numpy(a).to(dev, non_blocking=True)
+        pad = tables.shape[0] - len(seqs)
         tok, pools = _paged_step(
             self.model, self.pool.pools, as_dev(tables), as_dev(fill), as_dev(tokens), as_dev(last_idx),
             self.generator,
-            torch.tensor([s.temperature for s in seqs], dtype=torch.float32, device=dev),
-            torch.tensor([s.top_k for s in seqs], dtype=torch.long, device=dev),
-            torch.tensor([s.top_p for s in seqs], dtype=torch.float32, device=dev),
+            torch.tensor([s.temperature for s in seqs] + [0.0] * pad, dtype=torch.float32, device=dev),
+            torch.tensor([s.top_k for s in seqs] + [0] * pad, dtype=torch.long, device=dev),
+            torch.tensor([s.top_p for s in seqs] + [1.0] * pad, dtype=torch.float32, device=dev),
             sample=any(s.temperature > 0 for s in seqs),
         )
         self.pool.swap(pools)
@@ -390,8 +411,10 @@ class ServeEngine:
         return rows
 
     def _prefill_chunk(self, seq: _Sequence) -> None:
-        n = min(self.scheduler.prefill_chunk, seq.prompt_len - seq.fill)
-        tokens = np.asarray(seq.req.prompt[seq.fill : seq.fill + n], np.int64)[None]
+        c = self.scheduler.prefill_chunk
+        n = min(c, seq.prompt_len - seq.fill)
+        tokens = np.zeros((1, c if self._moe else n), np.int64)
+        tokens[0, :n] = seq.req.prompt[seq.fill : seq.fill + n]
         nb = self.pool.blocks_for(seq.fill + n)
         tok = self._call([seq], self._table_rows([seq], nb), np.asarray([seq.fill], np.int64), tokens,
                          np.asarray([n - 1], np.int64))
@@ -407,9 +430,16 @@ class ServeEngine:
 
     def _decode(self, batch) -> None:
         nb = max(s.needed_blocks(self.pool.block_size) for s in batch)
-        fill = np.asarray([s.fill for s in batch], np.int64)
-        tokens = np.asarray([[s.last_token] for s in batch], np.int64)
-        tok = self._call(batch, self._table_rows(batch, nb), fill, tokens, np.zeros(len(batch), np.int64))
+        rows = len(batch)
+        if self._moe:
+            rows = next((b for b in self.batch_buckets if b >= rows), rows)
+        tables = np.full((rows, nb), self.pool.sentinel, np.int64)
+        tables[: len(batch)] = self._table_rows(batch, nb)
+        fill = np.zeros(rows, np.int64)
+        tokens = np.zeros((rows, 1), np.int64)
+        for i, s in enumerate(batch):
+            fill[i], tokens[i, 0] = s.fill, s.last_token
+        tok = self._call(batch, tables, fill, tokens, np.zeros(rows, np.int64))
         now = self.clock()
         for i, s in enumerate(batch):
             s.fill += 1  # the fed token's K/V landed at its position

@@ -76,10 +76,14 @@ class KVBlockPool:
 
     @classmethod
     def for_model(cls, cfg, *, num_blocks: int, block_size: int, dtype: Any = None, device=None) -> "KVBlockPool":
-        """Pool sized for a ``TransformerConfig`` (dtype defaults to the
-        model's compute dtype, matching ``init_cache``)."""
+        """Pool sized for a ``TransformerConfig``, or for a ``DecoderLM``,
+        whose rank holds ``kv_heads / model`` KV heads under tensor
+        parallelism (so ``num_blocks`` pages are per rank); dtype defaults to
+        the model's compute dtype, matching ``init_cache``."""
+        kv_heads = getattr(cfg, "local_kv_heads", None)
+        cfg = getattr(cfg, "cfg", cfg)
         return cls(
-            cfg.num_layers, cfg.kv_heads, cfg.head_dim,
+            cfg.num_layers, cfg.kv_heads if kv_heads is None else kv_heads, cfg.head_dim,
             num_blocks=num_blocks, block_size=block_size,
             dtype=cfg.dtype if dtype is None else dtype, device=device,
         )

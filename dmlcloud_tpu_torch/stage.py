@@ -79,10 +79,12 @@ What carries over unchanged:
   checkpoint's ``"extras"``); after every update it is refreshed from the
   updated weights, once per step whatever the microbatch count. The
   optimizer, the EMA and checkpoints see plain fp32 parameters, and
-  validation runs at full precision.
+  validation runs at full precision. On a mesh (``fsdp``, ``model``, ``seq``)
+  the amax is the whole weight's, max-reduced over the shards
+  (``models/quant.py``).
 
 Compiled steps on a mesh (``fsdp``, ``model``, ``seq``, ``pipe``), int8
-training on such a mesh, and the lint/verify/sanitize arms come in later
+training on a ``pipe`` axis, and the lint/verify/sanitize arms come in later
 slices.
 """
 
@@ -1168,10 +1170,9 @@ class TrainValStage(Stage):
             self.state = self.make_state()
         models = self.pipeline.models
         self._plan = self.pipeline._model_entry(self.model_name()).plan if models else None
-        if self._quant_layers and self._plan is not None and any(a in self._plan.axes for a in (FSDP, MODEL, SEQ,
-                                                                                                 PIPE)):
-            raise NotImplementedError(f'precision="int8" on a mesh with axes {sorted(self._plan.axes)} is not ported '
-                                      "yet (ROADMAP Queue 1 item 4); the 'data' axis (sharding='replicate') is")
+        if self._quant_layers and self._plan is not None and PIPE in self._plan.axes:
+            raise NotImplementedError(f'precision="int8" on a mesh with a {PIPE!r} axis ({self._plan.axes}) is not '
+                                      "ported yet (ROADMAP Queue 1 item 16); 'data', 'fsdp', 'model' and 'seq' are")
         if models:
             entry = self.pipeline._model_entry(self.model_name())
             self._sharding = self._plan.record if self._plan is not None else sharding_record(

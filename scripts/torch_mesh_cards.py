@@ -16,7 +16,8 @@ the elastic resumes of the N-card run's save on two cards and on one:
 (build the kernels once before, or every process runs nvcc:
 ``python -c "from dmlcloud_tpu_torch.ops import flash_attention as fa; fa.build()"``).
 ``--parts`` picks the parts by name (default: all): ``8b``, ``meshes``,
-``resume``, ``ring``, ``pipe``, ``elastic``, ``clip``, ``resnet``; ``--single``
+``resume``, ``ring``, ``pipe``, ``elastic``, ``clip``, ``resnet``, ``moe``,
+``tp_decode``, ``int8_mesh``; ``--single``
 runs only what the chosen parts compare with. The last ``--resume`` call
 deletes the save.
 
@@ -66,7 +67,24 @@ The parts, on the N processes (one per card):
 8. ``resnet``: ResNet-50 replicated (the reference's ``sharding="replicate"``)
    at global batch ``RESNET_GLOBAL``, its BatchNorm statistics summed over the
    processes, against one card on the whole batch: losses within
-   ``LOSS_ATOL``, images/s per card.
+   ``LOSS_ATOL``, images/s per card;
+9. ``moe``: 1b-moe (the 1b preset with 8 experts, top-2, capacity factor
+   1.25, in every second block) through a ``TrainingPipeline`` whose step
+   returns ``lm_loss + total_aux_loss``, ``MOE_STEPS`` AdamW steps of a global
+   batch of 4 rows, on ``expert=4`` and ``data=2,expert=2``: at 8 layers each
+   within ``LOSS_ATOL`` of one card and of each other (the global routing of
+   the data-parallel ranks), at the full 24 layers the steady step, tokens/s
+   and peak memory per card;
+10. ``tp_decode``: the bf16 1b on ``data=2,model=2`` and ``model=4``: greedy
+   ``generate`` (4 rows x 128 prompt tokens, 32 new) equal to one card's, a
+   row parting only where one card's top-2 logit gap is below ``TIE_GAP``; ms
+   per decode step; chip_smoke.py phase 13 (d)'s burst through
+   ``ServeEngine`` (TTFT p50, decode tokens/s), beside one card's;
+11. ``int8_mesh``: the 1b at ``precision="int8"`` on ``fsdp=4`` (phase 5's 7
+   steps), every loss within ``LOSS_ATOL`` of one card's int8 run, the steady
+   step and peak per card; then the int8 1b (``quantize_tree`` of the sharded
+   model) decoding on ``data=2,model=2``, its greedy tokens held to one card's
+   int8 tokens as in part 10.
 
 ``--device cpu --preset tiny`` runs every part on the CPU over gloo (part 3
 with the ``toy`` preset). Rank 0 prints the cards' names and power limits
@@ -99,7 +117,7 @@ from dmlcloud_tpu_torch.parallel import runtime  # noqa: E402
 #: reductions in another order (and bf16 partial sums under tensor parallelism)
 LOSS_ATOL = 1e-2
 MESHES = ["fsdp=4", "data=2,fsdp=2", "fsdp=2,model=2"]
-PARTS = ["8b", "meshes", "resume", "ring", "pipe", "elastic", "clip", "resnet"]
+PARTS = ["8b", "meshes", "resume", "ring", "pipe", "elastic", "clip", "resnet", "moe", "tp_decode", "int8_mesh"]
 #: the ring's runs: the 1b model at T = 8192 on seq=4, without and with a window
 RING_WINDOW = 4096
 #: pipeline_apply against the sequential blocks: bf16 activations, the
@@ -170,10 +188,16 @@ class _Stopping:
             yield batch
 
 
-def run_lm(argv: list[str], stop_after: int = 0, resume: bool = False, epoch_saves: bool = True):
+def run_lm(argv: list[str], stop_after: int = 0, resume: bool = False, epoch_saves: bool = True, int8: bool = False,
+           on_stage=None):
     """One ``train_lm`` run; with ``stop_after`` its feed raises once that many
-    batches were taken (after the step save there), which ends the run."""
+    batches were taken (after the step save there), which ends the run; with
+    ``int8`` at ``precision="int8"``; ``on_stage(stage)`` before it runs."""
     pipe, stage = train_lm.build(argv, resume=resume)
+    if int8:
+        stage.precision = lambda: "int8"
+    if on_stage is not None:
+        on_stage(stage)
     if not epoch_saves:
         stage.checkpoint_every = lambda: 0
     if stop_after:
@@ -773,6 +797,287 @@ def resume_elastic(args) -> int:
     return 1 if failed else 0
 
 
+# ---------------------------------------------------------------------------
+# the MoE, tensor-parallel decode and int8 parts
+# ---------------------------------------------------------------------------
+
+#: 1b-moe (chip_smoke.py phase 18): the 1b preset with 8 experts (top-2,
+#: capacity factor 1.25) in every second block
+MOE = dict(num_experts=8, moe_every=2, moe_top_k=2, moe_capacity_factor=1.25)
+MOE_MESHES = ["expert=4", "data=2,expert=2"]
+MOE_STEPS = 4
+#: the bf16 1b decoding on these meshes (``model=2`` twice over the four cards)
+TP_MESHES = ["data=2,model=2", "model=4"]
+#: greedy decode: rows x prompt tokens, new tokens; a row may part from the
+#: one-card tokens only at a step where the one-card top-2 logit gap is below
+#: ``TIE_GAP`` (two bf16 paths of the 1b differ in their logits by up to 0.086:
+#: a speculative verify pass against one-row decode steps, PERF.md)
+TP_DECODE = dict(rows=4, prompt=128, new=32)
+TIE_GAP = 0.12
+#: chip_smoke.py phase 13 (d)'s burst: 16 requests, prompts 128-1024, 128 new
+SERVE = dict(requests=16, prompts=(128, 1024), new=128, max_slots=8, block_size=16, prefill_chunk=256)
+INT8_MESH, INT8_DECODE_MESH = "fsdp=4", "data=2,model=2"
+
+
+def _moe_layers(args) -> tuple[int, int]:
+    """(the depth the meshes are checked at, the full depth)."""
+    return (8, 24) if args.preset == "1b" else (2, 4)
+
+
+def moe_config(args, layers: int):
+    from dmlcloud_tpu_torch.models.transformer import TransformerConfig
+
+    if args.preset == "1b":
+        return TransformerConfig(vocab_size=32000, max_seq_len=2048, attn_impl="flash", **MOE,
+                                 **dict(train_lm.PRESETS["1b"], num_layers=layers))
+    return TransformerConfig(vocab_size=512, max_seq_len=64, attn_impl="flash", dtype=torch.float32, **MOE,
+                             **dict(train_lm.PRESETS["tiny"], num_layers=layers))
+
+
+def run_moe(args, mesh: str | None, layers: int) -> dict:
+    """1b-moe at ``layers`` through a ``TrainingPipeline`` on ``mesh`` (None:
+    one card): ``MOE_STEPS`` AdamW steps of a global batch of 4 rows, each
+    process feeding its data-parallel rows, the step ``lm_loss +
+    total_aux_loss``."""
+    import dmlcloud_tpu_torch as dml
+    from dmlcloud_tpu_torch.models.moe import total_aux_loss
+    from dmlcloud_tpu_torch.models.transformer import DecoderLM, llama_partition_rules, lm_loss
+    from dmlcloud_tpu_torch.optim import adamw
+    from dmlcloud_tpu_torch.parallel.mesh import data_parallel_rank, data_parallel_size, parse_mesh_axes
+
+    cfg = moe_config(args, layers)
+    gen = torch.Generator().manual_seed(0)
+    batches = [torch.randint(0, cfg.vocab_size, (4, cfg.max_seq_len), generator=gen) for _ in range(MOE_STEPS)]
+
+    class MoEStage(dml.TrainValStage):
+        def pre_stage(self):
+            model = DecoderLM(cfg, device=args.device, generator=torch.Generator(device=args.device).manual_seed(0))
+            self.pipeline.register_model("lm", model, sharding=llama_partition_rules(), verbose=False)
+            self.pipeline.register_optimizer("adamw", adamw(3e-4))
+            m = self.pipeline.mesh
+            dp, r = (data_parallel_size(m), data_parallel_rank(m)) if m is not None else (1, 0)
+            self.pipeline.register_dataset("train", [b[r * 4 // dp:(r + 1) * 4 // dp] for b in batches],
+                                           verbose=False)
+
+        def step(self, state, batch):
+            return lm_loss(state.model(batch), batch) + total_aux_loss(state.model)
+
+        def val_epoch(self):
+            pass
+
+    if args.device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    pipe = dml.TrainingPipeline({"seed": 0}, name="moe", device=args.device)
+    if mesh:
+        pipe.set_mesh(parse_mesh_axes(mesh))
+    stage = MoEStage()
+    times = _timed_steps(args, stage)
+    pipe.append_stage(stage, max_epochs=1)
+    pipe.run()
+    losses = global_losses(stage)
+    steady = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated() / 2**30 if args.device != "cpu" else None
+    local = sum(getattr(p, "_local_tensor", p).numel() for p in stage.state.model.parameters())
+    out = {"layers": layers, "losses": losses, "step_ms": steady, "step_ms_all": times,
+           "tokens_per_s": 4 * cfg.max_seq_len / steady * 1e3, "peak_gib": runtime.all_gather_object(peak),
+           "local_params_b": local / 1e9}
+    log(f"[moe] {mesh or 'one card'}, 1b-moe at {layers} layers: losses {losses}; steady step {steady:.1f} ms "
+        f"(steps {[round(t, 1) for t in times]}) = {out['tokens_per_s']:.0f} tokens/s; peak GiB per card "
+        f"{out['peak_gib']}; {out['local_params_b']:.3f} B parameters on rank 0")
+    del pipe, stage
+    _free(args)
+    return out
+
+
+def part_moe(args, one: dict, failed: list) -> dict:
+    check, full = _moe_layers(args)
+    out = {}
+    for mesh in MOE_MESHES:
+        out[mesh] = {"check": run_moe(args, mesh, check), "full": run_moe(args, mesh, full)}
+        dev = [abs(a - b) for a, b in zip(out[mesh]["check"]["losses"], one["moe"]["losses"])]
+        out[mesh]["max_abs_loss_diff"] = max(dev)
+        log(f"[moe] {mesh} at {check} layers against one card: max |loss diff| {max(dev):.3g}")
+        if len(dev) != MOE_STEPS or not max(dev) <= LOSS_ATOL:
+            failed.append(f"moe {mesh}: losses off the one-card run by {max(dev)} (> {LOSS_ATOL})")
+    gap = max(abs(a - b) for a, b in zip(out[MOE_MESHES[0]]["check"]["losses"], out[MOE_MESHES[1]]["check"]["losses"]))
+    out["data_vs_expert_gap"] = gap
+    log(f"[moe] {MOE_MESHES[1]} against {MOE_MESHES[0]} at {check} layers: max |loss diff| {gap:.3g}")
+    if not gap <= LOSS_ATOL:
+        failed.append(f"moe: {MOE_MESHES[1]} off {MOE_MESHES[0]} by {gap} (> {LOSS_ATOL})")
+    return out
+
+
+def _lm_1b(args):
+    from dmlcloud_tpu_torch.models.transformer import DecoderLM, TransformerConfig
+
+    if args.preset == "1b":
+        cfg = TransformerConfig(vocab_size=32000, max_seq_len=2048, **train_lm.PRESETS["1b"])
+    else:  # 4 KV heads: model=4 splits them
+        cfg = TransformerConfig(vocab_size=512, max_seq_len=256, **dict(train_lm.PRESETS["tiny"], num_kv_heads=4))
+    return DecoderLM(cfg, device=args.device, generator=torch.Generator(device=args.device).manual_seed(0))
+
+
+def _decode_prompt(args, cfg):
+    d = TP_DECODE if args.preset == "1b" else dict(TP_DECODE, prompt=16, new=8)
+    gen = torch.Generator().manual_seed(14)
+    return torch.randint(0, cfg.vocab_size, (d["rows"], d["prompt"]), generator=gen).to(args.device), d["new"]
+
+
+def decode_run(args, model) -> dict:
+    """Greedy ``generate`` on ``model`` (timed: ms per decode step after the
+    prefill-only call), and each step's top-2 logit gap (cached steps fed the
+    generated tokens)."""
+    from dmlcloud_tpu_torch.models.generate import decode_step, generate, init_cache
+
+    prompt, new = _decode_prompt(args, model.cfg)
+    generate(model, prompt[:, :8], 2)  # first calls outside the timing
+    _, prefill = timed(args.device, lambda: generate(model, prompt, 1))
+    tokens, full = timed(args.device, lambda: generate(model, prompt, new))
+    gaps = []
+    with torch.no_grad():
+        cache = init_cache(model, prompt.shape[0], prompt.shape[1] + new, dtype=model.cfg.dtype, device=args.device)
+        logits, cache = decode_step(model, prompt, cache, attend_len=prompt.shape[1])
+        steps = [logits[:, -1]]
+        for j in range(new - 1):
+            logits, cache = decode_step(model, tokens[:, j:j + 1], cache, offset=prompt.shape[1] + j)
+            steps.append(logits[:, 0])
+        for lg in steps:
+            top = lg.float().topk(2, dim=-1).values
+            gaps.append((top[:, 0] - top[:, 1]).tolist())
+    return {"tokens": tokens.tolist(), "gaps": [list(r) for r in zip(*gaps)],
+            "ms_per_step": (full - prefill) / (new - 1) * 1e3}
+
+
+def serve_run(args, model) -> dict:
+    """chip_smoke.py phase 13 (d)'s burst through ``ServeEngine``: TTFT p50
+    and decode tokens/s."""
+    import numpy as np
+
+    from dmlcloud_tpu_torch.serve import ServeEngine
+
+    s = SERVE if args.preset == "1b" else dict(SERVE, requests=4, prompts=(8, 32), new=8, prefill_chunk=16)
+    rs = np.random.RandomState(1)
+    prompts = [rs.randint(0, model.cfg.vocab_size, n) for n in rs.randint(s["prompts"][0], s["prompts"][1] + 1,
+                                                                            s["requests"])]
+    blocks = -(-(s["prompts"][1] + s["new"]) // s["block_size"])
+    engine = ServeEngine(model, num_blocks=s["max_slots"] * blocks, max_slots=s["max_slots"],
+                         block_size=s["block_size"], prefill_chunk=s["prefill_chunk"])
+    engine.submit(prompts[0][:64], 2)
+    engine.run()
+    rids = [engine.submit(p, s["new"]) for p in prompts]
+    sched = engine.scheduler
+    decode_ms, rows = [], []
+    sync(args.device)
+    t0 = time.perf_counter()
+    while not engine.idle:
+        decode_only = not sched.prefilling and (sched.num_waiting == 0 or sched.active >= sched.max_slots)
+        n = len(sched.running)
+        s0 = time.perf_counter()
+        engine.step()
+        if decode_only and n:
+            decode_ms.append((time.perf_counter() - s0) * 1e3)
+            rows.append(n)
+    wall = time.perf_counter() - t0
+    seqs = [engine.sequence(r) for r in rids]
+    if engine.leaked_blocks() or any(q.status != "ok" for q in seqs):
+        raise AssertionError(f"serving ended with {engine.leaked_blocks()} leaked blocks")
+    ttft = [(q.first_token - q.arrival) * 1e3 for q in seqs]
+    return {"wall_s": wall, "ttft_p50_ms": float(np.percentile(ttft, 50)),
+            "decode_tokens_per_s": sum(rows) / sum(decode_ms) * 1e3 if decode_ms else None,
+            "decode_step_ms": statistics.median(decode_ms) if decode_ms else None}
+
+
+def _tie_check(got: list, want: dict) -> tuple[bool, list]:
+    """Whether each row of ``got`` equals the one-card row up to its first
+    difference, and that difference falls where the one-card gap is below
+    ``TIE_GAP``; the first differing step of each row (None: none)."""
+    first = []
+    for g, w, gaps in zip(got, want["tokens"], want["gaps"]):
+        i = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        first.append(None if i is None else (i, gaps[i]))
+    return all(f is None or f[1] < TIE_GAP for f in first), first
+
+
+def _sharded_1b(args, mesh: str):
+    from dmlcloud_tpu_torch.models.transformer import llama_partition_rules
+    from dmlcloud_tpu_torch.parallel import mesh as mesh_lib
+
+    model = _lm_1b(args)
+    mesh_lib.shard_module(model, mesh_lib.create_mesh(mesh_lib.parse_mesh_axes(mesh), device=args.device),
+                          llama_partition_rules())
+    return model
+
+
+def part_tp_decode(args, one: dict, failed: list) -> dict:
+    out = {}
+    for mesh in TP_MESHES:
+        model = _sharded_1b(args, mesh)
+        dec = decode_run(args, model)
+        ok, first = _tie_check(dec["tokens"], one["decode"])
+        serve = serve_run(args, model)
+        out[mesh] = {"ms_per_step": dec["ms_per_step"], "first_diff": first, "tokens_match": ok, "serve": serve,
+                     "local_kv_heads": model.local_kv_heads}
+        log(f"[tp_decode] {mesh}: {model.local_kv_heads} KV heads per rank; greedy tokens against one card: first "
+            f"differing step per row (step, one-card top-2 gap) {first}; {dec['ms_per_step']:.2f} ms per decode step "
+            f"(one card {one['decode']['ms_per_step']:.2f}); engine burst: TTFT p50 {serve['ttft_p50_ms']:.1f} ms, "
+            f"{serve['decode_tokens_per_s']:.1f} decode tokens/s, {serve['decode_step_ms']:.2f} ms per decode step "
+            f"(one card: {one['serve']['ttft_p50_ms']:.1f} ms, {one['serve']['decode_tokens_per_s']:.1f} tokens/s)")
+        if not ok:
+            failed.append(f"tp_decode {mesh}: greedy tokens part from one card's at a gap >= {TIE_GAP}: {first}")
+        del model
+        _free(args)
+    return out
+
+
+def int8_single(args) -> dict:
+    """One card: the 1b at ``precision="int8"`` (chip_smoke.py phase 17 (c)'s
+    run) and the int8 1b's greedy decode."""
+    from dmlcloud_tpu_torch.models.quant import quantize_tree
+
+    _, stage = run_lm(lm_argv(args), int8=True)
+    out = {"losses": [float(x) for x in stage.train_losses],
+           "step_ms": float(stage.tracker["misc/train_step_avg_ms"][-1])}
+    del stage
+    _free(args)
+    out["decode"] = decode_run(args, quantize_tree(_lm_1b(args)))
+    _free(args)
+    return out
+
+
+def part_int8_mesh(args, one: dict, failed: list) -> dict:
+    from dmlcloud_tpu_torch.models.quant import quantize_tree
+
+    if args.device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    times = []
+    _, stage = run_lm(lm_argv(args) + ["--mesh", INT8_MESH], int8=True,
+                      on_stage=lambda s: times.extend([_timed_steps(args, s)]))
+    losses = global_losses(stage)
+    step = statistics.median(times[0][1:])
+    peak = torch.cuda.max_memory_allocated() / 2**30 if args.device != "cpu" else None
+    dev = [abs(a - b) for a, b in zip(losses, one["int8"]["losses"])]
+    out = {"losses": losses, "max_abs_loss_diff": max(dev), "step_ms": step, "peak_gib": runtime.all_gather_object(peak),
+           "amax_buffers": sum(n.endswith("quant_amax") for n, _ in stage.state.model.named_buffers())}
+    log(f"[int8_mesh] int8 1b on {INT8_MESH}: losses {losses} (one card {one['int8']['losses']}), max |diff| "
+        f"{max(dev):.3g}; steady step {step} ms (one card avg {one['int8']['step_ms']:.1f}); peak GiB per card "
+        f"{out['peak_gib']}")
+    if len(dev) != len(one["int8"]["losses"]) or not max(dev) <= LOSS_ATOL:
+        failed.append(f"int8_mesh {INT8_MESH}: losses off the one-card int8 run by {max(dev)} (> {LOSS_ATOL})")
+    del stage
+    _free(args)
+    qmodel = quantize_tree(_sharded_1b(args, INT8_DECODE_MESH))
+    dec = decode_run(args, qmodel)
+    ok, first = _tie_check(dec["tokens"], one["int8"]["decode"])
+    out["decode"] = {"ms_per_step": dec["ms_per_step"], "first_diff": first, "tokens_match": ok}
+    log(f"[int8_mesh] int8 1b decoding on {INT8_DECODE_MESH}: {dec['ms_per_step']:.2f} ms per step (one card "
+        f"{one['int8']['decode']['ms_per_step']:.2f}); first differing step per row {first}")
+    if not ok:
+        failed.append(f"int8_mesh decode: greedy tokens part from one card's at a gap >= {TIE_GAP}: {first}")
+    del qmodel
+    _free(args)
+    return out
+
+
 def _remove_params_file(one: dict) -> None:
     """Delete the --single run's parameters and their directory (rank 0)."""
     if "params_file" in one:
@@ -841,6 +1146,17 @@ def main(argv: list[str] | None = None) -> int:
                                  "step_ms": float(stage.tracker["misc/train_step_avg_ms"][-1])}
                 del stage
                 _free(args)
+        if "moe" in parts:
+            result["moe"] = run_moe(args, None, _moe_layers(args)[0])
+        if "tp_decode" in parts:
+            model = _lm_1b(args)
+            result["decode"], result["serve"] = decode_run(args, model), serve_run(args, model)
+            log(f"[tp_decode] one card: {result['decode']['ms_per_step']:.2f} ms per decode step; burst "
+                f"{result['serve']}")
+            del model
+            _free(args)
+        if "int8_mesh" in parts:
+            result["int8"] = int8_single(args)
         result["wall_s"] = time.perf_counter() - t0
         with open(args.out, "w") as f:
             json.dump(result, f)
@@ -869,6 +1185,12 @@ def main(argv: list[str] | None = None) -> int:
             out["elastic"] = part_elastic(args, failed, args.elastic_out)
         if "clip" in parts or "resnet" in parts:
             out.update(part_vision(args, one, failed))
+        if "moe" in parts:
+            out["moe"] = part_moe(args, one, failed)
+        if "tp_decode" in parts:
+            out["tp_decode"] = part_tp_decode(args, one, failed)
+        if "int8_mesh" in parts:
+            out["int8_mesh"] = part_int8_mesh(args, one, failed)
     finally:
         if runtime.is_root():
             _remove_params_file(one)

@@ -168,6 +168,15 @@ _SCRIPT = textwrap.dedent(
                float(qstage.tracker["train/loss"][-1]) > 0]
     runtime.deinitialize()
 
+    # the slice-14 paths: an MoE DecoderLM, its aux loss, its decode, int8 of it
+    from dmlcloud_tpu_torch.models.moe import total_aux_loss
+    moe = DecoderLM(TransformerConfig(vocab_size=64, num_layers=2, num_heads=2, head_dim=8, hidden_dim=16, mlp_dim=32,
+                                      max_seq_len=32, num_experts=4, dtype=torch.float32), device="cpu")
+    moe_tokens = torch.randint(0, 64, (2, 12), generator=torch.Generator().manual_seed(0))
+    moe_logits = moe(moe_tokens)
+    slice14 = [list(moe_logits.shape), float(total_aux_loss(moe)) > 0, hasattr(moe.layers[1], "moe"),
+               list(generate(quant.quantize_tree(moe), moe_tokens[:, :6], 3).shape)]
+
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in BLOCKED)
     raised = {}
@@ -188,7 +197,7 @@ _SCRIPT = textwrap.dedent(
     print(json.dumps({"modules": modules, "loaded": loaded, "loss": loss, "goodput": goodput, "raised": raised,
                       "mnist_acc": mnist_acc, "collectives": collectives, "pod": [pod_loss, pod_fsdp],
                       "slice8": slice8, "slice9": slice9, "slice10": slice10,
-                      "slice11": slice11, "slice12": slice12, "slice13": slice13}))
+                      "slice11": slice11, "slice12": slice12, "slice13": slice13, "slice14": slice14}))
     """
 )
 
@@ -212,7 +221,7 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
                  "examples.pod_clip_vit", "utils.paths", "data.store", "native", "native._lib", "native.pack",
                  "native.interleave", "compile", "compile.aot", "compile.buckets", "compile.cache", "lint",
                  "lint.traceguard", "telemetry.metrics_registry", "models.quant", "models.lora",
-                 "models.speculative"):
+                 "models.speculative", "models.moe"):
         assert f"dmlcloud_tpu_torch.{name}" in result["modules"], name
     assert result["loss"] == result["loss"] and result["loss"] > 0  # finite, trained
     assert 0 < result["goodput"] <= 1
@@ -230,6 +239,8 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
     assert result["slice12"] == [1, [0], True, "# TYPE steps_total counter\nsteps_total 3\n", 2.0], result["slice12"]
     # int8 tokens, speculative == plain greedy, adapters over a frozen base, an int8 training run
     assert result["slice13"] == [[1, 4], True, True, True], result["slice13"]
+    # a finite forward, a positive aux loss, the second block MoE, int8 decode (the router quantized)
+    assert result["slice14"] == [[2, 12, 64], True, True, [2, 3]], result["slice14"]
     for name, did_raise in result["raised"].items():
         assert did_raise, f"{name} without a device ran on the CPU instead of raising"
 

@@ -1,0 +1,43 @@
+"""The MoE ``DecoderLM`` in the serving engine, against the reference's
+engine on the CPU.
+
+The reference's engine pads each prefill chunk to ``prefill_chunk`` tokens
+and each decode batch to its power-of-two bucket, and its MoE blocks route
+the padding too. The port's engine pads an MoE model the same way, so with
+4 slots (nothing drops) and with 32 slots (28 rows in one batch, capacity
+binding) the greedy tokens of a tiny fp32 MoE model (tests/test_torch_moe.py)
+are the reference engine's, request for request.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_moe import _lm, _tokens
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("max_slots", [4, 32])
+def test_moe_engine_tokens_equal_the_reference_engine(max_slots):
+    """The reference pads each prefill chunk to ``prefill_chunk`` tokens and
+    each decode batch to its power-of-two bucket, and an MoE block routes the
+    padding too: its capacity grows with the rows (28 rows: 8 slots per
+    expert, their bucket of 32: 16). The port's engine pads an MoE model the
+    same way, so the tokens are the reference engine's, request for request
+    (without the padding, 28 rows in one batch drop choices the reference
+    keeps)."""
+    from dmlcloud_tpu.serve.engine import ServeEngine as JEngine
+    from dmlcloud_tpu_torch.serve import ServeEngine as TEngine
+
+    jmodel, params, tmodel = _lm()
+    n, new = (28, 29) if max_slots == 32 else (6, 6)
+    prompts = [_tokens(1, 2 + i % 2, seed=20 + i)[0] for i in range(n)]
+    jeng = JEngine(jmodel, params, block_size=4, max_slots=max_slots, prefill_chunk=4, num_blocks=232)
+    teng = TEngine(tmodel, block_size=4, max_slots=max_slots, prefill_chunk=4, num_blocks=232)
+    jids = [jeng.submit(p, new) for p in prompts]
+    tids = [teng.submit(p, new) for p in prompts]
+    jdone, tdone = jeng.run(), teng.run()
+    for j, t in zip(jids, tids):
+        assert tdone[t].tolist() == np.asarray(jdone[j]).tolist()
+    assert teng.batch_buckets[-1] == max_slots

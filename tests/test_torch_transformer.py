@@ -200,7 +200,14 @@ def test_config_refuses_paths_of_later_slices():
     assert ttr.TransformerConfig(attn_impl="ring").seq_axis == "seq"
     with pytest.raises(ValueError, match="'dot', 'flash' or 'ring'"):
         ttr.TransformerConfig(attn_impl="paged")
-    with pytest.raises(TypeError):  # MoE blocks are not ported: the config has no such field
-        ttr.TransformerConfig(num_experts=4)
+    # MoE blocks are ported (tests/test_torch_moe.py): the field is accepted, and
+    # num_experts=0 (the default) builds the dense model, parameter for parameter
+    assert ttr.TransformerConfig(num_experts=4).is_moe(1) and not ttr.TransformerConfig(num_experts=4).is_moe(0)
+    tiny = dict(vocab_size=32, num_layers=2, num_heads=2, head_dim=8, hidden_dim=16, mlp_dim=32, max_seq_len=16)
+    dense = ttr.DecoderLM(ttr.TransformerConfig(**tiny), device="cpu")
+    zero = ttr.DecoderLM(ttr.TransformerConfig(num_experts=0, **tiny), device="cpu")
+    assert [(n, p.shape) for n, p in dense.named_parameters()] == [(n, p.shape) for n, p in zero.named_parameters()]
+    assert all(torch.equal(a, b) for a, b in zip(dense.parameters(), zero.parameters()))
+    assert not any(hasattr(layer, "moe") for layer in zero.layers)
     with pytest.raises(ValueError):
         ttr.TransformerConfig(sliding_window=0)
