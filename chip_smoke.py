@@ -206,7 +206,38 @@ Phases, each fatal on failure:
    of the no-cache forward's; then ``generate`` on the bf16 1b-moe (8 rows x
    128 prompt tokens, 64 new), ms per step; (d) ``quantize_tree`` of it (the
    routers quantized): resident GiB against bf16, ``generate`` on the int8
-   model.
+   model;
+19. serving modes, the bf16 1b (seed 0) through ``ServeEngine`` (8 slots,
+   blocks of 16, prefill chunks of 256): (a) 16 requests sharing one
+   768-token prefix (suffixes of 64-256, 128 new) with and without
+   ``prefix_cache``, after the prefix alone as a warm-up: prefill tokens saved
+   (must be 16 x 768), the COW fork of an exact duplicate of the prefix (must
+   be 1, counted from the journal's ``cow_fork`` spans), TTFT p50/p99, decode
+   tokens/s, 0 leaked blocks and locks, and the greedy agreement of the two
+   runs with each parting's top-2 gap (a parting at a gap of
+   ``BF16_TIE_GAP`` or more fails) and the median gap of the compared steps;
+   (b) ``spec_k=4`` with a self-draft and with a random 1-layer full-width
+   draft, (c) ``medusa_k=4`` with the heads warm-started from the LM head,
+   each on 8 requests (prompts 128-256, 64 new) beside the plain engine on
+   the same requests, each engine's burst served twice in the order plain,
+   the modes, the modes backwards, plain: accept rate, ms per token in both
+   bursts, agreement with the plain run, 0 leaked blocks in both pools, and
+   one decode step or round of the 8 rows under ``torch.profiler``; (d) 4
+   rank-16 tenants and the base through one engine, each tenant's tokens
+   against ``generate`` on its merged model (agreement, partings' gaps); (e)
+   ``metrics=True``, a TTFT ``SLO``, the prefix cache and a
+   ``ChaosMonkey(seed=7)`` drill over 12 requests: every request terminal,
+   some ``ok``, ``assert_consistent()`` after every step, 0 leaked blocks;
+   then ``drain()`` into a ``tempfile.mkdtemp()`` run directory (removed)
+   writing ``requeue.json``, and one scrape through ``MetricsServer`` on
+   ``127.0.0.1``; (f) the modes of (a)-(d) in fp32 at the 1b width with 2
+   layers (the prefix cache, spec self-draft with it, the 1-layer draft,
+   Medusa with the cache, 2 tenants and the base with the cache and under
+   spec): every token equal to serial ``generate``'s on the (merged) model
+   but at a top-2 margin under ``TIE_MARGIN``, the prefill tokens saved, 0
+   leaked blocks and locks; and a tenant served with its ``b`` doubled,
+   which must part from its merged model at a margin of ``TIE_MARGIN`` or
+   more.
 
 The last line of standard output is one JSON object with ``"ok": true``. With no
 card, or without the package beside it, the script exits non-zero and prints no
@@ -3722,6 +3753,525 @@ def phase_moe(torch, fa, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the serving engine's modes
+# ---------------------------------------------------------------------------
+
+#: (a): requests sharing one prefix: count, prefix and suffix lengths, new tokens; the engine's knobs
+SHARED = dict(requests=16, prefix=768, suffix=(64, 256), new=128)
+SERVE19 = dict(max_slots=8, block_size=16, prefill_chunk=256)
+#: (b)/(c): requests of (b) and (c), their prompt lengths and new tokens; proposals per round
+ROUNDS = dict(requests=8, prompt=(128, 256), new=64, k=4)
+#: (d): tenants and their rank, requests per tenant, prompt and new tokens
+TENANTS = dict(tenants=4, rank=16, alpha=16.0, prompt=128, new=32)
+#: (e): the drill's requests (prompt lengths, new tokens) and the monkey
+#: (prefill faults only: a decode fault fails the whole batch of 8, which leaves no survivor to check)
+DRILL = dict(requests=12, prompt=(32, 256), new=32,
+             monkey=dict(seed=7, p_fault=0.1, fault_points=("prefill",), max_faults=2, p_exhaust=0.1,
+                         exhaust_blocks=16, exhaust_steps=2, p_stall=0.05, stall_s=0.5, p_cancel=0.05))
+#: a bf16 greedy token that parts from the run it is compared with must do so where that run's top-2
+#: logit gap is under this: above the gaps where two bf16 paths of the random 1b parted (<= 0.086 in
+#: phase 17, <= 0.0311 in phase 19), below the median gap of the compared steps (0.11-0.28 in phase 19).
+#: Each comparison prints its median and the share of steps under the bound, where a fault's parting
+#: would pass; the exactness gate of the modes is (f), in fp32.
+BF16_TIE_GAP = 0.1
+#: (f): the fp32 run of the modes at the 1b width: depth, requests on one prefix (prefix and suffix
+#: lengths), new tokens, proposals per round, tenants' rank and the scale of their b
+EXACT = dict(layers=2, requests=4, prefix=64, suffix=(16, 48), new=24, k=4, rank=16, b_scale=0.05)
+EXACT_ENGINE = dict(max_slots=4, block_size=16, prefill_chunk=128)
+
+
+def _burst(torch, engine, prompts, new: int, profile: bool = False, adapters=None) -> dict:
+    """Serve ``prompts`` (with the tenants ``adapters``, one per prompt, when
+    given) through ``engine`` and time it: the wall, each request's TTFT and
+    tokens, and the decode-only steps (no prefill pending).
+    With ``profile``, the first decode-only step that runs every row goes
+    under ``torch.profiler`` instead of the step timing; the wall keeps that
+    step's own time, not the profiler's set-up and post-processing."""
+    import numpy as np
+
+    sched = engine.scheduler
+    torch.cuda.synchronize()
+    rids = [engine.submit(p, new, adapter=a) for p, a in zip(prompts, adapters or [None] * len(prompts))]
+    emitted = lambda: sum(len(engine.sequence(r).out) for r in rids)
+    step_s, step_tokens, profiled, steps, overhead = 0.0, 0, None, [], 0.0
+    t0 = time.perf_counter()
+    while not engine.idle:
+        decode_only = not sched.prefilling and (sched.num_waiting == 0 or sched.active >= sched.max_slots)
+        if profile and decode_only and profiled is None and len(sched.running) == min(len(rids), sched.max_slots):
+            p0 = time.perf_counter()
+            profiled = profile_call(torch, engine.step)
+            overhead = time.perf_counter() - p0 - profiled[0] / 1e6
+            continue
+        before = emitted()
+        s0 = time.perf_counter()
+        engine.step()
+        steps.append((time.perf_counter() - s0) * 1e3)
+        if decode_only:
+            step_s += steps[-1] / 1e3
+            step_tokens += emitted() - before
+    wall = time.perf_counter() - t0 - overhead
+    seqs = [engine.sequence(r) for r in rids]
+    bad = [(r, s.status, len(s.out)) for r, s in zip(rids, seqs) if s.status != "ok" or len(s.out) != new]
+    if bad or engine.leaked_blocks():
+        raise AssertionError(f"requests ended {bad}, {engine.leaked_blocks()} leaked blocks")
+    engine.pool.assert_consistent()
+    return {"wall": wall, "ttft": np.asarray([(s.first_token - s.arrival) * 1e3 for s in seqs]),
+            "tokens": [list(s.out) for s in seqs], "rids": rids, "profile": profiled, "steps": steps,
+            "decode_tps": step_tokens / step_s if step_s else float("nan"),
+            "ms_per_token": wall / (len(rids) * new) * 1e3}
+
+
+def _gaps(torch, model, prompt, tokens):
+    """The top-2 logit gap of ``model`` at every greedy step of ``tokens``
+    after ``prompt`` (one no-cache forward)."""
+    with torch.no_grad():
+        seq = torch.as_tensor([*prompt, *tokens]).long().cuda()
+        top = model(seq[None])[0, len(prompt) - 1 : len(prompt) - 1 + len(tokens)].float().topk(2).values
+    return (top[:, 0] - top[:, 1]).cpu().tolist()
+
+
+def _agreement(torch, model, prompts, got, want) -> tuple[float, list, str]:
+    """Greedy agreement of ``got`` with ``want`` (token lists per request);
+    per row that parts, (row, step, the top-2 logit gap of ``want``'s run
+    there, from a no-cache forward of ``model``); and the median gap over all
+    of ``want``'s steps with the share of them under ``BF16_TIE_GAP``. Fails
+    on a parting at or above ``BF16_TIE_GAP``."""
+    same = total = 0
+    partings, gaps = [], []
+    for r, (p, g, w) in enumerate(zip(prompts, got, want)):
+        same += sum(int(a == b) for a, b in zip(g, w))
+        total += len(w)
+        row = _gaps(torch, model, p, w)
+        gaps += row
+        j = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is not None:
+            partings.append((r, j, round(row[j], 4)))
+            if not row[j] < BF16_TIE_GAP:
+                raise AssertionError(f"row {r} parts at step {j} where the top-2 gap is {row[j]:.3g} "
+                                     f"(>= {BF16_TIE_GAP}: not a bf16 tie)")
+    under = sum(x < BF16_TIE_GAP for x in gaps) / len(gaps)
+    return same / total, partings, (f"median top-2 gap {statistics.median(gaps):.4f} over {len(gaps)} steps, "
+                                    f"{under:.3f} of them under {BF16_TIE_GAP}")
+
+
+def phase_prefix(torch, smi: str, model, cfg) -> dict:
+    """(a): 16 requests on one 768-token prefix, with and without the prefix
+    cache."""
+    import tempfile
+
+    import numpy as np
+
+    from dmlcloud_tpu_torch.serve import ServeEngine
+    from dmlcloud_tpu_torch.telemetry import journal
+
+    sh = SHARED
+    rs = np.random.RandomState(19)
+    prefix = rs.randint(0, cfg.vocab_size, sh["prefix"])
+    prompts = [np.concatenate([prefix, rs.randint(0, cfg.vocab_size, int(rs.randint(sh["suffix"][0],
+                                                                                      sh["suffix"][1] + 1)))])
+               for _ in range(sh["requests"])]
+    per_req = -(-(sh["prefix"] + sh["suffix"][1] + sh["new"]) // SERVE19["block_size"])
+    num_blocks = SERVE19["max_slots"] * per_req + sh["prefix"] // SERVE19["block_size"]
+    runs = {}
+    for cached in (False, True):
+        engine = ServeEngine(model, num_blocks=num_blocks, prefix_cache=cached, **SERVE19)
+        # the template alone first: the cuBLAS handles warm, and with the cache its 48 blocks enter the tree
+        warm = engine.submit(prefix, 4)
+        engine.run()
+        if engine.status(warm) != "ok":
+            raise AssertionError(f"warm-up request ended {engine.status(warm)}")
+        res = _burst(torch, engine, prompts, sh["new"])
+        if cached:
+            # an exact duplicate of the template: its full-block match re-feeds the last token, whose write
+            # forks the last shared block (counted from the journal's cow_fork spans)
+            with tempfile.TemporaryDirectory() as tmp:
+                j = journal.activate(journal.SpanJournal(tmp))
+                try:
+                    dup = engine.submit(prefix, 4)
+                    engine.run()
+                finally:
+                    journal.deactivate()
+                res["forks"] = sum(1 for r in j.tail(1 << 12) if r["kind"] == "cow_fork")
+            if engine.status(dup) != "ok" or engine.output(dup).tolist() != engine.output(warm).tolist():
+                raise AssertionError(f"the duplicate ended {engine.status(dup)} with {engine.output(dup)}")
+            recs = [engine.ledger.records[r] for r in res["rids"]]
+            res["saved"] = sum(r["saved_tokens"] for r in recs)
+            res["locks"] = engine.prefix.leaked_locks()
+            res["tree"] = engine.prefix.stats()
+            if res["saved"] != sh["requests"] * sh["prefix"] or res["forks"] != 1 or res["locks"]:
+                raise AssertionError(f"prefix cache: saved {res['saved']} tokens (want "
+                                     f"{sh['requests'] * sh['prefix']}), forks {res['forks']}, locks {res['locks']}")
+        res["leaked"] = engine.leaked_blocks()
+        if res["leaked"]:
+            raise AssertionError(f"{res['leaked']} leaked blocks")
+        runs[cached] = res
+        del engine
+        _free(torch)
+    agree, partings, gaps = _agreement(torch, model, prompts, runs[True]["tokens"], runs[False]["tokens"])
+    for cached, res in runs.items():
+        extra = (f"; prefill tokens saved {res['saved']} of {sum(len(p) for p in prompts)}, COW forks {res['forks']} "
+                 f"(the exact duplicate), tree {res['tree']['nodes']} nodes, 0 leaked locks" if cached else "")
+        log(f"[serve19] (a) 1b bf16, {sh['requests']} requests on one {sh['prefix']}-token prefix (+{sh['suffix'][0]}-"
+            f"{sh['suffix'][1]} suffix, {sh['new']} new), {SERVE19}, prefix_cache={cached}: {res['wall']:.2f} s, "
+            f"TTFT p50 {np.percentile(res['ttft'], 50):.1f} ms, p99 {np.percentile(res['ttft'], 99):.1f} ms; "
+            f"{res['decode_tps']:.1f} decode tokens/s{extra}; 0 leaked blocks [{smi}]")
+    log(f"[serve19] (a) greedy agreement with and without the cache {agree:.4f}; partings (row, step, top-2 gap): "
+        f"{partings or 'none'}; the uncached run's {gaps} [{smi}]")
+    return runs[False]
+
+
+def phase_rounds(torch, smi: str, model, cfg) -> None:
+    """(b) spec_k=4 with a self-draft and a random 1-layer draft, (c)
+    medusa_k=4 with warm-started heads, each against the plain engine on the
+    same requests; the engine's journal spans split each mode's time. Every
+    engine serves the burst twice, in the order plain, the modes, the modes
+    backwards, plain, so that no mode's time rests on one place in the
+    sequence."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from dmlcloud_tpu_torch.models.transformer import DecoderLM
+    from dmlcloud_tpu_torch.serve import ServeEngine
+    from dmlcloud_tpu_torch.telemetry import journal
+
+    ro = ROUNDS
+    rs = np.random.RandomState(20)
+    prompts = [rs.randint(0, cfg.vocab_size, int(rs.randint(ro["prompt"][0], ro["prompt"][1] + 1)))
+               for _ in range(ro["requests"])]
+    per_req = -(-(ro["prompt"][1] + ro["new"] + ro["k"] + 1) // SERVE19["block_size"])
+    num_blocks = SERVE19["max_slots"] * per_req
+    draft = DecoderLM(dataclasses.replace(cfg, num_layers=1), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(1))
+    modes = {"plain": {}, "spec self-draft": dict(spec_k=ro["k"], draft_num_blocks=num_blocks),
+             "spec 1-layer draft": dict(spec_k=ro["k"], draft_model=draft, draft_num_blocks=num_blocks),
+             "medusa": dict(medusa_k=ro["k"])}
+    engines = {}
+    for name, kw in modes.items():
+        engines[name] = engine = ServeEngine(model, num_blocks=num_blocks, **SERVE19, **kw)
+        engine.submit(prompts[0][:32], 8)  # warm-up: first calls outside the timing
+        engine.run()
+    out = {}
+    for name in [*modes, *reversed(modes)]:
+        engine = engines[name]
+        if name not in out:
+            with tempfile.TemporaryDirectory() as tmp:
+                j = journal.activate(journal.SpanJournal(tmp, ring_size=1 << 16))
+                try:
+                    res = _burst(torch, engine, prompts, ro["new"], profile=True)
+                finally:
+                    journal.deactivate()
+                res["spans"] = _span_ms(j.tail(1 << 16))
+            summary = engine.ledger.summary()
+            res["accept"] = summary["accept_rate"]
+            res["drafted"] = summary["drafted_tokens"]
+            out[name] = res
+        else:
+            again = _burst(torch, engine, prompts, ro["new"])
+            out[name]["ms2"] = again["ms_per_token"]
+            out[name]["same2"] = again["tokens"] == out[name]["tokens"]
+        pools = [engine.pool] + ([engine.draft_pool] if engine.draft_pool is not None else [])
+        out[name]["leaked"] = engine.leaked_blocks()
+        if out[name]["leaked"] or any(p.num_free != p.num_blocks for p in pools):
+            raise AssertionError(f"{name}: {out[name]['leaked']} leaked blocks")
+    del engines
+    _free(torch)
+    if out["spec self-draft"]["accept"] is None or out["spec self-draft"]["drafted"] == 0:
+        raise AssertionError("the self-draft proposed nothing")
+    for res in out.values():
+        res["ms_mean"] = (res["ms_per_token"] + res["ms2"]) / 2
+    plain = out["plain"]
+    log(f"[serve19] (b)(c) plain engine, 1b bf16, {ro['requests']} requests ({ro['prompt'][0]}-{ro['prompt'][1]} "
+        f"prompt tokens, {ro['new']} new): {plain['ms_per_token']:.2f} and {plain['ms2']:.2f} ms per token (first "
+        f"and last burst of the sequence), {plain['decode_tps']:.1f} decode tokens/s in the first [{smi}]")
+    _log_round_profile(f"plain decode step of {ro['requests']} rows [{smi}]", plain["profile"])
+    log(f"[serve19] (b)(c) host wall per engine span (kind: calls, median ms, total ms), each mode's first burst: "
+        + "; ".join(f"{name}: {out[name]['spans']}" for name in modes) + f" [{smi}]")
+    for name in modes:
+        st = sorted(out[name]["steps"])
+        in_spans = sum(total for _, _, total in out[name]["spans"].values())
+        log(f"[serve19] (b)(c) {name}, first burst: {len(st)} unprofiled steps, median {statistics.median(st):.2f} "
+            f"ms, max {st[-1]:.2f}, the 3 longest {[round(x, 1) for x in st[-3:]]}; steps {sum(st):.1f} ms of the "
+            f"burst's {out[name]['wall'] * 1e3:.1f}, spans {in_spans:.1f} [{smi}]")
+    for name in ("spec self-draft", "spec 1-layer draft", "medusa"):
+        res = out[name]
+        agree, partings, gaps = _agreement(torch, model, prompts, res["tokens"], plain["tokens"])
+        tag = "(c)" if name == "medusa" else "(b)"
+        spread = abs(res["ms_per_token"] - res["ms2"]) / res["ms_mean"]
+        log(f"[serve19] {tag} {name}, k={ro['k']}: accept rate {res['accept']}, {res['drafted']} tokens drafted; "
+            f"{res['ms_per_token']:.2f} and {res['ms2']:.2f} ms per token in its two bursts (spread {spread:.3f}), "
+            f"mean {res['ms_mean']:.2f} vs plain's {plain['ms_mean']:.2f} ({res['ms_mean'] / plain['ms_mean']:.2f}x); "
+            f"second burst's tokens equal the first's: {res['same2']}; greedy agreement with plain {agree:.4f}, "
+            f"partings (row, step, top-2 gap) {partings or 'none'}, plain's {gaps}; 0 leaked blocks"
+            + (" in both pools" if name != "medusa" else "") + f" [{smi}]")
+        _log_round_profile(f"{name} round of {ro['requests']} rows [{smi}]", res["profile"])
+    del draft
+    _free(torch)
+
+
+def _span_ms(records) -> dict:
+    """``{kind: (calls, median ms, total ms)}`` of the engine's device-call
+    spans (the draft pool's prefill mirror apart, as ``draft_prefill``)."""
+    by: dict = {}
+    for r in records:
+        kind = r["kind"]
+        if kind == "draft" and str(r.get("label", "")).endswith(":prefill"):
+            kind = "draft_prefill"
+        if kind in ("prefill", "decode_batch", "draft", "draft_prefill", "verify", "medusa"):
+            by.setdefault(kind, []).append(r["dur"] * 1e3)
+    return {k: (len(v), round(statistics.median(v), 2), round(sum(v), 1)) for k, v in by.items()}
+
+
+def _log_round_profile(what: str, profiled) -> None:
+    if profiled is None:
+        log(f"[serve19] {what}: not profiled (no decode-only step ran every row)")
+    else:
+        log_profile("serve19", what, *profiled)
+
+
+def phase_tenants(torch, smi: str, model, cfg) -> None:
+    """(d): 4 rank-16 tenants and the base through one engine, each against
+    ``generate`` on its merged model."""
+    import copy
+
+    import numpy as np
+
+    from dmlcloud_tpu_torch.models import lora
+    from dmlcloud_tpu_torch.models.generate import generate
+    from dmlcloud_tpu_torch.serve import AdapterSet, ServeEngine
+
+    te = TENANTS
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def nonzero_b(node):
+        if isinstance(node, dict):
+            return {k: nonzero_b(v) for k, v in node.items()}
+        return node if node is None else node.replace(b=0.02 * torch.randn(node.b.shape, device="cuda", generator=g))
+
+    trees = {f"t{i}": nonzero_b(lora.lora_init(g, model, rank=te["rank"], in_axes=1)) for i in range(te["tenants"])}
+    aset = AdapterSet(trees, alpha=te["alpha"], base=model)
+    rs = np.random.RandomState(21)
+    prompt = rs.randint(0, cfg.vocab_size, te["prompt"])
+    names = [*trees, None]
+    engine = ServeEngine(model, num_blocks=SERVE19["max_slots"] * 16, adapters=aset, **SERVE19)
+    res = _burst(torch, engine, [prompt] * len(names), te["new"], adapters=names)
+    got = dict(zip(names, res["tokens"]))
+    del engine
+    _free(torch)
+    rows = []
+    for name in names:
+        if name is None:
+            merged = model
+        else:
+            merged = copy.deepcopy(model)
+            merged.load_state_dict(lora.lora_merge(model, trees[name], alpha=te["alpha"]), strict=False)
+        want = generate(merged, prompt[None], te["new"])[0].tolist()
+        agree, partings, gaps = _agreement(torch, merged, [prompt], [got[name]], [want])
+        rows.append((name, round(agree, 4), partings, gaps))
+        if merged is not model:
+            del merged
+            _free(torch)
+    if len({tuple(t) for t in got.values()}) < 2:
+        raise AssertionError("every tenant decoded the base model's tokens: the adapters did not bite")
+    log(f"[serve19] (d) {te['tenants']} rank-{te['rank']} tenants + the base through one engine (1b bf16, "
+        f"{te['prompt']} prompt tokens, {te['new']} new): {res['ms_per_token']:.2f} ms per token; against generate "
+        f"on each merged model (tenant, agreement, partings (row, step, top-2 gap), gaps): {rows}; 0 leaked blocks [{smi}]")
+
+
+def phase_drill(torch, smi: str, model, cfg) -> None:
+    """(e): metrics, a TTFT SLO and a seeded chaos drill, then a drain and a
+    scrape."""
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+
+    from dmlcloud_tpu_torch.checkpoint import read_requeue_verdict
+    from dmlcloud_tpu_torch.serve import SLO, TERMINAL_STATUSES, ChaosMonkey, MetricsServer, ServeEngine
+    from dmlcloud_tpu_torch.telemetry.metrics_registry import parse_prometheus_text
+
+    dr = DRILL
+    rs = np.random.RandomState(22)
+    prompts = [rs.randint(0, cfg.vocab_size, int(rs.randint(dr["prompt"][0], dr["prompt"][1] + 1)))
+               for _ in range(dr["requests"])]
+    run_dir = tempfile.mkdtemp()
+    try:
+        engine = ServeEngine(model, num_blocks=SERVE19["max_slots"] * 20, metrics=True, prefix_cache=True,
+                             slos=[SLO("ttft", ttft_p99_s=2.0)], run_dir=run_dir, **SERVE19)
+        monkey = ChaosMonkey(**dr["monkey"]).attach(engine)
+        rids = [engine.submit(p, dr["new"]) for p in prompts]
+        steps = 0
+        t0 = time.perf_counter()
+        while not engine.idle:
+            engine.step()
+            engine.pool.assert_consistent()
+            steps += 1
+        wall = time.perf_counter() - t0
+        monkey.detach()
+        statuses = [engine.status(r) for r in rids]
+        if not all(s in TERMINAL_STATUSES for s in statuses) or engine.leaked_blocks() or "ok" not in statuses:
+            raise AssertionError(f"drill ended {statuses} with {engine.leaked_blocks()} leaked blocks")
+        verdict = engine.drain()
+        on_disk = read_requeue_verdict(run_dir)
+        if on_disk is None or on_disk["kind"] != "completed" or on_disk["serve"]["statuses"] != verdict["serve"][
+                "statuses"]:
+            raise AssertionError(f"requeue.json reads {on_disk}, the drain returned {verdict}")
+        with MetricsServer(engine.metrics_text) as srv:
+            url = srv.url
+            with urllib.request.urlopen(url, timeout=10) as resp:
+                body = resp.read().decode()
+                status = resp.status
+        fams = parse_prometheus_text(body)
+        if status != 200 or "dml_serve_ttft_seconds" not in fams or not url.startswith("http://127.0.0.1:"):
+            raise AssertionError(f"the scrape answered {status} with {sorted(fams)}")
+        census = engine.ledger.status_counts()
+        summary = engine.ledger.summary()
+        log(f"[serve19] (e) chaos drill {dr['monkey']} over {dr['requests']} requests (1b bf16, prefix cache, "
+            f"metrics, SLO ttft p99 2 s): {steps} steps in {wall:.2f} s, census {census}, events "
+            f"{sorted({k for _, k, _ in monkey.log})} ({len(monkey.log)}), pool consistent after every step, 0 leaked "
+            f"blocks; TTFT p50 {summary['p50_ttft_s']:.3f} s, SLO alerts {summary['slo']['alerts']}; drain verdict "
+            f"{verdict['kind']}, requeue {verdict['requeue']}, requeue.json written; one scrape of "
+            f"{url}: {len(fams)} families, {len(body)} bytes [{smi}]")
+        del engine
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    _free(torch)
+
+
+def phase_exact(torch, smi: str, cfg) -> None:
+    """(f): the modes of (a)-(d) in fp32 at the 1b width with ``EXACT``'s
+    depth, where every greedy token must equal serial ``generate``'s (on the
+    tenant's merged model) but at a tie, a top-2 margin under ``TIE_MARGIN``;
+    then a planted fault, a tenant served with its ``b`` doubled, which the
+    same check must catch."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from dmlcloud_tpu_torch.models import lora
+    from dmlcloud_tpu_torch.models.generate import generate
+    from dmlcloud_tpu_torch.models.transformer import DecoderLM
+    from dmlcloud_tpu_torch.serve import AdapterSet, ServeEngine
+
+    ex, k = EXACT, EXACT["k"]
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, num_layers=ex["layers"])
+    model = DecoderLM(cfg32, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    draft = DecoderLM(dataclasses.replace(cfg32, num_layers=1), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(1))
+    rs = np.random.RandomState(24)
+    prefix = rs.randint(0, cfg.vocab_size, ex["prefix"])
+    prompts = [np.concatenate([prefix, rs.randint(0, cfg.vocab_size, int(rs.randint(ex["suffix"][0],
+                                                                                      ex["suffix"][1] + 1)))])
+               for _ in range(ex["requests"])]
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def scaled_b(node, scale, fresh):
+        if isinstance(node, dict):
+            return {key: scaled_b(v, scale, fresh) for key, v in node.items()}
+        if node is None:
+            return None
+        return node.replace(b=scale * (torch.randn(node.b.shape, device="cuda", generator=g) if fresh else node.b))
+
+    trees = {f"t{i}": scaled_b(lora.lora_init(g, model, rank=ex["rank"], in_axes=1), ex["b_scale"], True)
+             for i in range(2)}
+    aset = AdapterSet(trees, alpha=16.0, base=model)
+    refs = {None: model}
+    for name, tree in trees.items():
+        refs[name] = copy.deepcopy(model)
+        refs[name].load_state_dict(lora.lora_merge(model, tree, alpha=16.0), strict=False)
+    want = {name: [generate(ref, p[None], ex["new"])[0].tolist() for p in prompts] for name, ref in refs.items()}
+    if all(want["t0"][i] == want[None][i] for i in range(len(prompts))):
+        raise AssertionError("(f) tenant t0 decodes the base model's tokens: the adapter does not bite")
+
+    def partings(outs, reqs):
+        """(request, step, serial top-2 margin) of every output that parts from serial generate's."""
+        found = []
+        for r, (out, (i, name)) in enumerate(zip(outs, reqs)):
+            w = want[name][i]
+            if len(out) != len(w):
+                raise AssertionError(f"(f) request {r} ended with {len(out)} of {len(w)} tokens")
+            j = next((t for t, (a, b) in enumerate(zip(out, w)) if a != b), None)
+            if j is not None:
+                found.append((r, j, _margin(torch, refs[name], prompts[i], w[:j])))
+        return found
+
+    def serve(kw, names):
+        """Serve every prompt under every tenant of ``names`` (after the prefix alone under each, when the
+        cache is on): the outputs, the requests, the prefill tokens saved and the accept rate."""
+        engine = ServeEngine(model, num_blocks=128, **EXACT_ENGINE, **kw)
+        if engine.prefix is not None:
+            for name in names:
+                engine.submit(prefix, 2, adapter=name)
+            engine.run()
+        reqs = [(i, name) for name in names for i in range(len(prompts))]
+        rids = [engine.submit(prompts[i], ex["new"], adapter=name) for i, name in reqs]
+        engine.run()
+        engine.pool.assert_consistent()
+        pools = [engine.pool] + ([engine.draft_pool] if engine.draft_pool is not None else [])
+        locks = engine.prefix.leaked_locks() if engine.prefix is not None else []
+        if engine.leaked_blocks() or locks or any(p.num_free + p.num_live != p.num_blocks for p in pools) or (
+                engine.draft_pool is not None and engine.draft_pool.num_free != engine.draft_pool.num_blocks):
+            raise AssertionError(f"(f) {kw}: {engine.leaked_blocks()} leaked blocks, locks {locks}")
+        saved = sum(engine.ledger.records[r].get("saved_tokens", 0) for r in rids)
+        return [list(engine.output(r)) for r in rids], reqs, saved, engine.ledger.summary()["accept_rate"]
+
+    base, tenants = [None], ["t0", "t1", None]
+    modes = [("prefix cache", dict(prefix_cache=True), base),
+             ("spec self-draft + prefix cache", dict(spec_k=k, prefix_cache=True), base),
+             ("spec 1-layer draft", dict(spec_k=k, draft_model=draft), base),
+             ("medusa + prefix cache", dict(medusa_k=k, prefix_cache=True), base),
+             ("2 tenants and the base + prefix cache", dict(adapters=aset, prefix_cache=True), tenants),
+             ("spec self-draft x 2 tenants and the base", dict(spec_k=k, adapters=aset), tenants)]
+    rows = []
+    for what, kw, names in modes:
+        outs, reqs, saved, accept = serve(kw, names)
+        ties = partings(outs, reqs)
+        for r, j, margin in ties:
+            if not margin < TIE_MARGIN:
+                raise AssertionError(f"(f) {what}: request {r} parts from serial generate at step {j}, where the "
+                                     f"serial top-2 margin is {margin:.3g} (not a tie)")
+        if kw.get("prefix_cache") and saved != len(reqs) * ex["prefix"]:
+            raise AssertionError(f"(f) {what}: {saved} prefill tokens saved, want {len(reqs) * ex['prefix']}")
+        rows.append(f"{what}: {len(reqs)} requests " + ("equal to serial generate" if not ties else
+                                                         f"equal to serial generate but at ties {ties}")
+                    + (f", {saved} prefill tokens saved" if kw.get("prefix_cache") else "")
+                    + (f", accept rate {accept}" if accept is not None else ""))
+    # the planted fault: t0 served with its b doubled, held against t0's merged model
+    bad = AdapterSet({"t0": scaled_b(trees["t0"], 2.0, False), "t1": trees["t1"]}, alpha=16.0, base=model)
+    outs, reqs, _, _ = serve(dict(adapters=bad), ["t0"])
+    caught = [(r, j, round(m, 4)) for r, j, m in partings(outs, reqs) if not m < TIE_MARGIN]
+    if not caught:
+        raise AssertionError("(f) a tenant served with its b doubled passed the exactness check")
+    log(f"[serve19] (f) fp32 1b width at {ex['layers']} layers, {ex['requests']} prompts on one {ex['prefix']}-token "
+        f"prefix (+{ex['suffix'][0]}-{ex['suffix'][1]}), {ex['new']} new, k={k}, rank-{ex['rank']} tenants (b at "
+        f"{ex['b_scale']}), {EXACT_ENGINE}, ties under a top-2 margin of {TIE_MARGIN}: " + "; ".join(rows)
+        + f"; 0 leaked blocks and locks [{smi}]")
+    log(f"[serve19] (f) planted fault, t0 with its b doubled: caught, parting from t0's merged model at (request, "
+        f"step, serial top-2 margin) {caught} [{smi}]")
+    del model, draft, refs
+    _free(torch)
+
+
+def phase_serve_modes(torch, smi: str) -> None:
+    from dmlcloud_tpu_torch.examples.train_lm import PRESETS
+    from dmlcloud_tpu_torch.models.transformer import DecoderLM, TransformerConfig
+
+    cfg = TransformerConfig(vocab_size=32000, max_seq_len=2048, **PRESETS["1b"])
+    model = DecoderLM(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    for name, phase in (("(a)", phase_prefix), ("(b)(c)", phase_rounds), ("(d)", phase_tenants), ("(e)", phase_drill)):
+        t0 = time.perf_counter()
+        phase(torch, smi, model, cfg)
+        log(f"[serve19] {name} in {time.perf_counter() - t0:.1f} s")
+    del model
+    _free(torch)
+    t0 = time.perf_counter()
+    phase_exact(torch, smi, cfg)
+    log(f"[serve19] (f) in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     try:
         import torch
@@ -3784,6 +4334,9 @@ def main() -> None:
     t18 = time.perf_counter()
     moe = phase_moe(torch, fa, dev["smi"])
     log(f"[moe] phase 18 in {time.perf_counter() - t18:.1f} s; K1-K3 launches per 1b-moe step {moe['per_step']}")
+    t19 = time.perf_counter()
+    phase_serve_modes(torch, dev["smi"])
+    log(f"[serve19] phase 19 in {time.perf_counter() - t19:.1f} s")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values()) + list(bert_rows.values())}))
     print(dev["smi"])

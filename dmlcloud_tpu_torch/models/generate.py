@@ -79,16 +79,18 @@ def _decode_schedule(first_step: int, n_total: int):
 
 @torch.no_grad()
 def decode_step(model: DecoderLM, tokens, cache, *, offset: int = 0, pad_len=None, attend_len=None, pages=None,
-                return_hidden: bool = False):
+                adapters=None, return_hidden: bool = False):
     """The cache-step primitive: one model application that writes
     ``tokens``' K/V into ``cache`` (in place) and returns ``(logits, cache)``.
     ``generate``, ``beam_search`` and the serving engine make their
     cache-carrying model calls through it. ``cache`` is either the dense
     ``init_cache`` tree stepped at ``offset`` (with ``pad_len`` and
     ``attend_len``) or the engine's pool pages stepped through ``pages=(tables,
-    fill)``; ``return_hidden`` returns ``((logits, hidden), cache)``."""
+    fill)``; ``adapters=(stacked_tree, ids)`` adds each row's LoRA delta
+    (``serve.AdapterSet.pack``); ``return_hidden`` returns ``((logits,
+    hidden), cache)``."""
     return model(tokens, cache=cache, offset=offset, pad_len=pad_len, attend_len=attend_len, pages=pages,
-                 return_hidden=return_hidden)
+                 adapters=adapters, return_hidden=return_hidden)
 
 
 def _categorical(logits: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:

@@ -21,8 +21,7 @@ Blocks are REFERENCE-COUNTED: ``alloc`` hands a block out with one reference,
 :meth:`retain` adds holders, :meth:`release` drops one, and a block returns to
 the free list when its last holder lets go. ``live`` counts unique referenced
 blocks. A block with ``refcount > 1`` is read-only: a write must fork it
-first (the prefix cache's copy-on-write, which waits for ROADMAP Queue 1
-item 10).
+first (the prefix cache's copy-on-write, ``ServeEngine._cow_guard``).
 """
 
 from __future__ import annotations

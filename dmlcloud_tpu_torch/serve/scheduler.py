@@ -27,11 +27,15 @@ and ``shed_policy`` picks the victim on overflow (``"reject"`` the arrival,
 queues with ``drr_quantum`` block-credits per ring visit (a head that fits
 its deficit but not the pool is sticky, so starvation-freedom survives).
 
-The hooks for a second (draft) pool, a speculative ``lookahead`` and a prefix
-cache are the reference's too; the port's engine passes none of them yet
-(speculative decoding and prefix sharing in the engine wait for ROADMAP
-Queue 1 item 10). The scheduler is pure host-side bookkeeping; the engine owns every
-device interaction.
+A speculative engine passes its draft pool (admission allocates from both
+pools atomically, finish frees both) and its ``lookahead`` (the proposals a
+round may write past the committed fill); a prefix-cache engine passes its
+``PrefixCache``: admission locks the head's longest cached prefix
+(``match`` + ``lock``), discounts the shared blocks from the reservation, adds
+one COW spare for an exact full-block match, evicts LRU leaves when the free
+list runs dry and releases the locked prefix when the head still does not fit.
+The scheduler is pure host-side bookkeeping; the engine owns every device
+interaction.
 """
 
 from __future__ import annotations
@@ -142,8 +146,7 @@ class Scheduler:
     (plus the draft model's pool in speculative mode). ``lookahead`` is
     the per-round speculative overshoot reserved per request (``spec_k``
     for a spec engine, 0 otherwise); ``prefix_cache`` is the engine's
-    prefix cache (the reference's ``PrefixCache`` interface: ``match``,
-    ``lock``, ``evict``; None = no sharing). ``max_waiting`` bounds the
+    ``PrefixCache`` (None = no sharing). ``max_waiting`` bounds the
     admission queue (None = unbounded), ``shed_policy`` picks the victim
     on overflow, ``fairness="tenant"`` switches admission to deficit
     round-robin over per-tenant FIFO queues with ``drr_quantum``

@@ -17,8 +17,11 @@ both packages load, merge and convert with either package's tools:
   for the hang watchdog's forensics dump, which reads the ring, not the file.
 
 Extra keys are attributes (``step``, ``prefetch``, ...); consumers ignore
-unknown keys. The serving stack's request traces (``to_request_trace``,
-``linked_trace_report``) come with the port of ``serve/``.
+unknown keys. The serving engine's request traces are the reference's
+(:103-110, :407-496): request-scoped spans (:data:`REQUEST_SPAN_KINDS`) carry
+a ``trace`` id, batch spans (:data:`BATCH_SPAN_KINDS`) a ``traces`` list;
+``to_request_trace`` lays them out one track per request and
+``linked_trace_report`` groups them by trace and finds orphans.
 """
 
 from __future__ import annotations
@@ -45,13 +48,17 @@ __all__ = [
     "now",
     "load_journals",
     "to_chrome_trace",
+    "REQUEST_SPAN_KINDS",
+    "BATCH_SPAN_KINDS",
+    "to_request_trace",
+    "linked_trace_report",
 ]
 
 SCHEMA_VERSION = 1
 
 #: The typed span vocabulary of schema v1, the reference's set: ``emit``
 #: accepts other kinds (user spans), but everything the framework emits is in
-#: it. The serving kinds are reserved for the port of ``serve/``.
+#: it. ``route``, ``failover`` and ``replica_drain`` belong to the router.
 SPAN_KINDS = frozenset(
     {
         "run",  # whole pipeline run
@@ -85,6 +92,19 @@ SPAN_KINDS = frozenset(
         "slo_alert",  # serving: an SLO burn-rate alert fired
     }
 )
+
+#: Serve span kinds that are REQUEST-SCOPED: every record of these kinds
+#: carries a ``trace`` attr, and one without it is an orphan
+#: (:func:`linked_trace_report`). A ``fault`` record is request-scoped exactly
+#: when it carries a ``request`` attr (batch-level degrade faults are not).
+REQUEST_SPAN_KINDS = frozenset(
+    {"queue_wait", "admission", "prefix_lookup", "prefill", "cow_fork",
+     "route", "failover"}
+)
+
+#: Serve span kinds that advance a whole decode BATCH: they carry a
+#: ``traces`` list attr linking every request that rode the batch.
+BATCH_SPAN_KINDS = frozenset({"decode_batch", "draft", "verify", "medusa"})
 
 _JOURNAL_GLOB_PREFIX = "journal-rank"
 
@@ -356,3 +376,91 @@ def to_chrome_trace(records: Iterable[dict]) -> dict:
         # the reference's source tag: one format, whichever package wrote it
         "metadata": {"source": "dmlcloud_tpu telemetry journal", "schema": SCHEMA_VERSION},
     }
+
+
+def _record_traces(rec: dict) -> list:
+    """The trace id(s) a record links into: its ``trace`` attr, or the
+    ``traces`` list a batch span carries (one span, many requests)."""
+    t = rec.get("trace")
+    if t is not None:
+        return [t]
+    ts = rec.get("traces")
+    return list(ts) if ts else []
+
+
+def to_request_trace(records: Iterable[dict]) -> dict:
+    """The request-track view of a merged journal: Chrome-trace JSON with one
+    track (thread) per trace id under a single "requests" process, so each
+    request's chain (queue wait, admission, prefill chunks, every decode batch
+    it rode) is one lane. Batch spans are duplicated into every linked
+    request's track. Records without trace linkage are skipped. The output is
+    the reference converter's, byte for byte."""
+    records = [r for r in records if "ts" in r and "dur" in r]
+    t0 = min((r["ts"] for r in records), default=0.0)
+    # track order: first appearance of each trace id
+    tids: dict[str, int] = {}
+    events: list[dict] = [{"name": "process_name", "ph": "M", "pid": 0, "args": {"name": "requests"}}]
+    for r in records:
+        for trace in _record_traces(r):
+            trace = str(trace)
+            if trace not in tids:
+                tids[trace] = len(tids)
+                events.append({"name": "thread_name", "ph": "M", "pid": 0, "tid": tids[trace],
+                               "args": {"name": trace}})
+            kind = str(r.get("kind", "?"))
+            label = r.get("label")
+            args = {k: v for k, v in r.items() if k not in ("v", "kind", "label", "ts", "dur", "tid", "traces")}
+            events.append(
+                {
+                    "name": f"{kind}:{label}" if label else kind,
+                    "cat": kind,
+                    "ph": "X",
+                    "ts": round((r["ts"] - t0) * 1e6, 3),
+                    "dur": round(r["dur"] * 1e6, 3),
+                    "pid": 0,
+                    "tid": tids[trace],
+                    "args": args,
+                }
+            )
+    return {
+        "traceEvents": events,
+        "displayTimeUnit": "ms",
+        "metadata": {
+            "source": "dmlcloud_tpu telemetry journal (request tracks)",
+            "schema": SCHEMA_VERSION,
+            "traces": len(tids),
+        },
+    }
+
+
+def linked_trace_report(records: Iterable[dict]) -> dict:
+    """Group a merged journal's serve spans by trace id::
+
+        {"traces": {trace_id: [records, ts-sorted]},
+         "orphans": [request-scoped serve records with NO trace linkage],
+         "statuses": {trace_id: terminal status stamped by a fault span
+                      or None}}
+
+    A record is an orphan when its kind is in :data:`REQUEST_SPAN_KINDS` (or
+    it is a ``fault`` carrying a ``request`` attr) but it carries neither
+    ``trace`` nor ``traces``."""
+    traces: dict[str, list[dict]] = {}
+    orphans: list[dict] = []
+    statuses: dict[str, Any] = {}
+    for r in records:
+        linked = _record_traces(r)
+        kind = r.get("kind")
+        if not linked:
+            if kind in REQUEST_SPAN_KINDS or (kind == "fault" and "request" in r):
+                orphans.append(r)
+            continue
+        for t in linked:
+            t = str(t)
+            traces.setdefault(t, []).append(r)
+            if kind == "fault":
+                statuses[t] = r.get("status", "error")
+    for spans in traces.values():
+        spans.sort(key=lambda r: r.get("ts", 0.0))
+    for t in traces:
+        statuses.setdefault(t, None)
+    return {"traces": traces, "orphans": orphans, "statuses": statuses}

@@ -5,8 +5,8 @@ stdlib code kept as the reference has it, so that the two packages' snapshots,
 saved files and Prometheus pages are byte-identical for the same operations.
 The span journal answers "what happened to request 17", this answers "what
 is the engine doing right now" — counters, gauges and fixed-bucket
-histograms cheap enough to live inside a serving hot loop (the serve engine's
-use of it comes with the rest of ``serve/``).
+histograms cheap enough to live inside a serving hot loop
+(``ServeEngine(metrics=True)`` builds its ``dml_serve_*`` series here).
 
 Design constraints:
 

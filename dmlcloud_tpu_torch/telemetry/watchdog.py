@@ -1,7 +1,7 @@
 """Hang watchdog and flight recorder: a silent wedge becomes a post-mortem.
 
-Counterpart of ``dmlcloud_tpu/telemetry/watchdog.py`` (:47-241; the serving
-``serve_guard`` comes with the port of ``serve/``). A per-process daemon thread
+Counterpart of ``dmlcloud_tpu/telemetry/watchdog.py`` (:47-241, with the
+serving engine's ``serve_guard``). A per-process daemon thread
 tracks progress (any journal span, or an explicit ``notify()``) and, when
 none is seen for ``threshold_s`` seconds, writes a forensics dump::
 
@@ -96,6 +96,25 @@ class HangWatchdog:
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self._fault_file = None
+
+    # -- serving -------------------------------------------------------------
+    def serve_guard(self, engine) -> "HangWatchdog":
+        """Heartbeat a ``ServeEngine``'s loop: the engine calls :meth:`notify`
+        once per ``step``, so a wedged device call (or a scheduler livelock)
+        crosses the stall threshold and dumps forensics like a training hang,
+        and the dump hook also requests a graceful drain (``kind="hang"``,
+        requeue), so the engine sheds, releases every block and writes the
+        requeue verdict. An existing ``on_dump`` hook is kept (called first)."""
+        engine.watchdog = self
+        prev = self.on_dump
+
+        def _drain_on_hang(reason: str) -> None:
+            if prev is not None:
+                prev(reason)
+            engine.request_drain(f"hang:{reason}", kind="hang", requeue=True)
+
+        self.on_dump = _drain_on_hang
+        return self
 
     # -- progress ------------------------------------------------------------
     def notify(self) -> None:

@@ -13,8 +13,10 @@ one-rank ``pipe`` group and restores a save without a template
 ``beam_search``, ``examples.generate_text``) and serves requests through
 ``ServeEngine``, trains the CLIP recipe's toy, runs ResNet-18, a BERT with the
 flash path and a ViT, decodes an int8 model and speculatively, wraps a model
-in LoRA adapters, trains at ``precision="int8"``, and checks that none of those
-modules was loaded — and that, on a machine
+in LoRA adapters, trains at ``precision="int8"``, serves through the engine's
+prefix cache with adapters, metrics and an SLO, and in its speculative and
+Medusa modes, each under the chaos monkey and drained to a verdict, and checks
+that none of those modules was loaded — and that, on a machine
 without CUDA, entry points called without a device raise instead of running
 on the CPU.
 """
@@ -30,7 +32,7 @@ REPO = Path(__file__).resolve().parent.parent
 
 _SCRIPT = textwrap.dedent(
     """
-    import json, pkgutil, importlib, sys
+    import json, os, pkgutil, importlib, sys
     BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "dmlcloud_tpu")
     for name in BLOCKED:
         sys.modules[name] = None  # any import of these now raises ImportError
@@ -177,6 +179,26 @@ _SCRIPT = textwrap.dedent(
     slice14 = [list(moe_logits.shape), float(total_aux_loss(moe)) > 0, hasattr(moe.layers[1], "moe"),
                list(generate(quant.quantize_tree(moe), moe_tokens[:, :6], 3).shape)]
 
+    # the slice-15 paths: the engine's prefix cache with adapters, metrics and an SLO, speculative and Medusa
+    # rounds, each under the chaos monkey, then a drain writing its verdict
+    from dmlcloud_tpu_torch.serve import SLO, AdapterSet, ChaosMonkey
+    from dmlcloud_tpu_torch.telemetry.journal import linked_trace_report
+    adapters = AdapterSet({"t": lora.lora_init(torch.Generator().manual_seed(1), tiny, rank=2, in_axes=1)}, base=tiny)
+    want = generate(tiny, prompt[None, :6], 4)[0].tolist()
+    slice15 = []
+    for kw in (dict(prefix_cache=True, adapters=adapters, metrics=True, slos=[SLO("s", ttft_p99_s=10.0)]),
+               dict(spec_k=2), dict(medusa_k=2)):
+        run_dir = tempfile.mkdtemp()
+        eng = ServeEngine(tiny, block_size=4, max_slots=1, prefill_chunk=8, run_dir=run_dir, **kw)
+        monkey = ChaosMonkey(seed=0, p_exhaust=0.5, exhaust_blocks=2, exhaust_steps=1).attach(eng)
+        rids = [eng.submit(prompt[:6], 4, adapter="t" if "adapters" in kw else None), eng.submit(prompt[:6], 4)]
+        out = eng.run()
+        monkey.detach()
+        verdict = eng.drain()
+        slice15.append([out[r].tolist() == want for r in rids] + [eng.leaked_blocks(), verdict["kind"],
+                                                                  os.path.exists(run_dir + "/requeue.json")])
+    slice15.append([eng.metrics_text() == "", linked_trace_report([])["orphans"]])
+
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in BLOCKED)
     raised = {}
@@ -197,7 +219,8 @@ _SCRIPT = textwrap.dedent(
     print(json.dumps({"modules": modules, "loaded": loaded, "loss": loss, "goodput": goodput, "raised": raised,
                       "mnist_acc": mnist_acc, "collectives": collectives, "pod": [pod_loss, pod_fsdp],
                       "slice8": slice8, "slice9": slice9, "slice10": slice10,
-                      "slice11": slice11, "slice12": slice12, "slice13": slice13, "slice14": slice14}))
+                      "slice11": slice11, "slice12": slice12, "slice13": slice13, "slice14": slice14,
+                      "slice15": slice15}))
     """
 )
 
@@ -221,7 +244,8 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
                  "examples.pod_clip_vit", "utils.paths", "data.store", "native", "native._lib", "native.pack",
                  "native.interleave", "compile", "compile.aot", "compile.buckets", "compile.cache", "lint",
                  "lint.traceguard", "telemetry.metrics_registry", "models.quant", "models.lora",
-                 "models.speculative", "models.moe"):
+                 "models.speculative", "models.moe", "serve.prefix_cache", "serve.adapters", "serve.ledger",
+                 "serve.slo", "serve.metrics_http", "serve.chaos"):
         assert f"dmlcloud_tpu_torch.{name}" in result["modules"], name
     assert result["loss"] == result["loss"] and result["loss"] > 0  # finite, trained
     assert 0 < result["goodput"] <= 1
@@ -241,6 +265,8 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
     assert result["slice13"] == [[1, 4], True, True, True], result["slice13"]
     # a finite forward, a positive aux loss, the second block MoE, int8 decode (the router quantized)
     assert result["slice14"] == [[2, 12, 64], True, True, [2, 3]], result["slice14"]
+    # prefix cache + adapters + metrics + SLO, speculative, Medusa: greedy tokens under the monkey, no leak, a verdict
+    assert result["slice15"] == [[True, True, 0, "completed", True]] * 3 + [[True, []]], result["slice15"]
     for name, did_raise in result["raised"].items():
         assert did_raise, f"{name} without a device ran on the CPU instead of raising"
 

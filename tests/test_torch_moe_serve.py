@@ -6,7 +6,9 @@ and each decode batch to its power-of-two bucket, and its MoE blocks route
 the padding too. The port's engine pads an MoE model the same way, so with
 4 slots (nothing drops) and with 32 slots (28 rows in one batch, capacity
 binding) the greedy tokens of a tiny fp32 MoE model (tests/test_torch_moe.py)
-are the reference engine's, request for request.
+are the reference engine's, request for request; so are a speculative
+engine's (``spec_k=2``, self-draft) tokens and drafted/accepted counts, its
+draft and verify passes padded to the same batch bucket.
 """
 
 import numpy as np
@@ -41,3 +43,21 @@ def test_moe_engine_tokens_equal_the_reference_engine(max_slots):
     for j, t in zip(jids, tids):
         assert tdone[t].tolist() == np.asarray(jdone[j]).tolist()
     assert teng.batch_buckets[-1] == max_slots
+
+
+def test_moe_spec_engine_equals_the_reference_engine():
+    from dmlcloud_tpu.serve.engine import ServeEngine as JEngine
+    from dmlcloud_tpu_torch.serve import ServeEngine
+
+    jmodel, params, tmodel = _lm()
+    prompts = [_tokens(1, 3 + i % 3, seed=30 + i)[0] for i in range(5)]
+    kw = dict(block_size=4, max_slots=4, prefill_chunk=4, num_blocks=64, spec_k=2, batch_buckets=[4])
+    res = []
+    for engine in (JEngine(jmodel, params, table_buckets=[8], **kw), ServeEngine(tmodel, **kw)):
+        rids = [engine.submit(p, 7) for p in prompts]
+        engine.run(max_steps=3000)
+        res.append(([np.asarray(engine.output(r)).tolist() for r in rids],
+                    [(engine.ledger.records[r]["drafted"], engine.ledger.records[r]["accepted"]) for r in rids],
+                    engine.leaked_blocks()))
+    assert res[1] == res[0]
+    assert res[1][2] == 0 and sum(a for _, a in res[1][1]) > 0

@@ -526,12 +526,7 @@ def test_a_failing_step_fails_only_its_requests(monkeypatch):
     _drained(engine)
 
 
-@pytest.mark.parametrize("name,value", [
-    ("spec_k", 2), ("draft_model", object()), ("draft_params", {}), ("draft_num_blocks", 8), ("medusa_k", 2),
-    ("medusa_heads", {}), ("adapters", object()), ("prefix_cache", True), ("run_dir", "runs"),
-    ("drain_budget_s", 1.0), ("preemption", object()), ("watchdog", object()), ("slos", [object()]),
-    ("metrics", True), ("ledger_max_records", 10), ("verify", "warn"), ("hbm_budget", 1 << 30),
-])
+@pytest.mark.parametrize("name,value", [("verify", "warn"), ("hbm_budget", 1 << 30)])
 def test_arguments_not_ported_yet_raise(name, value):
     assert name in tengine._NOT_PORTED
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -540,12 +535,24 @@ def test_arguments_not_ported_yet_raise(name, value):
 
 
 def test_submit_arguments_not_ported_yet_raise():
+    """Only the construction-time verify's arguments wait (item 13); every
+    argument of the reference's ``submit`` is ported: ``adapter`` raises the
+    reference's ``ValueError`` on an engine without an ``AdapterSet``, and
+    ``trace`` names the request's trace."""
+    import inspect
+
+    from dmlcloud_tpu.serve.engine import ServeEngine as JEngine
+
+    assert sorted(tengine._NOT_PORTED) == ["hbm_budget", "verify"]
+    assert list(inspect.signature(ServeEngine.submit).parameters) == list(inspect.signature(JEngine.submit).parameters)
     engine = _engine()
-    with pytest.raises(NotImplementedError, match="adapters"):
+    with pytest.raises(ValueError, match="no AdapterSet"):
         engine.submit(_prompt(4), 2, "tenant-a")
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        engine.submit(_prompt(4), 2, trace="tr-0")
     assert engine.idle and engine.statuses() == {}
+    rid = engine.submit(_prompt(4), 2, trace="tr-custom")
+    assert engine.sequence(rid).trace == "tr-custom" and engine.sequence(engine.submit(_prompt(4), 2)).trace == "tr-1"
+    engine.run()
+    _drained(engine)
 
 
 def test_unknown_arguments_raise_and_buckets_pad_nothing():

@@ -17,7 +17,9 @@ split) and feeds the same inputs:
   the JAX package's; sampled ``generate`` from a ``torch.Generator`` seeded the
   same on both ranks gives the same tokens on both, and one process's;
 - ``ServeEngine`` (3 requests, 2 slots) tokens equal to one process's and to
-  the JAX ``generate``'s;
+  the JAX ``generate``'s; a prefix-cache engine whose exact duplicate forks a
+  shared block (COW) and a Medusa engine with the default heads (the whole LM
+  head gathered over ``model``) give one process's tokens and counts;
 - per-row adapters (the reference's ``AdapterSet`` of 3 tenants): the dense
   forward and a decode step within ``REL`` of one process.
 """
@@ -131,6 +133,7 @@ def decode_all(model: ttr.DecoderLM, adapters=None) -> dict:
             logits.append(lg)
         out["paged"] = torch.cat(logits, 1).numpy()
     out["greedy"] = tgen.generate(model, prompt(), 8).numpy()
+    out["medusa greedy"] = {n: tgen.generate(model, prompt(1, n, seed=30 + n), 6)[0].tolist() for n in (3, 7)}
     out["sampled"] = tgen.generate(model, prompt(), 8, temperature=0.9, top_k=20,
                                    generator=torch.Generator().manual_seed(7)).numpy()
     out["beam"] = tgen.beam_search(model, prompt(), 5, num_beams=3)[0].numpy()
@@ -138,6 +141,24 @@ def decode_all(model: ttr.DecoderLM, adapters=None) -> dict:
     rids = [engine.submit(prompt(1, n, seed=10 + n)[0], 5) for n in (3, 6, 9)]
     done = engine.run()
     out["engine"] = [done[r].tolist() for r in rids]
+    # the prefix cache: a template hit, then an exact full-block duplicate
+    # whose re-fed last token forks the shared block (COW) on every rank
+    engine = ServeEngine(model, block_size=4, max_slots=1, prefill_chunk=4, prefix_cache=True)
+    p = prompt(1, 8, seed=20)[0]
+    rids = [engine.submit(p, 5), engine.submit(np.concatenate([p, prompt(1, 3, seed=21)[0]]), 5)]
+    engine.run()
+    rids.append(engine.submit(p, 5))
+    engine.run()
+    out["prefix engine"] = ([engine.output(r).tolist() for r in rids],
+                            [(engine.ledger.records[r]["cached_tokens"], engine.ledger.records[r]["saved_tokens"])
+                             for r in rids], engine.leaked_blocks())
+    # Medusa with the default heads (warm-started from the whole LM head)
+    engine = ServeEngine(model, block_size=4, max_slots=2, prefill_chunk=4, medusa_k=3)
+    rids = [engine.submit(prompt(1, n, seed=30 + n)[0], 6) for n in (3, 7)]
+    engine.run()
+    out["medusa engine"] = ([engine.output(r).tolist() for r in rids],
+                            [(engine.ledger.records[r]["drafted"], engine.ledger.records[r]["accepted"])
+                             for r in rids], engine.leaked_blocks())
     if adapters is not None:
         ids = torch.tensor([1, 0, 3, 2])
         stacked = (_torch_pairs(adapters), ids)
@@ -257,3 +278,20 @@ def test_per_row_adapters_under_tensor_parallelism_equal_one_process(results, mo
         base = results["one"]["dense"]["no adapters"]
         np.testing.assert_allclose(one[1], base[1], atol=1e-6, rtol=1e-6)
         assert np.abs(one[0] - base[0]).max() > 1e-3
+
+
+@pytest.mark.parametrize("what", ["prefix engine", "medusa engine"])
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_prefix_and_medusa_engines_equal_one_process(results, variant, what):
+    one = results["one"][variant][what]
+    for r in results["ranks"]:
+        assert r[variant][what] == one
+    tokens, counts, leaked = one
+    assert leaked == 0
+    if what == "prefix engine":
+        assert counts == [(0, 0), (8, 8), (8, 7)]  # the duplicate re-feeds its last token: a fork
+        assert tokens[2] == tokens[0]
+    else:
+        assert all(d > 0 for d, _ in counts)
+        for n, toks in zip((3, 7), tokens):
+            assert toks == results["one"][variant]["medusa greedy"][n]
