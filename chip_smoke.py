@@ -237,7 +237,36 @@ Phases, each fatal on failure:
    but at a top-2 margin under ``TIE_MARGIN``, the prefill tokens saved, 0
    leaked blocks and locks; and a tenant served with its ``b`` doubled,
    which must part from its merged model at a margin of ``TIE_MARGIN`` or
-   more.
+   more;
+20. router: phase 19's bf16 1b behind a ``Router`` of three ``ServeEngine``
+   replicas on one card (each its own pool: 8 slots, blocks of 16, prefill
+   chunks of 256; all on the router's clock), replaying
+   ``BENCH_serve_router_pr15.json``'s drill at the 1b's sizes in real time
+   (12 hot requests at a mean interarrival of 0.01 s, 6 cold from 0.05 s,
+   0.15 s apart, prompts of 128/256/512, 64 or 128 new; ``r2`` killed once 5
+   requests are terminal, ``r1`` drained after 10; heartbeat 5 s, 3 retries,
+   backoff 0.01 s) under a span journal: (a) every request ``ok``, at least
+   one failover and every failover the planted kill's, 0 leaked blocks on
+   every replica, the drain's ``requeue.json`` clean, no orphan span in
+   ``linked_trace_report``, one ``metrics_text()`` page with the ``r0``-``r2``
+   series, no K1-K3 launch, and the greedy tokens against a fault-free
+   single engine under ``BF16_TIE_GAP``; hot and cold TTFT p50/p99, the
+   failed-over p99, decode tokens/s, the router step's host ms beside its
+   replicas' step ms; a replica step that raises what was not planted ends
+   the run with its traceback; (b) the fp32 1b width at 2 layers through the
+   same drill, every token equal to serial ``generate``'s but at a
+   ``TIE_MARGIN`` tie;
+21. HF import: (a) a HF-named Llama state dict at the 1b geometry (24
+   layers, intermediate 5632) from a seeded generator, with a
+   ``SimpleNamespace`` of HF's config names, through
+   ``transformer_config_from_hf`` -> ``llama_params_from_hf`` ->
+   ``load_flax_params`` into a ``DecoderLM`` on the card -> ``to_flax_params``
+   -> ``hf_state_dict_from_params``: bitwise equal to the input; (b) at 2
+   layers, plain and with llama3 rope scaling, the card's fp32 logits within
+   ``TOL``/``REL_TOL`` fp32 of the CPU's; (c) ``examples.finetune_hf``'s stage
+   on that import in bf16 with ``attn_impl="flash"``, 4 x 2048 packed rows: 2
+   launches of each tensor-core K1-K3 per step and none of the CUDA-core
+   kernels, the step ms and the losses.
 
 The last line of standard output is one JSON object with ``"ok": true``. With no
 card, or without the package beside it, the script exits non-zero and prints no
@@ -4255,7 +4284,9 @@ def phase_exact(torch, smi: str, cfg) -> None:
     _free(torch)
 
 
-def phase_serve_modes(torch, smi: str) -> None:
+def phase_serve_modes(torch, smi: str):
+    """Phase 19; returns its bf16 1b model and config, which phase 20 serves
+    from."""
     from dmlcloud_tpu_torch.examples.train_lm import PRESETS
     from dmlcloud_tpu_torch.models.transformer import DecoderLM, TransformerConfig
 
@@ -4265,11 +4296,391 @@ def phase_serve_modes(torch, smi: str) -> None:
         t0 = time.perf_counter()
         phase(torch, smi, model, cfg)
         log(f"[serve19] {name} in {time.perf_counter() - t0:.1f} s")
-    del model
-    _free(torch)
     t0 = time.perf_counter()
     phase_exact(torch, smi, cfg)
     log(f"[serve19] (f) in {time.perf_counter() - t0:.1f} s")
+    return model, cfg
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the Router, three engine replicas of one model on one card
+# ---------------------------------------------------------------------------
+
+#: the drill of BENCH_serve_router_pr15.json ``router.config`` at the 1b's sizes: replicas, the hot tenant's
+#: requests and mean interarrival, the cold tenant's requests, start and spacing, prompt lengths, new tokens,
+#: the trace's seed, the replica killed once that many requests are terminal, the one drained, the router's knobs
+ROUTER = dict(replicas=3, hot=12, hot_mean_interarrival_s=0.01, cold=6, cold_start_s=0.05, cold_spacing_s=0.15,
+              prompts=(128, 256, 512), new=(64, 128), seed=3, kill_after=5, kill="r2", drain_after=10, drain="r1",
+              knobs=dict(heartbeat_timeout_s=5.0, max_retries=3, backoff_base_s=0.01))
+#: (b): the depth of the fp32 run held to serial generate
+ROUTER_EXACT_LAYERS = 2
+
+
+def _router_trace(vocab: int) -> list:
+    """The two-tenant trace of bench.py ``_serve_router_trace``: hot requests at
+    exponential interarrivals, cold ones at a fixed spacing, sorted by
+    arrival: ``(offset_s, prompt, new, {"tenant": ...})``."""
+    import numpy as np
+
+    r = ROUTER
+    rs = np.random.RandomState(r["seed"])
+
+    def prompt(i):
+        return rs.randint(0, vocab, size=r["prompts"][i % len(r["prompts"])]).astype(np.int32)
+
+    offsets = np.cumsum(rs.exponential(r["hot_mean_interarrival_s"], r["hot"]))
+    trace = [(float(offsets[i]), prompt(i), r["new"][i % len(r["new"])], {"tenant": "hot"}) for i in range(r["hot"])]
+    trace += [(r["cold_start_s"] + j * r["cold_spacing_s"], prompt(j), r["new"][j % len(r["new"])],
+               {"tenant": "cold"}) for j in range(r["cold"])]
+    return sorted(trace, key=lambda e: e[0])
+
+
+def _router_drill(torch, model, trace, run_dir: str) -> dict:
+    """Serve ``trace`` in real time through a ``Router`` over ``ROUTER``'s
+    replicas of ``model`` (each its own pool, all on the router's clock), the
+    planted kill and drain fired by terminal counts as bench.py's controller
+    fires them, under a span journal. A replica failure that was not planted
+    ends the run here, its exception printed: on one card a CUDA error is
+    sticky, and the router's catch must not hide it."""
+    import tempfile
+    import traceback
+
+    from dmlcloud_tpu_torch.serve import TERMINAL_STATUSES, ChaosError, Router, ServeEngine
+    from dmlcloud_tpu_torch.telemetry import journal
+
+    r = ROUTER
+    clock = time.perf_counter
+    per_req = -(-(max(r["prompts"]) + max(r["new"])) // SERVE19["block_size"])
+    engines = [ServeEngine(model, num_blocks=SERVE19["max_slots"] * per_req, metrics=True, clock=clock, **SERVE19)
+               for _ in range(r["replicas"])]
+    router = Router(engines, clock=clock, run_dir=run_dir, **r["knobs"])
+    replica_ms: list[float] = []
+
+    def guarded(name, step):
+        def run():
+            t0 = time.perf_counter()
+            try:
+                return step()
+            except Exception as exc:
+                if not isinstance(exc, ChaosError):
+                    log(traceback.format_exc())
+                    fail(f"phase 20: replica {name}'s step raised {type(exc).__name__}: {exc} (not planted)")
+                raise
+            finally:
+                replica_ms[-1] += (time.perf_counter() - t0) * 1e3
+        return run
+
+    for name, rep in router.replicas.items():
+        rep.engine.step = guarded(name, rep.engine.step)
+    fired = {}
+
+    def controller(point, seqs):
+        done = sum(1 for st in router.statuses().values() if st in TERMINAL_STATUSES)
+        if "kill" not in fired and done >= r["kill_after"]:
+            fired["kill"] = done
+            router.kill_replica(r["kill"], reason="drill")
+        if "drain" not in fired and done >= r["drain_after"]:
+            fired["drain"] = done
+            router.drain_replica(r["drain"], reason="drill")
+
+    router.fault_injector = controller
+    steps: list[tuple[float, float]] = []
+    step = router.step
+
+    def timed_step():
+        replica_ms.append(0.0)
+        t0 = time.perf_counter()
+        did = step()
+        steps.append(((time.perf_counter() - t0) * 1e3, replica_ms[-1]))
+        return did
+
+    router.step = timed_step
+    with tempfile.TemporaryDirectory() as tmp:
+        j = journal.activate(journal.SpanJournal(tmp, ring_size=1 << 17))
+        try:
+            t0 = time.perf_counter()
+            summary = router.serve_trace(trace)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            journal.deactivate()
+        records = j.tail(1 << 17)
+    return {"router": router, "summary": summary, "wall": wall, "steps": steps, "records": records,
+            "fired": fired}
+
+
+def _router_gates(res: dict, run_dir: str, failover: bool = True) -> dict:
+    """Every request ``ok``, at least one failover (with ``failover``; the
+    planted kill's only, always), 0 leaked blocks on every replica, the
+    drain's verdict clean, no orphan span, one metrics page with every
+    replica's series."""
+    from dmlcloud_tpu_torch.checkpoint import read_requeue_verdict
+    from dmlcloud_tpu_torch.telemetry.journal import linked_trace_report
+    from dmlcloud_tpu_torch.telemetry.metrics_registry import parse_prometheus_text
+
+    router, r = res["router"], ROUTER
+    statuses = router.statuses()
+    if set(statuses.values()) != {"ok"}:
+        raise AssertionError(f"router statuses {statuses}")
+    if set(res["fired"]) != {"kill", "drain"} or router.kills != 1 or router.failovers < int(failover):
+        raise AssertionError(f"planted {res['fired']}, kills {router.kills}, failovers {router.failovers}")
+    reasons = {rec.get("reason") for rec in res["records"] if rec["kind"] == "failover"}
+    if not all(str(why).startswith("killed: ") for why in reasons):
+        raise AssertionError(f"a replica failed that was not planted: failover reasons {reasons}")
+    leaked = {name: rep.engine.leaked_blocks() for name, rep in router.replicas.items()}
+    if any(leaked.values()):
+        raise AssertionError(f"leaked blocks per replica {leaked}")
+    verdict = read_requeue_verdict(run_dir)
+    if not verdict or verdict["serve"]["replica"] != r["drain"] or verdict["serve"]["drained_clean"] is not True:
+        raise AssertionError(f"drain verdict {verdict}")
+    report = linked_trace_report(res["records"])
+    if report["orphans"] or set(report["traces"]) != {f"tr-{rid}" for rid in statuses}:
+        raise AssertionError(f"trace report: {len(report['orphans'])} orphans, traces {sorted(report['traces'])}")
+    text = router.metrics_text()
+    fams = parse_prometheus_text(text)
+    series = [f'replica="r{i}"' for i in range(r["replicas"])]
+    if "dml_router_failovers_total" not in fams or not all(s in text for s in series):
+        raise AssertionError(f"metrics page: {sorted(fams)}")
+    return {"verdict": verdict["serve"], "families": len(fams), "kinds": sorted({rec["kind"] for rec in
+                                                                                   res["records"]})}
+
+
+def phase_router(torch, fa, smi: str, model, cfg) -> None:
+    """Phase 20: (a) the bf16 1b through the Router drill against a
+    fault-free single engine under phase 19's tie rule; (b) the fp32 1b
+    width at ``ROUTER_EXACT_LAYERS`` layers through the same drill against
+    serial ``generate``."""
+    import dataclasses
+
+    import numpy as np
+
+    from dmlcloud_tpu_torch.models.generate import generate
+    from dmlcloud_tpu_torch.models.transformer import DecoderLM
+    from dmlcloud_tpu_torch.serve import ServeEngine
+
+    r = ROUTER
+    trace = _router_trace(cfg.vocab_size)
+    prompts = [p for _, p, _, _ in trace]
+    news = [n for _, _, n, _ in trace]
+    t0 = time.perf_counter()
+    # the fault-free arm: one engine serving every request (greedy tokens do not depend on the batch's makeup
+    # but at bf16 ties)
+    per_req = -(-(max(r["prompts"]) + max(r["new"])) // SERVE19["block_size"])
+    ref = ServeEngine(model, num_blocks=SERVE19["max_slots"] * per_req, **SERVE19)
+    ref_rids = [ref.submit(p, n) for p, n in zip(prompts, news)]
+    ref.run()
+    want = [ref.output(rid).tolist() for rid in ref_rids]
+    del ref
+    _free(torch)
+    ref_s = time.perf_counter() - t0
+
+    run_dir = tempfile.mkdtemp()
+    try:
+        fa.reset_launch_counts()  # the serving path's run starts here ...
+        res = _router_drill(torch, model, trace, run_dir)
+        launches = dict(fa.LAUNCHES)  # ... and ends here
+        gates = _router_gates(res, run_dir)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    router = res["router"]
+    got = [router.output(rid).tolist() for rid in range(len(trace))]
+    agree, partings, gaps = _agreement(torch, model, prompts, got, want)
+    if any(launches.values()):
+        raise AssertionError(f"the serving path launched flash kernels: {launches}")
+
+    def pct(xs, q):
+        return f"{np.percentile(xs, q):.3f}" if xs else "n/a"
+
+    recs = router._records.values()
+    failed_over = [rec.rid for rec in recs if rec.retries > 0]
+    ttft = {rec.rid: router.replicas[rec.replica].engine.ledger.records[rec.engine_rid]["first_token"] - rec.arrival
+            for rec in recs}
+    hot, cold = router.ttfts(tenant="hot"), router.ttfts(tenant="cold")
+    fo = [ttft[rid] for rid in failed_over]
+    tokens = sum(len(t) for t in got)
+    host = [a for a, _ in res["steps"]]
+    reps = [b for _, b in res["steps"]]
+    own = [a - b for a, b in res["steps"]]
+    log(f"[router] (a) 1b bf16, {r['replicas']} replicas x {SERVE19}, {r['hot']} hot + {r['cold']} cold requests "
+        f"(prompts {r['prompts']}, new {r['new']}), {r['kill']} killed at {res['fired']['kill']} terminal, "
+        f"{r['drain']} drained at {res['fired']['drain']}, {r['knobs']}: {res['wall']:.2f} s wall, "
+        f"{len(res['steps'])} router steps; all {len(got)} ok, {router.failovers} failovers ({len(failed_over)} "
+        f"requests), 0 leaked blocks, drain verdict {gates['verdict']}, 0 orphan spans, metrics page of "
+        f"{gates['families']} families with r0-r2 series; K1-K3 launches {launches} [{smi}]")
+    log(f"[router] (a) TTFT s: hot p50 {pct(hot, 50)} p99 {pct(hot, 99)}, cold p50 {pct(cold, 50)} p99 "
+        f"{pct(cold, 99)}, failed-over p99 {pct(fo, 99)} (router clock, backoff and re-prefill included); "
+        f"{tokens / res['wall']:.1f} decode tokens/s over the drill [{smi}]")
+    log(f"[router] (a) router step host ms: median {statistics.median(host):.2f} (max {max(host):.1f}, total "
+        f"{sum(host):.0f}) beside its replicas' step ms median {statistics.median(reps):.2f} (total {sum(reps):.0f}); "
+        f"the router's own ms per step: median {statistics.median(own):.3f}, total {sum(own):.1f} [{smi}]")
+    log(f"[router] (a) greedy agreement with a fault-free single engine ({ref_s:.1f} s) {agree:.4f}; partings "
+        f"(row, step, top-2 gap): {partings or 'none'}; {gaps}; span kinds {gates['kinds']} [{smi}]")
+
+    # (b): fp32 at the 1b width, held to serial generate
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, num_layers=ROUTER_EXACT_LAYERS)
+    model32 = DecoderLM(cfg32, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    run_dir = tempfile.mkdtemp()
+    try:
+        res32 = _router_drill(torch, model32, trace, run_dir)
+        _router_gates(res32, run_dir, failover=False)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    router32 = res32["router"]
+    ties = []
+    for rid, (p, n) in enumerate(zip(prompts, news)):
+        out = router32.output(rid).tolist()
+        serial = generate(model32, p[None], n)[0].tolist()
+        j = next((i for i, (a, b) in enumerate(zip(out, serial)) if a != b), None)
+        if len(out) != n or (j is not None and not _margin(torch, model32, p, serial[:j]) < TIE_MARGIN):
+            raise AssertionError(f"(b) request {rid} parts from serial generate at step {j} (not a tie)")
+        if j is not None:
+            ties.append((rid, j))
+    log(f"[router] (b) fp32 1b width at {ROUTER_EXACT_LAYERS} layers, the same drill ({res32['wall']:.2f} s, "
+        f"{router32.failovers} failovers, kill at {res32['fired']['kill']}, drain at {res32['fired']['drain']}): "
+        + (f"all {len(trace)} requests token-identical to serial generate" if not ties else
+           f"equal to serial generate but at ties under {TIE_MARGIN} {ties}")
+        + f", 0 leaked blocks, verdict clean, 0 orphans; (b) in {time.perf_counter() - t0:.1f} s [{smi}]")
+    del model32, router32, res32
+    _free(torch)
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the HF import on the card
+# ---------------------------------------------------------------------------
+
+#: a HF LlamaConfig's attributes at the 1b preset's geometry (examples/train_lm.py:28)
+HF_1B = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632, num_hidden_layers=24, num_attention_heads=16,
+             num_key_value_heads=8, head_dim=128, max_position_embeddings=2048, rope_theta=10000.0,
+             tie_word_embeddings=False, rope_scaling=None)
+HF_LLAMA3 = {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+             "original_max_position_embeddings": 512}
+#: the logits check's and the finetune's depth; the logits' tokens; the finetune's rows (K1-K3 at the 1b's
+#: attention shape) and its corpus (about 36 byte-chain documents per 2048-token row)
+HF_CHECK = dict(layers=2, tokens=(2, 256), seq_len=2048, batch=4, n_docs=800)
+
+
+def _hf_state_dict(layers: int, seed: int = 0) -> dict:
+    """A HF-named Llama state dict at ``HF_1B``'s geometry with ``layers``
+    blocks, float32 from a seeded generator (std 0.02, norms near 1)."""
+    import numpy as np
+
+    c = HF_1B
+    d, hd, m, v = c["hidden_size"], c["head_dim"], c["intermediate_size"], c["vocab_size"]
+    q, kv = c["num_attention_heads"] * hd, c["num_key_value_heads"] * hd
+    shapes = {"model.embed_tokens.weight": (v, d), "model.norm.weight": (d,), "lm_head.weight": (v, d)}
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        shapes.update({p + "input_layernorm.weight": (d,), p + "post_attention_layernorm.weight": (d,),
+                       p + "self_attn.q_proj.weight": (q, d), p + "self_attn.k_proj.weight": (kv, d),
+                       p + "self_attn.v_proj.weight": (kv, d), p + "self_attn.o_proj.weight": (d, q),
+                       p + "mlp.gate_proj.weight": (m, d), p + "mlp.up_proj.weight": (m, d),
+                       p + "mlp.down_proj.weight": (d, m)})
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, shape in shapes.items():
+        x = rng.standard_normal(shape, dtype=np.float32)
+        if key.endswith("norm.weight"):
+            x *= 0.1
+            x += 1.0
+        else:
+            x *= 0.02
+        sd[key] = x
+    return sd
+
+
+def phase_hf(torch, fa, smi: str) -> None:
+    """Phase 21: (a) the 1b-geometry HF state dict through
+    ``transformer_config_from_hf`` -> ``llama_params_from_hf`` ->
+    ``load_flax_params`` into a ``DecoderLM`` on the card -> ``to_flax_params``
+    -> ``hf_state_dict_from_params``, bitwise; (b) at ``HF_CHECK``'s depth,
+    plain and with llama3 rope scaling, the card's fp32 logits against the
+    CPU's within ``TOL``/``REL_TOL`` fp32, and the round trip there; (c)
+    ``examples.finetune_hf``'s stage at that width and depth in bf16 with
+    ``attn_impl="flash"``: K1-K3 launches, step ms, losses."""
+    import types
+
+    import numpy as np
+
+    from dmlcloud_tpu_torch.examples import finetune_hf
+    from dmlcloud_tpu_torch.models import hf
+    from dmlcloud_tpu_torch.models.transformer import DecoderLM, load_flax_params, to_flax_params
+
+    def round_trip(ns, sd, device, dtype):
+        cfg = hf.transformer_config_from_hf(ns, dtype=dtype)
+        t0 = time.perf_counter()
+        model = load_flax_params(DecoderLM(cfg, device=device), hf.llama_params_from_hf(sd, cfg))
+        t_in = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = hf.hf_state_dict_from_params(to_flax_params(model), cfg)
+        t_out = time.perf_counter() - t0
+        bad = [k for k in sd if k not in back or back[k].dtype != sd[k].dtype or not np.array_equal(back[k], sd[k])]
+        if bad or sorted(back) != sorted(sd):
+            raise AssertionError(f"round trip not bitwise: {bad[:4]}")
+        return model, cfg, t_in, t_out
+
+    # (a) the full depth
+    t0 = time.perf_counter()
+    sd = _hf_state_dict(HF_1B["num_hidden_layers"])
+    gen_s = time.perf_counter() - t0
+    ns = types.SimpleNamespace(**HF_1B)
+    model, cfg, t_in, t_out = round_trip(ns, sd, "cuda", torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[hf] (a) HF-named state dict at the 1b geometry ({len(sd)} tensors, {n_params / 1e9:.3f} B parameters, "
+        f"made in {gen_s:.1f} s) -> transformer_config_from_hf -> llama_params_from_hf -> load_flax_params on the "
+        f"card ({t_in:.1f} s) -> to_flax_params -> hf_state_dict_from_params ({t_out:.1f} s): bitwise equal [{smi}]")
+    del model, sd
+    _free(torch)
+
+    # (b) logits, card against CPU, plain and llama3, at HF_CHECK's depth
+    hc = HF_CHECK
+    sd = _hf_state_dict(hc["layers"], seed=1)
+    tokens = torch.from_numpy(np.random.RandomState(21).randint(0, HF_1B["vocab_size"], hc["tokens"]))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    try:
+        for name, scaling in (("plain", None), ("llama3", HF_LLAMA3)):
+            ns = types.SimpleNamespace(**dict(HF_1B, num_hidden_layers=hc["layers"], rope_scaling=scaling))
+            card, cfg, _, _ = round_trip(ns, sd, "cuda", torch.float32)
+            host, _, _, _ = round_trip(ns, sd, "cpu", torch.float32)
+            with torch.no_grad():
+                got = card(tokens.cuda()).float().cpu()
+                want = host(tokens).float()
+            err, rel = assert_close(torch, got, want, "float32", f"(b) {name} logits, card vs CPU")
+            rows.append(f"{name} (rope_scaling {cfg.rope_scaling}): max abs err {err:.3g}, norm-relative {rel:.3g}")
+            del card, host
+            _free(torch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"[hf] (b) {hc['layers']} layers at the 1b width, fp32 logits of {list(hc['tokens'])} tokens on the card "
+        f"against the CPU within {TOL['float32']} / {REL_TOL['float32']} in norm, round trip bitwise: "
+        + "; ".join(rows) + f" [{smi}]")
+
+    # (c) the finetune stage, bf16 with the flash kernels
+    ns = types.SimpleNamespace(**dict(HF_1B, num_hidden_layers=hc["layers"]))
+    argv = ["--epochs", "1", "--seq-len", str(hc["seq_len"]), "--batch-size", str(hc["batch"]), "--n-docs",
+            str(hc["n_docs"]), "--sample", "0"]
+    fa.reset_launch_counts()  # the finetune's run starts here ...
+    t0 = time.perf_counter()
+    stage = finetune_hf.main(argv, hf_config=ns, state_dict=sd, dtype=torch.bfloat16, attn_impl="flash")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)  # ... and ends here
+    losses = [float(x) for x in stage.train_losses]
+    steps = len(losses)
+    per = hc["layers"] * steps
+    want = {"flash_fwd_tc": per, "flash_bwd_dq_tc": per, "flash_bwd_dkv_tc": per, "flash_fwd": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    if steps < 3 or launches != want or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"finetune: {steps} steps, losses {losses}, launches {launches} (want {want})")
+    step_ms = float(stage.tracker["misc/train_step_avg_ms"][-1])
+    log(f"[hf] (c) finetune_hf's stage on the imported model ({hc['layers']} layers at the 1b width, bf16, "
+        f"attn_impl flash, {hc['batch']} x {hc['seq_len']} packed rows of {hc['n_docs']} byte-chain documents): "
+        f"{steps} steps in {wall:.1f} s wall, step avg {step_ms:.1f} ms (first step included), losses {losses}; "
+        f"K1-K3 launches {launches} ({hc['layers']} per step each) [{smi}]")
+    del stage
+    _free(torch)
 
 
 def main() -> None:
@@ -4335,8 +4746,16 @@ def main() -> None:
     moe = phase_moe(torch, fa, dev["smi"])
     log(f"[moe] phase 18 in {time.perf_counter() - t18:.1f} s; K1-K3 launches per 1b-moe step {moe['per_step']}")
     t19 = time.perf_counter()
-    phase_serve_modes(torch, dev["smi"])
+    model, cfg = phase_serve_modes(torch, dev["smi"])
     log(f"[serve19] phase 19 in {time.perf_counter() - t19:.1f} s")
+    t20 = time.perf_counter()
+    phase_router(torch, fa, dev["smi"], model, cfg)
+    del model
+    _free(torch)
+    log(f"[router] phase 20 in {time.perf_counter() - t20:.1f} s")
+    t21 = time.perf_counter()
+    phase_hf(torch, fa, dev["smi"])
+    log(f"[hf] phase 21 in {time.perf_counter() - t21:.1f} s")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values()) + list(bert_rows.values())}))
     print(dev["smi"])

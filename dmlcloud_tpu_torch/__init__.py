@@ -8,7 +8,7 @@ nvcc at first use. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``.
 """
 
-from . import data, metrics, optim, parallel, telemetry, utils
+from . import compile, data, lint, metrics, optim, parallel, telemetry, utils
 from .checkpoint import CheckpointDir, find_slurm_checkpoint, generate_checkpoint_path
 from .metrics import MetricReducer, MetricTracker, Reduction
 from .pipeline import TrainingPipeline
@@ -20,7 +20,9 @@ __version__ = "0.5.0"
 
 __all__ = [
     "__version__",
+    "compile",
     "data",
+    "lint",
     "metrics",
     "optim",
     "parallel",

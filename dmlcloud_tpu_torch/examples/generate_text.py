@@ -1,7 +1,9 @@
 """Inference flows on a DecoderLM: greedy and sampled generation, ragged
 prompts, beam search, int8 weights and speculative decoding. The counterpart
 of ``examples/generate_text.py`` on a tiny random-weight model (nothing is
-downloaded).
+downloaded), or with ``--hf DIR`` on a HF Llama/Mistral checkpoint directory
+(``models/hf.py``; e.g. one saved with ``save_pretrained``; ``transformers``
+is imported only then).
 
 Run on one GPU (``--device cpu`` runs on the CPU):
 
@@ -10,16 +12,17 @@ Run on one GPU (``--device cpu`` runs on the CPU):
     python -m dmlcloud_tpu_torch.examples.generate_text --beams 4
     python -m dmlcloud_tpu_torch.examples.generate_text --int8          # weight-only int8 decode
     python -m dmlcloud_tpu_torch.examples.generate_text --speculative 4 # draft-verified greedy
+    python -m dmlcloud_tpu_torch.examples.generate_text --hf DIR      # an imported HF checkpoint
 
 Row 1 of the batch is a ragged prompt: its first half is left padding, masked
-by ``prompt_mask``. ``--hf`` is the reference's flag for the HF import, not
-ported yet: a parser error that names the ROADMAP item it waits for.
-``main(argv)`` returns the tokens (and, with ``--beams``, the scores).
+by ``prompt_mask``. ``main(argv)`` returns the tokens (and, with ``--beams``,
+the scores).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
@@ -28,19 +31,24 @@ from dmlcloud_tpu_torch.models.generate import beam_search, generate
 from dmlcloud_tpu_torch.models.transformer import DecoderLM, TransformerConfig
 from dmlcloud_tpu_torch.parallel.runtime import resolve_device
 
-#: the reference's flags for paths still to port, and the ROADMAP Queue 1 item
-#: each waits for
-NOT_PORTED = {"hf": "item 11 (the HF import)"}
-
-
 def build_model(args) -> DecoderLM:
     # speculative decoding writes up to k+1 proposal slots past the output
     spec = getattr(args, "speculative", 0)
+    seq_len = args.prompt_len + args.max_new + (spec + 1 if spec else 0)
+    device = resolve_device(args.device)
+    if getattr(args, "hf", None):
+        import transformers
+
+        from dmlcloud_tpu_torch.models.hf import llama_params_from_hf, transformer_config_from_hf
+        from dmlcloud_tpu_torch.models.transformer import load_flax_params
+
+        hf_model = transformers.LlamaForCausalLM.from_pretrained(args.hf, local_files_only=True)
+        cfg = transformer_config_from_hf(hf_model.config, dtype=torch.float32, max_seq_len=seq_len)
+        return load_flax_params(DecoderLM(cfg, device=device), llama_params_from_hf(hf_model.state_dict(), cfg))
     cfg = TransformerConfig(
         vocab_size=256, num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16, hidden_dim=64, mlp_dim=160,
-        max_seq_len=args.prompt_len + args.max_new + (spec + 1 if spec else 0), dtype=torch.float32,
+        max_seq_len=seq_len, dtype=torch.float32,
     )
-    device = resolve_device(args.device)
     return DecoderLM(cfg, device=device, generator=torch.Generator(device=device).manual_seed(args.seed))
 
 
@@ -59,11 +67,10 @@ def main(argv: list[str] | None = None):
     ap.add_argument("--speculative", type=int, default=0, metavar="K",
                     help="decode via a 1-layer draft proposing K tokens/round (models/speculative.py; greedy here, "
                          "sampled with --temperature); prints the tokens and whether they match plain greedy")
-    ap.add_argument("--hf", default=None, help="not ported yet")
+    ap.add_argument("--hf", default=None, help="HF checkpoint dir (models/hf.py import)")
     args = ap.parse_args(argv)
-    for flag, item in NOT_PORTED.items():
-        if getattr(args, flag):
-            ap.error(f"--{flag} is not ported yet: it waits for ROADMAP Queue 1 {item}")
+    if args.hf and not os.path.isdir(args.hf):
+        ap.error(f"--hf {args.hf}: not a directory (a local HF checkpoint, e.g. from save_pretrained)")
 
     model = build_model(args)
     device = model.embed.weight.device

@@ -2,10 +2,14 @@
 
 Counterpart of ``dmlcloud_tpu/parallel/mesh.py``: the axis names (:37),
 ``parse_mesh_axes`` (:43), ``create_mesh`` (:69), ``auto_mesh`` (:106),
-``data_axes``/``data_parallel_size`` (:135, :154), ``respec_for_mesh`` and
-its JSON form (:175-225), ``path_str`` (:231), ``_fsdp_spec`` (:248),
-``make_param_policy`` (:265) and ``sharding_for`` (:332), with
-``shard_module`` in the place of ``shard_pytree`` (:341).
+``data_axes``/``batch_pspec``/``data_parallel_size`` (:135, :141, :154),
+``respec_for_mesh`` and its JSON form (:175-225), ``path_str`` (:231),
+``_fsdp_spec`` (:248), ``make_param_policy`` (:265), ``sharding_for`` (:332)
+and ``make_global_batch`` (:347, this process's rows of the global batch),
+with ``shard_module`` in the place of ``shard_pytree`` (:341). The reference's
+``NamedSharding`` helpers (``batch_sharding``, ``replicated``) and
+``shard_map_compat`` have no counterpart: a DTensor's placements and the
+stage's collectives do their work.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with named dims, one
 process per device. Policies speak the reference's language: a spec is a tuple
@@ -72,7 +76,7 @@ DATA, FSDP, MODEL, SEQ, EXPERT, PIPE = "data", "fsdp", "model", "seq", "expert",
 
 __all__ = ["DATA", "FSDP", "MODEL", "SEQ", "EXPERT", "PIPE", "P", "MeshPlan", "parse_mesh_axes", "mesh_shape",
            "create_mesh", "auto_mesh_axes", "auto_mesh", "mesh_axes", "data_axes", "data_parallel_size",
-           "data_parallel_rank", "respec_for_mesh", "spec_to_jsonable", "spec_from_jsonable", "path_str",
+           "data_parallel_rank", "batch_pspec", "make_global_batch", "respec_for_mesh", "spec_to_jsonable", "spec_from_jsonable", "path_str",
            "make_param_policy", "sharding_for", "sharding_record", "placements", "expert_placements", "shard_module",
            "grad_sq_norm",
            "data_parallel_group"]
@@ -208,6 +212,47 @@ def data_parallel_rank(mesh) -> int:
         i = names.index(a)
         rank = rank * mesh.shape[i] + coord[i]
     return rank
+
+
+def batch_pspec(mesh: Any) -> P:
+    """The spec of a batch's leading dim: over ``data`` and ``fsdp`` (one
+    axis name, the tuple of both, or None)."""
+    ax = data_axes(mesh)
+    return P(ax if len(ax) > 1 else (ax[0] if ax else None))
+
+
+def make_global_batch(batch: Any, mesh, pspec: Sequence | None = None) -> Any:
+    """This process's rows of the global ``batch`` (a tensor, an array, or
+    nested dicts, lists and tuples of them): the slice of dim 0 that its
+    coordinate over the axes of ``pspec``'s first entry (default
+    ``batch_pspec(mesh)``: ``data`` x ``fsdp``, row-major in the mesh's order)
+    selects, the same rows as its tensor- and sequence-parallel peers.
+
+    The reference stitches per-process host data into one global
+    ``jax.Array``; in the port each process holds its own rows, so the
+    counterpart takes the global batch, the same on every process (one seeded
+    stream), and keeps this coordinate's share of it."""
+    spec = batch_pspec(mesh) if pspec is None else P(*pspec)
+    axes = spec[0] if spec else None
+    axes = () if axes is None else ((axes,) if isinstance(axes, str) else tuple(axes))
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    size, rank = 1, 0
+    for a in axes:
+        i = names.index(a)
+        size, rank = size * mesh.shape[i], rank * mesh.shape[i] + coord[i]
+
+    def mine(x):
+        if isinstance(x, dict):
+            return {k: mine(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(mine(v) for v in x)
+        n = x.shape[0]
+        if n % size:
+            raise ValueError(f"a batch of {n} rows does not split over {size} data-parallel coordinates {axes}")
+        return x[rank * (n // size):(rank + 1) * (n // size)]
+
+    return mine(batch)
 
 
 def respec_for_mesh(spec: Sequence | None, shape: Sequence[int], mesh: Any) -> P:

@@ -125,6 +125,17 @@ def local_node() -> int:
     return _info.node
 
 
+def device_count() -> int:
+    """Global number of cards: one process drives one card, so this is the
+    world size (the reference counts a JAX process's several chips)."""
+    return world_size()
+
+
+def local_device_count() -> int:
+    """The cards of this node's processes (one each)."""
+    return local_world_size()
+
+
 def is_root() -> bool:
     return rank() == 0
 

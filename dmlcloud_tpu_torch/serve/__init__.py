@@ -1,6 +1,6 @@
 """dmlcloud_tpu_torch.serve — continuous-batching inference.
 
-Counterpart of ``dmlcloud_tpu.serve`` but its ``Router``:
+Counterpart of ``dmlcloud_tpu.serve``:
 
 - :class:`KVBlockPool` (kv_pool.py): the paged KV cache — fixed device pages,
   per-sequence block tables, a host free list with reference counts.
@@ -24,10 +24,14 @@ Counterpart of ``dmlcloud_tpu.serve`` but its ``Router``:
   multi-window burn-rate alerts; :class:`MetricsServer` (metrics_http.py): a
   stdlib ``/metrics`` endpoint for ``ServeEngine.metrics_text``.
 - :class:`ChaosMonkey` (chaos.py): seeded fault injection (step faults, pool
-  squats, clock stalls, random cancels) replaying the reference's schedule.
-
-The reference's ``Router`` (and the chaos monkey's replica events) is not
-ported yet (ROADMAP Queue 1 item 10).
+  squats, clock stalls, random cancels; attached to a router, replica kills
+  and stalls) replaying the reference's schedule.
+- :class:`Router` (router.py): the multi-replica front door, N engine
+  replicas behind one submit/step surface: heartbeat health, at-most-once
+  failover through idempotency tokens (``DuplicateRequest``), per-tenant DRR
+  placement with prefix-affinity hints, per-replica circuit breakers, a
+  router-coordinated drain of one replica, one trace id per request across
+  replicas and retries, and one Prometheus page for the pool.
 """
 
 from .adapters import AdapterSet
@@ -37,6 +41,7 @@ from .kv_pool import KVBlockPool, PoolExhausted
 from .ledger import ServeLedger
 from .metrics_http import MetricsServer
 from .prefix_cache import PrefixCache, PrefixMatch, prefix_keys
+from .router import Router
 from .scheduler import TERMINAL_STATUSES, Request, Scheduler
 from .slo import SLO, SLOMonitor
 
@@ -51,6 +56,7 @@ __all__ = [
     "PrefixCache",
     "PrefixMatch",
     "Request",
+    "Router",
     "SLO",
     "SLOMonitor",
     "Scheduler",

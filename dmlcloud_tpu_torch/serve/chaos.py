@@ -1,7 +1,7 @@
 """Deterministic fault injection for the serving engine.
 
 Counterpart of ``dmlcloud_tpu/serve/chaos.py``: ``ChaosError`` and
-``ChaosMonkey``, the engine half. :class:`ChaosMonkey` attaches to a live
+``ChaosMonkey``. :class:`ChaosMonkey` attaches to a live
 :class:`~dmlcloud_tpu_torch.serve.engine.ServeEngine` and, from ONE seeded
 ``numpy.random.RandomState``, injects the four failures the engine promises
 to survive:
@@ -20,14 +20,19 @@ to survive:
   deadline expiries as a paused host would.
 - **random cancels**: ``cancel(rid)`` against a random live request.
 
-The draws come in the reference's fixed per-step order, so the same seed over
-the same trace injects the reference's faults at the same points: a drill is
-replayable, and replays the reference's schedule.
+Attached to a :class:`~dmlcloud_tpu_torch.serve.router.Router` instead
+(:meth:`ChaosMonkey.attach_router`, reference chaos.py:150-253), the monkey
+injects replica-level events from the same seeded RNG into the same log:
 
-The replica-level events of the reference (``attach_router``,
-``p_replica_kill``, ``p_replica_stall``) belong to the ``Router``, which is
-not ported yet (ROADMAP Queue 1 item 10, the Router line): they raise
-``NotImplementedError``.
+- **replica kills** (``p_replica_kill``, capped by ``max_replica_kills``):
+  permanent death of a random standing replica; never the last one standing.
+- **replica stalls** (``p_replica_stall``): a replica misses
+  ``replica_stall_steps`` step calls; the heartbeat detector decides.
+
+Neither targets a draining replica. The draws come in the reference's fixed
+per-step order, so the same seed over the same trace injects the reference's
+faults at the same points: a drill is replayable, and replays the
+reference's schedule, event log ``(step, kind, detail)`` included.
 
 Usage::
 
@@ -45,11 +50,6 @@ import numpy as np
 from .kv_pool import PoolExhausted
 
 __all__ = ["ChaosError", "ChaosMonkey"]
-
-
-#: what the reference's replica events wait for
-_ROUTER = ("replica-level chaos (attach_router, p_replica_kill, p_replica_stall) needs the Router (ROADMAP Queue 1 "
-           "item 10, the Router line), which is not ported yet")
 
 
 class ChaosError(RuntimeError):
@@ -86,8 +86,6 @@ class ChaosMonkey:
         p_replica_stall: float = 0.0,
         replica_stall_steps: int = 2,
     ):
-        if p_replica_kill or p_replica_stall or max_replica_kills is not None:
-            raise NotImplementedError(_ROUTER)
         self._rng = np.random.RandomState(int(seed))
         self.p_fault = float(p_fault)
         self.fault_points = tuple(fault_points)
@@ -99,8 +97,14 @@ class ChaosMonkey:
         self.stall_s = float(stall_s)
         self.p_cancel = float(p_cancel)
         self.verify_pools = bool(verify_pools)
+        self.p_replica_kill = float(p_replica_kill)
+        self.max_replica_kills = max_replica_kills
+        self.p_replica_stall = float(p_replica_stall)
+        self.replica_stall_steps = int(replica_stall_steps)
         self.engine = None
+        self.router = None
         self.faults = 0
+        self.replica_kills = 0
         self.steps = 0
         #: replayable event log: (step, kind, detail) — the drill's record
         self.log: list[tuple[int, str, str]] = []
@@ -113,7 +117,7 @@ class ChaosMonkey:
     def attach(self, engine) -> "ChaosMonkey":
         """Install on ``engine``: becomes its ``fault_injector`` and wraps
         its clock (stall injection). One engine per monkey."""
-        if self.engine is not None:
+        if self.engine is not None or self.router is not None:
             raise RuntimeError("monkey already attached")
         self.engine = engine
         engine.fault_injector = self
@@ -132,8 +136,23 @@ class ChaosMonkey:
         self.engine = None
 
     def attach_router(self, router) -> "ChaosMonkey":
-        """The reference's replica-level events need the ``Router``."""
-        raise NotImplementedError(_ROUTER)
+        """Install on a :class:`~dmlcloud_tpu_torch.serve.router.Router` for
+        the replica-level events (``p_replica_kill`` / ``p_replica_stall``):
+        one seeded draw order per router step, logged into the same
+        replayable event log as the engine-level faults. One router per
+        monkey; a monkey drives either an engine or a router, not both (two
+        injectors sharing one RNG would entangle their draw sequences)."""
+        if self.router is not None or self.engine is not None:
+            raise RuntimeError("monkey already attached")
+        self.router = router
+        router.fault_injector = self
+        return self
+
+    def detach_router(self) -> None:
+        if self.router is None:
+            return
+        self.router.fault_injector = None
+        self.router = None
 
     def _clock(self) -> float:
         return self._base_clock() + self._offset
@@ -144,6 +163,9 @@ class ChaosMonkey:
         points flip one seeded coin and may raise :class:`ChaosError`."""
         if point == "step":
             self._on_step()
+            return
+        if point == "router_step":
+            self._on_router_step()
             return
         if (
             self.p_fault
@@ -178,6 +200,42 @@ class ChaosMonkey:
             eng.pool.assert_consistent()
             if eng.draft_pool is not None:
                 eng.draft_pool.assert_consistent()
+
+    def _on_router_step(self) -> None:
+        """Replica-level events, fixed draw order (kill, then stall), as
+        :meth:`_on_step`'s. A kill always leaves at least one replica
+        standing, and chaos never targets a draining replica (the drain path
+        has its own verdict to keep clean)."""
+        self.steps += 1
+        r = self.router
+        candidates = [
+            name for name, rep in r.replicas.items()
+            if rep.alive and not rep.removed and not rep.draining
+        ]
+        if (
+            self.p_replica_kill
+            and self._rng.random_sample() < self.p_replica_kill
+            and (self.max_replica_kills is None
+                 or self.replica_kills < self.max_replica_kills)
+        ):
+            if len(candidates) > 1:
+                name = candidates[int(self._rng.randint(len(candidates)))]
+                self.replica_kills += 1
+                self.log.append((self.steps, "replica_kill", name))
+                r.kill_replica(name, reason="chaos")
+                candidates.remove(name)
+        if self.p_replica_stall and self._rng.random_sample() < self.p_replica_stall:
+            if candidates:
+                name = candidates[int(self._rng.randint(len(candidates)))]
+                self.log.append(
+                    (self.steps, "replica_stall", f"{name}:{self.replica_stall_steps}")
+                )
+                r.stall_replica(name, self.replica_stall_steps)
+        if self.verify_pools:
+            for rep in r.replicas.values():
+                rep.engine.pool.assert_consistent()
+                if rep.engine.draft_pool is not None:
+                    rep.engine.draft_pool.assert_consistent()
 
     def _grab_squat(self) -> None:
         """Steal free blocks through the pool's own alloc — a legitimate

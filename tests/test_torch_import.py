@@ -15,7 +15,10 @@ one-rank ``pipe`` group and restores a save without a template
 flash path and a ViT, decodes an int8 model and speculatively, wraps a model
 in LoRA adapters, trains at ``precision="int8"``, serves through the engine's
 prefix cache with adapters, metrics and an SLO, and in its speculative and
-Medusa modes, each under the chaos monkey and drained to a verdict, and checks
+Medusa modes, each under the chaos monkey and drained to a verdict, routes
+requests through the ``Router`` across a kill and a drain under replica chaos,
+round-trips a HF-named state dict and finetunes it with LoRA (no
+``transformers``), and checks
 that none of those modules was loaded — and that, on a machine
 without CUDA, entry points called without a device raise instead of running
 on the CPU.
@@ -27,6 +30,8 @@ import subprocess
 import sys
 import textwrap
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -199,6 +204,45 @@ _SCRIPT = textwrap.dedent(
                                                                   os.path.exists(run_dir + "/requeue.json")])
     slice15.append([eng.metrics_text() == "", linked_trace_report([])["orphans"]])
 
+    # the slice-16 paths: the package-level names, the Router over engines (a kill, a drain) under replica chaos,
+    # and the HF import and finetune from a HF-named state dict, with no transformers
+    from types import SimpleNamespace
+    from dmlcloud_tpu_torch.parallel import parse_mesh_axes, root_first
+    from dmlcloud_tpu_torch.serve import Router
+    from dmlcloud_tpu_torch.models import hf
+    from dmlcloud_tpu_torch.examples import finetune_hf
+    router = Router([ServeEngine(tiny, block_size=4, max_slots=1, prefill_chunk=8) for _ in range(3)],
+                    backoff_base_s=0.0, run_dir=tempfile.mkdtemp())
+    rmonkey = ChaosMonkey(seed=0, p_replica_stall=0.2).attach_router(router)
+    rrids = [router.submit(prompt[:6], 4, tenant=str(i % 2)) for i in range(4)]
+    router.step()
+    router.kill_replica("r2", "check")
+    router.drain_replica("r1")
+    router.run(max_steps=500)
+    rmonkey.detach_router()
+    hf_cfg = SimpleNamespace(vocab_size=64, num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1,
+                             hidden_size=16, intermediate_size=32, max_position_embeddings=64, head_dim=8)
+    rs = np.random.RandomState(0)
+    shapes = {"model.embed_tokens.weight": (64, 16), "model.norm.weight": (16,), "lm_head.weight": (64, 16),
+              "model.layers.0.input_layernorm.weight": (16,), "model.layers.0.post_attention_layernorm.weight": (16,),
+              "model.layers.0.self_attn.q_proj.weight": (16, 16), "model.layers.0.self_attn.k_proj.weight": (8, 16),
+              "model.layers.0.self_attn.v_proj.weight": (8, 16), "model.layers.0.self_attn.o_proj.weight": (16, 16),
+              "model.layers.0.mlp.gate_proj.weight": (32, 16), "model.layers.0.mlp.up_proj.weight": (32, 16),
+              "model.layers.0.mlp.down_proj.weight": (16, 32)}
+    sd = {k: (0.1 * rs.standard_normal(v)).astype(np.float32) for k, v in shapes.items()}
+    hcfg = hf.transformer_config_from_hf(hf_cfg)
+    hmodel = DecoderLM(hcfg, device="cpu")
+    from dmlcloud_tpu_torch.models.transformer import load_flax_params, to_flax_params
+    back = hf.hf_state_dict_from_params(to_flax_params(load_flax_params(hmodel, hf.llama_params_from_hf(sd, hcfg))),
+                                        hcfg)
+    ft = finetune_hf.main(["--device", "cpu", "--epochs", "1", "--n-docs", "24", "--seq-len", "32", "--batch-size",
+                           "2", "--sample", "3", "--lora", "2"], hf_config=hf_cfg, state_dict=sd)
+    with root_first():
+        slice16 = [router.statuses() == {r: "ok" for r in rrids}, router.kills, router.leaked_blocks(),
+                   router.replicas["r1"].removed, all(np.array_equal(back[k], sd[k]) for k in sd),
+                   list(ft.sample_output.shape), parse_mesh_axes("fsdp=1"), "transformers" in sys.modules]
+    runtime.deinitialize()
+
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in BLOCKED)
     raised = {}
@@ -210,7 +254,9 @@ _SCRIPT = textwrap.dedent(
                            ("mnist.main", lambda: mnist.main(["--epochs", "1"])),
                            ("generate_text.main", lambda: generate_text.main([])),
                            ("ResNet18", lambda: ResNet18()),
-                           ("pod_clip_vit.main", lambda: pod_clip_vit.main(["--toy"]))]:
+                           ("pod_clip_vit.main", lambda: pod_clip_vit.main(["--toy"])),
+                           ("finetune_hf.main", lambda: finetune_hf.main(["--epochs", "1"], hf_config=hf_cfg,
+                                                                         state_dict=sd))]:
             try:
                 call()
                 raised[name] = False
@@ -220,7 +266,7 @@ _SCRIPT = textwrap.dedent(
                       "mnist_acc": mnist_acc, "collectives": collectives, "pod": [pod_loss, pod_fsdp],
                       "slice8": slice8, "slice9": slice9, "slice10": slice10,
                       "slice11": slice11, "slice12": slice12, "slice13": slice13, "slice14": slice14,
-                      "slice15": slice15}))
+                      "slice15": slice15, "slice16": slice16}))
     """
 )
 
@@ -245,7 +291,8 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
                  "native.interleave", "compile", "compile.aot", "compile.buckets", "compile.cache", "lint",
                  "lint.traceguard", "telemetry.metrics_registry", "models.quant", "models.lora",
                  "models.speculative", "models.moe", "serve.prefix_cache", "serve.adapters", "serve.ledger",
-                 "serve.slo", "serve.metrics_http", "serve.chaos"):
+                 "serve.slo", "serve.metrics_http", "serve.chaos", "serve.router", "models.hf",
+                 "examples.finetune_hf"):
         assert f"dmlcloud_tpu_torch.{name}" in result["modules"], name
     assert result["loss"] == result["loss"] and result["loss"] > 0  # finite, trained
     assert 0 < result["goodput"] <= 1
@@ -267,6 +314,8 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
     assert result["slice14"] == [[2, 12, 64], True, True, [2, 3]], result["slice14"]
     # prefix cache + adapters + metrics + SLO, speculative, Medusa: greedy tokens under the monkey, no leak, a verdict
     assert result["slice15"] == [[True, True, 0, "completed", True]] * 3 + [[True, []]], result["slice15"]
+    # the Router through a kill and a drain, an exact HF round trip, a LoRA finetune of an imported model
+    assert result["slice16"] == [True, 1, 0, True, True, [2, 3], {"fsdp": 1}, False], result["slice16"]
     for name, did_raise in result["raised"].items():
         assert did_raise, f"{name} without a device ran on the CPU instead of raising"
 
@@ -285,3 +334,89 @@ def test_version_and_stage_mesh_are_the_references():
     assert stage.mesh is None
     pipeline.mesh = mesh = object()
     assert stage.mesh is mesh
+
+
+#: the reference packages whose ``__all__`` the port mirrors, by suffix of ``dmlcloud_tpu``
+REF_PACKAGES = ["", ".parallel", ".serve", ".utils", ".data", ".telemetry", ".compile", ".lint"]
+
+_LINT_ITEM = "ROADMAP Queue 1 item 13 (the linter)"
+#: names of a reference ``__all__`` that the port does not bind, each with its reason (ROADMAP "By design")
+NOT_BOUND = {
+    ".parallel": {
+        "batch_sharding": "By design: a NamedSharding; a DTensor's placements carry the layout",
+        "replicated": "By design: a NamedSharding; unsharded tensors are plain tensors",
+        "shard_pytree": "By design: jax.device_put of a tree; parallel.mesh.shard_module lays out a module",
+    },
+    ".utils": {"thirdparty": "By design: the probe is utils/logging.py ML_MODULES"},
+    ".lint": {name: _LINT_ITEM for name in (
+        "DEFAULT_CACHE_PATH", "FIXABLE_RULES", "Finding", "IR_RULES", "LintCache", "LintError", "PROJECT_RULES",
+        "ProjectGraph", "RULES", "SANITIZE_MODES", "Sanitizer", "SanitizerError", "apply_fixes",
+        "apply_suppressions", "build_project_context", "lint_file", "lint_paths", "lint_source", "summarize_module")},
+}
+
+
+def _reference_all(pkg: str) -> list[str]:
+    """The reference package's ``__all__``, read with ``ast`` (nothing of it is imported)."""
+    import ast
+
+    path = REPO / ("dmlcloud_tpu" + pkg.replace(".", "/")) / "__init__.py"
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "__all__" for t in node.targets):
+            return list(ast.literal_eval(node.value))
+    raise AssertionError(f"{path} has no __all__")
+
+
+@pytest.mark.parametrize("pkg", REF_PACKAGES, ids=lambda p: "dmlcloud_tpu" + p)
+def test_port_binds_every_name_the_reference_exports(pkg):
+    import importlib
+
+    port = importlib.import_module("dmlcloud_tpu_torch" + pkg)
+    exceptions = NOT_BOUND.get(pkg, {})
+    names = _reference_all(pkg)
+    missing = [n for n in names if n not in exceptions and not (hasattr(port, n) and n in port.__all__)]
+    assert missing == [], f"dmlcloud_tpu_torch{pkg} does not bind {missing}"
+    # every exception is still true, and names a name the reference exports
+    assert set(exceptions) <= set(names)
+    assert [n for n in exceptions if hasattr(port, n)] == []
+
+
+def test_the_reference_examples_imports_resolve():
+    from dmlcloud_tpu_torch.parallel import parse_mesh_axes, root_first, runtime
+
+    assert parse_mesh_axes("data=2,fsdp=4") == {"data": 2, "fsdp": 4}
+    with root_first():
+        pass
+    assert runtime.device_count() == runtime.world_size() and runtime.local_device_count() == runtime.local_world_size()
+
+
+def test_make_global_batch_keeps_this_coordinates_rows():
+    import types
+
+    import numpy as np
+    import torch
+
+    from dmlcloud_tpu_torch.parallel import batch_pspec, make_global_batch
+    from dmlcloud_tpu_torch.parallel import mesh as mesh_lib
+    from dmlcloud_tpu_torch.parallel.mesh import P
+
+    batch = {"x": np.arange(16).reshape(8, 2), "y": [torch.arange(8)]}
+    seen = []
+    for d in range(2):
+        for f in range(2):
+            for m in range(2):  # tensor-parallel peers feed the same rows
+                mesh = types.SimpleNamespace(mesh_dim_names=("data", "fsdp", "model"), shape=(2, 2, 2),
+                                             get_coordinate=lambda c=(d, f, m): list(c))
+                assert batch_pspec(mesh) == P(("data", "fsdp"))
+                mine = make_global_batch(batch, mesh)
+                rows = (2 * d + f) * 2
+                np.testing.assert_array_equal(mine["x"], batch["x"][rows:rows + 2])
+                assert mine["y"][0].tolist() == list(range(rows, rows + 2))
+                seen.append(rows)
+                # over the data axis alone: half the batch
+                half = make_global_batch(batch, mesh, P("data"))["x"]
+                np.testing.assert_array_equal(half, batch["x"][4 * d:4 * d + 4])
+    assert sorted(set(seen)) == [0, 2, 4, 6]
+    assert mesh_lib.batch_pspec({"model": 2}) == P(None)
+    with pytest.raises(ValueError, match="does not split"):
+        make_global_batch(np.zeros((3, 1)), types.SimpleNamespace(mesh_dim_names=("data",), shape=(2,),
+                                                                    get_coordinate=lambda: [0]))

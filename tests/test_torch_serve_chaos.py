@@ -15,7 +15,8 @@ package's, on the CPU (tests/test_serve.py ``TestChaosDrill``,
 - ``drain()``: a manual drain, a blown drain budget, a tripped
   ``PreemptionGuard`` and a ``HangWatchdog.serve_guard`` hang write a
   ``requeue.json`` whose fields, times aside, equal the reference's.
-- The chaos monkey's replica events wait for the Router and raise.
+- The chaos monkey's replica events attach to the Router (drilled against the
+  reference in tests/test_torch_serve_router.py).
 """
 
 import json
@@ -183,12 +184,22 @@ def test_failed_admits_interleaved_with_chaos_end_as_the_reference():
 
 
 def test_replica_events_wait_for_the_router():
-    with pytest.raises(NotImplementedError, match="Router"):
-        ChaosMonkey(seed=0, p_replica_kill=0.1)
-    with pytest.raises(NotImplementedError, match="Router"):
-        ChaosMonkey(seed=0, p_replica_stall=0.1)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ChaosMonkey(seed=0).attach_router(object())
+    """The replica events need a Router: the monkey takes them as arguments,
+    attaches to one router (or one engine), and its kill spares the last
+    standing replica."""
+    from dmlcloud_tpu_torch.serve import Router
+
+    monkey = ChaosMonkey(seed=0, p_replica_kill=1.0, max_replica_kills=2, p_replica_stall=0.1)
+    router = Router([_engine("torch"), _engine("torch")], backoff_base_s=0.0)
+    assert monkey.attach_router(router) is monkey and router.fault_injector is monkey
+    with pytest.raises(RuntimeError, match="already attached"):
+        monkey.attach(_engine("torch"))
+    rid = router.submit(_prompt(5, seed=900), 3)
+    router.run(max_steps=200)
+    monkey.detach_router()
+    assert router.fault_injector is None and monkey.replica_kills == 1
+    assert [kind for _, kind, _ in monkey.log].count("replica_kill") == 1
+    assert router.status(rid) == "ok" and router.leaked_blocks() == 0
 
 
 # ---------------------------------------------------------------------------
