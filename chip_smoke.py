@@ -266,7 +266,21 @@ Phases, each fatal on failure:
    ``TOL``/``REL_TOL`` fp32 of the CPU's; (c) ``examples.finetune_hf``'s stage
    on that import in bf16 with ``attn_impl="flash"``, 4 x 2048 packed rows: 2
    launches of each tensor-core K1-K3 per step and none of the CUDA-core
-   kernels, the step ms and the losses.
+   kernels, the step ms and the losses;
+22. lint and CLI: (a) phase 5's run with ``TrainingPipeline(lint="error",
+   telemetry=<dir>)`` and a user subclass of its stage, which the linter
+   reads before any device work: launches and losses equal to phase 5's;
+   then a subclass with a per-step ``.item()`` planted in ``train_epoch``:
+   ``LintError`` (DML101 at that line) with ``torch.cuda.memory_allocated()``
+   and every launch count unchanged, and a verdict that does not requeue;
+   (b) ``python -m dmlcloud_tpu_torch diag --json --run`` over (a)'s
+   directory in a fresh process: exit 0, the card's name and power limit as
+   ``nvidia-smi`` gives them, the journal's span count, and the process's
+   wall (the CLI's start-up); (c) ``timeline`` over (a)'s journals (one
+   event per span), and ``trace --rid``/``--json`` and ``top --once`` over a
+   journaled 2-layer bf16 engine run of 4 requests and its registry
+   snapshot; (d) ``python -m dmlcloud_tpu_torch lint dmlcloud_tpu_torch``:
+   0 findings, cold in a fresh process, warm on the same cache.
 
 The last line of standard output is one JSON object with ``"ok": true``. With no
 card, or without the package beside it, the script exits non-zero and prints no
@@ -4683,6 +4697,206 @@ def phase_hf(torch, fa, smi: str) -> None:
     _free(torch)
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the linter on the training path, and the CLI on its run directory
+# ---------------------------------------------------------------------------
+
+#: requests, prompt lengths and new tokens of (c)'s small serving run (the 1b width, 2 layers, bf16)
+CLI_SERVE = dict(requests=4, prompt=(64, 200), new=16)
+
+
+def _cli(argv: list[str], timeout: float = 300.0) -> tuple[int, str, float]:
+    """``python -m dmlcloud_tpu_torch <argv>`` in a fresh process from the
+    repository root: exit code, stdout, wall seconds."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [here, os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dmlcloud_tpu_torch", *argv], env=env, cwd=here,
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode not in (0, 1):
+        raise AssertionError(f"python -m dmlcloud_tpu_torch {' '.join(argv)} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    return proc.returncode, proc.stdout, wall
+
+
+def _cli_here(argv: list[str]) -> tuple[int, str]:
+    """The CLI's ``main`` in this process, its stdout captured."""
+    import contextlib
+    import io
+
+    from dmlcloud_tpu_torch.__main__ import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    return rc, buf.getvalue()
+
+
+def phase_lint(torch, fa, smi: str, p5: dict) -> None:
+    """Phase 22: (a) phase 5's run with ``TrainingPipeline(lint="error",
+    telemetry=<dir>)`` and a clean user subclass of the stage: the linter
+    passes it before any device work, the run launches K1-K3 as phase 5 does
+    and its losses are phase 5's; then a subclass with a per-step ``.item()``
+    in ``train_epoch``: ``LintError`` before any allocation and any launch,
+    and a verdict that does not requeue; (b) ``diag --json --run`` in a fresh
+    process over (a)'s directory; (c) ``timeline`` over (a)'s journals (one
+    event per span), ``trace --rid`` and ``top --once`` over a small serving
+    run's journal and registry snapshot; (d) ``lint dmlcloud_tpu_torch``
+    with 0 findings, cold in a fresh process and warm on the same cache in
+    this one."""
+    import numpy as np
+
+    from dmlcloud_tpu_torch.examples.train_lm import PRESETS, LMStage, build
+    from dmlcloud_tpu_torch.lint import LintError
+    from dmlcloud_tpu_torch.models.transformer import DecoderLM, TransformerConfig
+    from dmlcloud_tpu_torch.serve import ServeEngine
+    from dmlcloud_tpu_torch.telemetry import journal
+    from dmlcloud_tpu_torch.telemetry.journal import load_journals
+
+    class LintedLMStage(LMStage):
+        """A user's stage: the example's, as a subclass the linter reads."""
+
+        def val_epoch(self):
+            with self._stall.measure():  # an accounted wait, which the linter allows
+                torch.cuda.synchronize()
+            return super().val_epoch()
+
+    class PlantedLMStage(LMStage):
+        """A user's stage with a per-step host sync planted in its epoch loop."""
+
+        def train_epoch(self):
+            for batch in self._feed_for_epoch(self.train_dataset()):
+                self.track_reduce("loss", self._train_step(batch)["loss"].item())
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_lint_")
+    try:
+        run_dir = os.path.join(root, "run")
+        tdir = os.path.join(run_dir, "telemetry")
+        # (a) the clean stage, armed
+        pipe, stage = build(TRAIN_ARGV, telemetry=tdir, lint="error")
+        stage.__class__ = LintedLMStage  # a user subclass, which the linter reads (framework stages it skips)
+        t0 = time.perf_counter()
+        pipe._lint_stages()
+        lint_ms = (time.perf_counter() - t0) * 1e3
+        fa.reset_launch_counts()  # counted around this run alone
+        t0 = time.perf_counter()
+        pipe.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+        losses, val = _losses(stage)
+        if launches != p5["launches"] or losses != p5["losses"] or val != p5["val"]:
+            raise AssertionError(f"(a) the lint-armed run: launches {launches}, losses {losses} / val {val}; "
+                                 f"phase 5: {p5['launches']}, {p5['losses']} / {p5['val']}")
+        steps = len(losses)
+        per_step = {k: v / steps for k, v in launches.items() if k.endswith("_tc") and k != "flash_fwd_tc"}
+        log(f"[lint] (a) TrainingPipeline(lint='error', telemetry=...) with {type(stage).__name__}: the linter "
+            f"read it in {lint_ms:.1f} ms before any device work; {steps} steps + 1 val batch in {wall:.1f} s "
+            f"wall, launches {launches} (per step {per_step}, phase 5's), losses and val/loss bitwise phase 5's")
+        del pipe, stage
+        _free(torch)
+
+        # (a) the planted hazard: stopped before any allocation and any launch
+        fa.reset_launch_counts()
+        mem0 = torch.cuda.memory_allocated()
+        pipe, stage = build(TRAIN_ARGV, telemetry=os.path.join(root, "planted"), lint="error")
+        stage.__class__ = PlantedLMStage
+        try:
+            pipe.run()
+        except LintError as exc:
+            err = exc
+        else:
+            raise AssertionError("(a) the planted .item() did not stop the run")
+        mem1 = torch.cuda.memory_allocated()
+        rules = [(f.rule, f.line, f.context) for f in err.findings]
+        requeue, kind, _ = pipe._classify_failure(err)
+        if (rules != [("DML101", PlantedLMStage.train_epoch.__code__.co_firstlineno + 2,
+                       "PlantedLMStage.train_epoch")] or mem1 != mem0 or any(fa.LAUNCHES.values())
+                or requeue is not False or stage.state is not None):
+            raise AssertionError(f"(a) planted: findings {rules}, memory {mem0} -> {mem1} bytes, launches "
+                                 f"{dict(fa.LAUNCHES)}, verdict requeue={requeue}, state {stage.state}")
+        log(f"[lint] (a) the planted .item() in PlantedLMStage.train_epoch: LintError {rules} before the "
+            f"runtime started; torch.cuda.memory_allocated() {mem0} -> {mem1} bytes, 0 launches, verdict "
+            f"requeue={requeue} ({kind})")
+        del pipe, stage
+        _free(torch)
+
+        # (b) diag in a fresh process, over (a)'s run
+        rc, out, diag_s = _cli(["diag", "--json", "--run", run_dir])
+        info = json.loads(out)
+        spans = load_journals(tdir)
+        tel = info.get("telemetry", {})
+        if (rc != 0 or info.get("cuda") is not True or info.get("nvidia_smi") != smi or "H100" not in
+                info.get("device_name", "") or tel.get("journal", {}).get("spans") != len(spans)
+                or "goodput" not in tel):
+            raise AssertionError(f"(b) diag exited {rc}: {info}")
+        log(f"[lint] (b) python -m dmlcloud_tpu_torch diag --json --run: exit 0 in {diag_s:.2f} s (the CLI's "
+            f"start-up in a fresh process); {info['device_name']}, nvidia-smi '{info['nvidia_smi']}', torch "
+            f"{info['torch']}, CUDA {info['cuda_version']}; goodput {tel['goodput'].get('goodput_frac')} over "
+            f"{tel['journal']['spans']} spans {tel['journal']['kinds']}")
+
+        # (c) timeline over (a)'s journals
+        rc, out = _cli_here(["timeline", run_dir])
+        events = json.loads(out)["traceEvents"]
+        complete = sum(e["ph"] == "X" for e in events)
+        if rc != 0 or complete != len(spans):
+            raise AssertionError(f"(c) timeline exited {rc} with {complete} events for {len(spans)} spans")
+        # a small serving run, journaled, with its registry snapshot
+        serve_dir = os.path.join(root, "serve")
+        cfg = TransformerConfig(vocab_size=32000, max_seq_len=512, **dict(PRESETS["1b"], num_layers=2))
+        model = DecoderLM(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+        rs = np.random.RandomState(22)
+        cs = CLI_SERVE
+        j = journal.activate(journal.SpanJournal(os.path.join(serve_dir, "telemetry"), ring_size=1 << 14))
+        try:
+            engine = ServeEngine(model, metrics=True, **ENGINE_FP32)
+            rids = [engine.submit(rs.randint(0, cfg.vocab_size, int(rs.randint(*cs["prompt"]))), cs["new"])
+                    for _ in range(cs["requests"])]
+            engine.run()
+        finally:
+            journal.deactivate()
+            j.close()
+        with open(os.path.join(serve_dir, "telemetry", "metrics.json"), "w") as f:
+            json.dump(engine.metrics_snapshot(), f)
+        statuses = [engine.status(r) for r in rids]
+        del engine, model
+        _free(torch)
+        rc_t, out_t = _cli_here(["trace", serve_dir, "--rid", str(rids[-1])])
+        rc_j, out_j = _cli_here(["trace", serve_dir, "--rid", str(rids[-1]), "--json"])
+        rc_top, frame = _cli_here(["top", serve_dir, "--once"])
+        breakdown = json.loads(out_j)["ttft_breakdown"]
+        want_top = f"requests  submitted={cs['requests']} active=0  terminal: ok={cs['requests']}"
+        if (statuses != ["ok"] * cs["requests"] or (rc_t, rc_j, rc_top) != (0, 0, 0) or not breakdown["ttft_s"]
+                or frame.splitlines()[0] != want_top):
+            raise AssertionError(f"(c) serving run {statuses}; trace exited {rc_t}/{rc_j} ({breakdown}); top "
+                                 f"exited {rc_top}:\n{frame}")
+        log(f"[lint] (c) timeline over (a)'s journals: {complete} events for {len(spans)} spans; a 2-layer bf16 "
+            f"1b-width engine over {cs['requests']} requests, journaled: trace --rid {rids[-1]}:\n"
+            + "\n".join("    " + line for line in out_t.splitlines()[:3])
+            + "\n  top --once over its registry snapshot:\n" + "\n".join("    " + line for line in frame.splitlines()))
+
+        # (d) the port lints clean: cold in a fresh process (as a user runs it), then warm on the same cache
+        # in this process (the pass alone; (b) timed the start-up)
+        cache = os.path.join(root, "dmllint_cache.json")
+        argv = ["lint", "dmlcloud_tpu_torch", "--json", "--cache", cache]
+        rc, out, cold = _cli(argv)
+        t0 = time.perf_counter()
+        rc_w, out_w = _cli_here(argv)
+        warm = time.perf_counter() - t0
+        res, res_w = json.loads(out), json.loads(out_w)
+        for code, r in ((rc, res), (rc_w, res_w)):
+            if code != 0 or r["status"] != "clean" or r["findings"]:
+                raise AssertionError(f"(d) lint exited {code}: {r}")
+        log(f"[lint] (d) python -m dmlcloud_tpu_torch lint dmlcloud_tpu_torch --cache: 0 findings in "
+            f"{res['files_scanned']} files; cold {cold:.2f} s in a fresh process (start-up included), warm "
+            f"{warm:.2f} s in this one [{smi}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[lint] phase 22 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     try:
         import torch
@@ -4756,6 +4970,7 @@ def main() -> None:
     t21 = time.perf_counter()
     phase_hf(torch, fa, dev["smi"])
     log(f"[hf] phase 21 in {time.perf_counter() - t21:.1f} s")
+    phase_lint(torch, fa, dev["smi"], p5)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values()) + list(bert_rows.values())}))
     print(dev["smi"])

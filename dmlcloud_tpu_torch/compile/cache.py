@@ -63,11 +63,26 @@ _aot_misses = 0
 _aot_compile_ms = 0.0
 
 
+def _inductor_default_dir() -> str | None:
+    """Inductor's own temporary default (``/tmp/torchinductor_<user>``), or
+    None when this torch does not expose it."""
+    try:
+        from torch._inductor.runtime.cache_dir_utils import default_cache_dir
+    except ImportError:
+        return None
+    return os.path.abspath(default_cache_dir())
+
+
 def configured_cache_dir() -> str | None:
     """The directory Inductor's persistent caches currently write to, or None
-    when none is set (Inductor sets its temporary default at its first
-    compilation)."""
-    return os.environ.get(INDUCTOR_ENV_VAR) or None
+    when none is set. Inductor writes its temporary default into
+    ``TORCHINDUCTOR_CACHE_DIR`` on its own (at its first compilation, and in
+    recent torch already when Dynamo is imported): that value is not a
+    configured cache, so it reads as None, as on a process that set nothing."""
+    value = os.environ.get(INDUCTOR_ENV_VAR) or None
+    if value is not None and os.path.abspath(value) == _inductor_default_dir():
+        return None
+    return value
 
 
 def resolve_cache_dir(cache_dir: Any = True) -> str | None:
@@ -99,7 +114,8 @@ def configure_cache(cache_dir: Any = True, aggressive: bool = True) -> str | Non
     if resolved is None:
         return None
     os.makedirs(resolved, exist_ok=True)
-    previous = configured_cache_dir()
+    # the raw value: graphs compiled into Inductor's own default count too
+    previous = os.environ.get(INDUCTOR_ENV_VAR) or None
     os.environ[INDUCTOR_ENV_VAR] = resolved
     if previous is not None and os.path.abspath(previous) != resolved:
         try:

@@ -77,8 +77,25 @@ class TrainingPipeline:
         compile_cache: Any = None,
         precompile: bool = False,
         buckets: Any = None,
+        lint: Optional[str] = None,
+        verify: Optional[str] = None,
+        hbm_budget: Any = None,
+        sanitize: Optional[str] = None,
     ):
-        """The compiled step and its cold start (``dmlcloud_tpu_torch.compile``):
+        """``lint`` arms the hazard linter (``dmlcloud_tpu_torch.lint``) at run
+        start, before the runtime starts and before any tensor reaches the
+        device: every registered user ``Stage`` subclass's source is linted
+        once (framework stages are covered by the package's own self-lint).
+        ``"warn"`` logs the findings and continues; ``"error"`` raises
+        ``lint.LintError`` carrying them, and the requeue verdict does not
+        requeue (a finding recurs). None (default): off.
+
+        ``verify``/``hbm_budget`` (the IR preflight) and ``sanitize`` (the
+        runtime sanitizer) are accepted as keywords; any value but None (or
+        ``"off"`` for ``sanitize``) raises ``NotImplementedError``: the
+        sanitizer is ROADMAP Queue 1 item 13b, the IR tier item 13c.
+
+        The compiled step and its cold start (``dmlcloud_tpu_torch.compile``):
 
         - ``compile_cache``: Inductor's persistent caches (FX graphs,
           AOTAutograd, Triton kernels). ``True`` uses
@@ -107,6 +124,22 @@ class TrainingPipeline:
         "watchdog_interval_s" (10), "ring_size" (1024)}``. Forensics go to
         ``<run dir>/forensics``, else beside the journal directory. None/False
         (default): off, and each instrumentation point is one attribute read."""
+        if lint not in (None, "warn", "error"):
+            raise ValueError(f'lint must be None, "warn" or "error", got {lint!r}')
+        if verify not in (None, "warn", "error"):
+            raise ValueError(f'verify must be None, "warn" or "error", got {verify!r}')
+        if sanitize not in (None, "off", "warn", "error"):
+            raise ValueError(f'sanitize must be None, "off", "warn" or "error", got {sanitize!r}')
+        if verify is not None or hbm_budget is not None:
+            raise NotImplementedError(
+                "TrainingPipeline(verify=, hbm_budget=) is the linter's IR tier: ROADMAP Queue 1 item 13c "
+                "(after item 14)"
+            )
+        if sanitize not in (None, "off"):
+            raise NotImplementedError(
+                "TrainingPipeline(sanitize=) is the linter's runtime sanitizer: ROADMAP Queue 1 item 13b"
+            )
+        self._lint_mode = lint
         if telemetry is not None and not isinstance(telemetry, (bool, str, dict)) and not hasattr(
             telemetry, "__fspath__"
         ):
@@ -260,7 +293,7 @@ class TrainingPipeline:
 
     def _classify_failure(self, exc: BaseException) -> tuple[bool, str, str]:
         """(requeue, kind, reason) for an uncaught exception: deterministic
-        failures (a NaN loss) are not requeued, since they recur; transient
+        failures (a NaN loss, lint errors) are not requeued, since they recur; transient
         ones (stragglers, filesystem errors) are."""
         if isinstance(exc, KeyboardInterrupt):
             return False, "user-interrupt", "run aborted by user (KeyboardInterrupt)"
@@ -491,11 +524,54 @@ class TrainingPipeline:
     def resume_run(self):
         pass
 
+    def _lint_stages(self) -> None:
+        """Lint every registered Stage subclass's source (the runtime arm of
+        ``dmlcloud_tpu_torch.lint`` — catches hazards in stages assembled
+        dynamically, where no CLI run ever sees the file). Classes whose
+        source is unavailable (REPL, exec) are skipped: the linter is a net,
+        not a gate on how code gets defined."""
+        if self._lint_mode is None:
+            return
+        import inspect
+        import textwrap
+
+        from .lint import LintError, lint_source
+
+        findings = []
+        seen: set[type] = set()
+        for stage in self.stages:
+            cls = type(stage)
+            # framework-shipped stages are covered by the package's own
+            # self-lint; lint only user subclasses, each class once
+            if cls in seen or cls.__module__.startswith("dmlcloud_tpu_torch."):
+                continue
+            seen.add(cls)
+            try:
+                lines, start = inspect.getsourcelines(cls)
+                path = inspect.getsourcefile(cls) or f"<{cls.__name__}>"
+            except (OSError, TypeError):
+                continue
+            # re-anchor to the original line numbers so findings are clickable
+            src = "\n" * (start - 1) + textwrap.dedent("".join(lines))
+            findings.extend(lint_source(src, path=path))
+        if not findings:
+            return
+        report = "\n".join(f.format() for f in findings)
+        if self._lint_mode == "error":
+            raise LintError(
+                f"hazard linter found {len(findings)} problem(s) in registered stages "
+                f"(suppress with '# dmllint: disable=ID'):\n{report}",
+                findings,
+            )
+        self.logger.warning("hazard linter findings in registered stages:\n%s", report)
+
     def _pre_run(self):
         if len(self.stages) == 0:
             raise ValueError("No stages defined. Use append_stage() to add stages to the pipeline.")
         self._verdict_written = False
         self._verdict_kind = None
+        # first, before the runtime starts and before any tensor reaches the device
+        self._lint_stages()
         if self._compile_cache not in (None, False):
             # before the first compilation, so that every graph is cacheable
             from .compile.cache import configure_cache

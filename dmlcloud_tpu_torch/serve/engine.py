@@ -259,8 +259,8 @@ def _medusa_step(model, pools, heads, tables, fill, last_tok, proposals, generat
 #: constructor arguments of the reference that wait for a later slice: their
 #: defaults, and what they wait for
 _NOT_PORTED = {
-    "verify": (None, "the IR verifier (ROADMAP Queue 1 item 13)"),
-    "hbm_budget": (None, "the IR verifier's memory check (ROADMAP Queue 1 item 13)"),
+    "verify": (None, "the IR verifier (ROADMAP Queue 1 item 13c, the linter's IR tier)"),
+    "hbm_budget": (None, "the IR verifier's memory check (ROADMAP Queue 1 item 13c)"),
 }
 
 

@@ -1630,7 +1630,8 @@ class TrainValStage(Stage):
 
                 if not deferred:
                     if loss_val is not None:
-                        v = float(loss_val)  # already on the host
+                        # dmllint: disable-next-line=DML101 -- converts, not syncs: already on the host
+                        v = float(loss_val)
                         loss_ema = v if loss_ema is None else 0.98 * loss_ema + 0.02 * v
                         guard_loss(v)
                 elif log_every > 0 and steps_done % log_every == 0 and self.train_losses:

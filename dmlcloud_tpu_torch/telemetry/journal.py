@@ -327,7 +327,7 @@ def load_journals(run_dir: str | os.PathLike) -> list[dict]:
                     continue  # half-written final line of a killed run
     if not found:
         raise FileNotFoundError(
-            f"no {_JOURNAL_GLOB_PREFIX}*.jsonl under {tdir}: was the run launched with "
+            f"no {_JOURNAL_GLOB_PREFIX}*.jsonl under {tdir} — was the run launched with "
             "TrainingPipeline(telemetry=True)?"
         )
     records.sort(key=lambda r: r.get("ts", 0.0))

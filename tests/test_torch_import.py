@@ -18,7 +18,8 @@ prefix cache with adapters, metrics and an SLO, and in its speculative and
 Medusa modes, each under the chaos monkey and drained to a verdict, routes
 requests through the ``Router`` across a kill and a drain under replica chaos,
 round-trips a HF-named state dict and finetunes it with LoRA (no
-``transformers``), and checks
+``transformers``), runs the CLI's ``diag``/``timeline``/``lint`` and the
+linter, and checks
 that none of those modules was loaded — and that, on a machine
 without CUDA, entry points called without a device raise instead of running
 on the CPU.
@@ -242,6 +243,18 @@ _SCRIPT = textwrap.dedent(
                    router.replicas["r1"].removed, all(np.array_equal(back[k], sd[k]) for k in sd),
                    list(ft.sample_output.shape), parse_mesh_axes("fsdp=1"), "transformers" in sys.modules]
     runtime.deinitialize()
+    # the CLI and the linter: diag, the flight recorder's journals as a timeline, a lint pass with a finding
+    import contextlib, io
+    from dmlcloud_tpu_torch.__main__ import main as cli_main
+    from dmlcloud_tpu_torch.lint import lint_paths
+    outs = []
+    for argv in (["diag", "--json", "--run", pipe.telemetry_dir], ["timeline", pipe.telemetry_dir],
+                 ["lint", "tests/torch_lint_fixtures/dml108_bad.py", "--json"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            outs.append([cli_main(argv), json.loads(buf.getvalue())])
+    slice18 = [outs[0][0], "goodput" in outs[0][1]["telemetry"], outs[1][0], len(outs[1][1]["traceEvents"]) > 0,
+               outs[2][0], outs[2][1]["counts"], len(lint_paths(["tests/torch_lint_fixtures"]))]
 
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in BLOCKED)
@@ -266,7 +279,7 @@ _SCRIPT = textwrap.dedent(
                       "mnist_acc": mnist_acc, "collectives": collectives, "pod": [pod_loss, pod_fsdp],
                       "slice8": slice8, "slice9": slice9, "slice10": slice10,
                       "slice11": slice11, "slice12": slice12, "slice13": slice13, "slice14": slice14,
-                      "slice15": slice15, "slice16": slice16}))
+                      "slice15": slice15, "slice16": slice16, "slice18": slice18}))
     """
 )
 
@@ -292,7 +305,9 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
                  "lint.traceguard", "telemetry.metrics_registry", "models.quant", "models.lora",
                  "models.speculative", "models.moe", "serve.prefix_cache", "serve.adapters", "serve.ledger",
                  "serve.slo", "serve.metrics_http", "serve.chaos", "serve.router", "models.hf",
-                 "examples.finetune_hf"):
+                 "examples.finetune_hf", "__main__", "lint.dataflow", "lint.engine", "lint.callgraph", "lint.rules",
+                 "lint.rules_concurrency", "lint.rules_data", "lint.lifecycle", "lint.cache", "lint.fix",
+                 "lint.cli"):
         assert f"dmlcloud_tpu_torch.{name}" in result["modules"], name
     assert result["loss"] == result["loss"] and result["loss"] > 0  # finite, trained
     assert 0 < result["goodput"] <= 1
@@ -316,6 +331,8 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
     assert result["slice15"] == [[True, True, 0, "completed", True]] * 3 + [[True, []]], result["slice15"]
     # the Router through a kill and a drain, an exact HF round trip, a LoRA finetune of an imported model
     assert result["slice16"] == [True, 1, 0, True, True, [2, 3], {"fsdp": 1}, False], result["slice16"]
+    # diag over the recorder's run, its timeline, a lint of the DML108 fixture (exit 1), the torch corpus's 28 findings
+    assert result["slice18"] == [0, True, 0, True, 1, {"DML108": 5}, 28], result["slice18"]
     for name, did_raise in result["raised"].items():
         assert did_raise, f"{name} without a device ran on the CPU instead of raising"
 
@@ -339,7 +356,7 @@ def test_version_and_stage_mesh_are_the_references():
 #: the reference packages whose ``__all__`` the port mirrors, by suffix of ``dmlcloud_tpu``
 REF_PACKAGES = ["", ".parallel", ".serve", ".utils", ".data", ".telemetry", ".compile", ".lint"]
 
-_LINT_ITEM = "ROADMAP Queue 1 item 13 (the linter)"
+_LINT_ITEM = "ROADMAP Queue 1 item 13b (the linter's runtime sanitizer)"
 #: names of a reference ``__all__`` that the port does not bind, each with its reason (ROADMAP "By design")
 NOT_BOUND = {
     ".parallel": {
@@ -348,10 +365,7 @@ NOT_BOUND = {
         "shard_pytree": "By design: jax.device_put of a tree; parallel.mesh.shard_module lays out a module",
     },
     ".utils": {"thirdparty": "By design: the probe is utils/logging.py ML_MODULES"},
-    ".lint": {name: _LINT_ITEM for name in (
-        "DEFAULT_CACHE_PATH", "FIXABLE_RULES", "Finding", "IR_RULES", "LintCache", "LintError", "PROJECT_RULES",
-        "ProjectGraph", "RULES", "SANITIZE_MODES", "Sanitizer", "SanitizerError", "apply_fixes",
-        "apply_suppressions", "build_project_context", "lint_file", "lint_paths", "lint_source", "summarize_module")},
+    ".lint": {name: _LINT_ITEM for name in ("SANITIZE_MODES", "Sanitizer", "SanitizerError")},
 }
 
 
