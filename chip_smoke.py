@@ -29,7 +29,8 @@ Phases, each fatal on failure:
    must show the tensor-core K1-K3 and no CUDA-core kernel;
 6. steady: three more synchronised train steps, and one under
    ``torch.profiler`` for the split of the step's device time;
-7. resume: phase 5's run again with ``--ema 0.999 --save-every-steps 4``,
+7. resume: phase 5's run again at ``RESUME_LAYERS`` (8) of its 24 layers
+   with ``--ema 0.999 --save-every-steps 4``,
    three times: uninterrupted (C); with a checkpoint directory and preemption
    handling, sending itself SIGUSR1 once its feed has read past batch 3, so
    that it drains at the step-4 save (P); and resumed from P's directory (R), which must skip 4
@@ -167,7 +168,8 @@ Phases, each fatal on failure:
    ragged batches of sizes ``RAGGED_SIZES`` through a precompiled linear
    regression on the card, 2 epochs, with buckets ``RAGGED_BUCKETS`` (at most
    3 signatures, ``misc/recompiles`` [0, 0]) and without (4 signatures,
-   recompiles in epoch 1);
+   recompiles in epoch 1). Its cache directory stays for phase 23, which
+   removes it;
 17. int8, speculative, LoRA: (a) ``quantize_tree`` of the bf16 1b model
    (seed 0), ``quantized_size`` and the resident weight GiB of both models,
    ``generate`` of 8 rows x 128 prompt tokens, 128 new greedy, on each: ms per
@@ -280,7 +282,16 @@ Phases, each fatal on failure:
    event per span), and ``trace --rid``/``--json`` and ``top --once`` over a
    journaled 2-layer bf16 engine run of 4 requests and its registry
    snapshot; (d) ``python -m dmlcloud_tpu_torch lint dmlcloud_tpu_torch``:
-   0 findings, cold in a fresh process, warm on the same cache.
+   0 findings, cold in a fresh process, warm on the same cache;
+23. compiled mesh step: phase 5's run with ``--mesh fsdp=1`` (FSDP2 over a
+   one-rank NCCL mesh) and ``precompile=True`` in a fresh process, on phase
+   16's Inductor cache directory: the model's blocks compiled with FSDP2's
+   hooks between them, 0 graph breaks, ``misc/recompiles`` 0, the data
+   loop's K1-K3 launches phase 5's (192/168/168) and no CUDA-core kernel,
+   step 1 within 0.01 of ``PR1_FIRST_LOSS``, every loss within
+   ``COMPILED_LOSS_ATOL`` of phase 5's, peak memory within
+   ``PR1_PEAK_GIB``; it prints the cache's hits and misses, the steady step,
+   its idle share and ``misc/compile_ms`` beside phase 16's.
 
 The last line of standard output is one JSON object with ``"ok": true``. With no
 card, or without the package beside it, the script exits non-zero and prints no
@@ -917,7 +928,11 @@ def phase_steady(torch, stage) -> float:
 # phase 7: preempt the 1b run at a step save and resume it from its directory
 # ---------------------------------------------------------------------------
 
-RESUME_ARGV = TRAIN_ARGV + ["--ema", "0.999", "--save-every-steps", "4"]
+#: the 1b model's width at 8 of its 24 layers: the time budget of the whole
+#: script (phase 23's compile) cut phase 7's depth, not a gate; its checks
+#: are bitwise at any depth
+RESUME_LAYERS = 8
+RESUME_ARGV = TRAIN_ARGV + ["--layers", str(RESUME_LAYERS), "--ema", "0.999", "--save-every-steps", "4"]
 #: SIGUSR1 arrives once the feed has read past this many batches (it reads
 #: ahead of the step); the drain lands at the next save
 SIGNAL_AFTER = 3
@@ -959,11 +974,12 @@ def phase_resume(torch, fa, smi: str) -> None:
     from dmlcloud_tpu_torch.checkpoint import read_requeue_verdict
     from dmlcloud_tpu_torch.examples.train_lm import build
 
-    want_p = {"flash_fwd_tc": 24 * SAVE_STEP, "flash_bwd_dq_tc": 24 * SAVE_STEP, "flash_bwd_dkv_tc": 24 * SAVE_STEP,
+    n = RESUME_LAYERS
+    want_p = {"flash_fwd_tc": n * SAVE_STEP, "flash_bwd_dq_tc": n * SAVE_STEP, "flash_bwd_dkv_tc": n * SAVE_STEP,
               "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     rest = TRAIN_STEPS - SAVE_STEP
     # the rest of the epoch's train steps and the validation batch
-    want_r = {"flash_fwd_tc": 24 * (rest + 1), "flash_bwd_dq_tc": 24 * rest, "flash_bwd_dkv_tc": 24 * rest,
+    want_r = {"flash_fwd_tc": n * (rest + 1), "flash_bwd_dq_tc": n * rest, "flash_bwd_dkv_tc": n * rest,
               "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     root = tempfile.mkdtemp(prefix="chip_smoke_resume_")
     try:
@@ -2888,8 +2904,10 @@ def phase_data_resume(torch, fa, root: str, smi: str) -> None:
 COMPILED_LOSS_ATOL = 2e-2
 RAGGED_SIZES = (64, 64, 40, 24, 64, 64, 12, 64)
 RAGGED_BUCKETS = (16, 32, 64)
-#: a compiled-run process: build phase 5's pipeline with the compiled step,
-#: run it, measure, and write the result as JSON to argv[2]
+#: a compiled-run process: build phase 5's pipeline with the compiled step
+#: (argv[4] "mesh": phase 11's ``--mesh fsdp=1`` argv), run it, measure, and
+#: write the result as JSON to argv[2]; argv[3] is "-" (no profile),
+#: "steady" (the steady step and one profiled step) or a trace directory
 _COMPILED_RUN = r"""
 import json, math, os, statistics, sys, time
 import torch
@@ -2906,7 +2924,8 @@ from dmlcloud_tpu_torch.telemetry.goodput import flops_from_compiled
 from dmlcloud_tpu_torch.utils import profiling
 
 cache_dir, out_path, profile_dir = sys.argv[1], sys.argv[2], sys.argv[3]
-pipeline, stage = build(c.TRAIN_ARGV, precompile=True, compile_cache=cache_dir)
+on_mesh = sys.argv[4:] == ["mesh"]
+pipeline, stage = build(c.MESH_ARGV if on_mesh else c.TRAIN_ARGV, precompile=True, compile_cache=cache_dir)
 marks = {}
 precompile_phase = stage._run_precompile_phase
 
@@ -2917,6 +2936,7 @@ def timed_precompile():
     marks["precompile_launches"] = dict(fa.LAUNCHES)
     after = cache_lib.compile_counters()
     marks["precompile_counters"] = {k: after[k] - before[k] for k in after}
+    marks["blocks_compiled"] = all("forward" in vars(b) for b in stage.state.model.layers)
 
 stage._run_precompile_phase = timed_precompile
 torch.cuda.reset_peak_memory_stats()
@@ -2936,11 +2956,19 @@ res = {"wall_s": wall, "launches_total": total, **marks,
        "train_hit": stage._train_compiled.any_compiled().hit,
        "val_hit": stage._val_compiled.any_compiled().hit,
        "signatures": stage._train_compiled.signatures, "cache_stats": cache_lib.cache_stats()}
+if on_mesh:
+    from torch.distributed.tensor import DTensor
+    from dmlcloud_tpu_torch.parallel import runtime
+    plan = stage._plan
+    res["mesh"] = {"fsdp": plan.fsdp, "axes": plan.axes, "backend": runtime._info.backend,
+                   "dtensors": all(isinstance(p, DTensor) for p in stage.state.model.parameters()),
+                   "blocks_compiled": marks["blocks_compiled"]}
 if profile_dir != "-":
     batch = next(iter(stage._feed(stage.train_dataset())))
     res["steady_ms"], res["steady_times"] = c.steady_ms(torch, stage, batch)
     wall_us, busy_us, events = c.profile_step(torch, stage, batch)
     res["profile"] = {"wall_us": wall_us, "busy_us": busy_us, "events": sum(e.count for e in events)}
+if profile_dir not in ("-", "steady"):
     fa.reset_launch_counts()
     profiling.profile_steps(stage._train_step, 2, profile_dir, batch)
     res["profile_launches"] = dict(fa.LAUNCHES)
@@ -2955,19 +2983,20 @@ with open(out_path, "w") as f:
 """
 
 
-def _compiled_run(root: str, tag: str, cache_dir: str, profile: bool) -> dict:
-    """One ``_COMPILED_RUN`` process (its output to a log file, not a pipe)."""
+def _compiled_run(root: str, tag: str, cache_dir: str, profile: bool | str, mesh: bool = False) -> dict:
+    """One ``_COMPILED_RUN`` process (its output to a log file, not a pipe);
+    ``profile``: True (steady step, profile and roofline), "steady" or False."""
     script, out = os.path.join(root, "compiled_run.py"), os.path.join(root, f"{tag}.json")
     with open(script, "w") as f:
         f.write(_COMPILED_RUN)
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [here, os.environ.get("PYTHONPATH")])),
                CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    prof_dir = os.path.join(root, f"{tag}-trace") if profile else "-"
+    prof_dir = "steady" if profile == "steady" else os.path.join(root, f"{tag}-trace") if profile else "-"
     t0 = time.perf_counter()
     with open(os.path.join(root, f"{tag}.log"), "w") as logf:
-        rc = subprocess.run([sys.executable, script, cache_dir, out, prof_dir], env=env, cwd=here, stdout=logf,
-                            stderr=subprocess.STDOUT, timeout=900).returncode
+        rc = subprocess.run([sys.executable, script, cache_dir, out, prof_dir] + (["mesh"] if mesh else []), env=env,
+                            cwd=here, stdout=logf, stderr=subprocess.STDOUT, timeout=900).returncode
     if rc != 0:
         with open(os.path.join(root, f"{tag}.log")) as f:
             tail = f.read()[-6000:]
@@ -3021,10 +3050,11 @@ def _ragged_run(torch, buckets, cache_dir: str) -> dict:
             "loss": [float(x) for x in pipeline.tracker["train/loss"]]}
 
 
-def phase_compiled(torch, fa, smi: str, p5: dict) -> None:
+def phase_compiled(torch, fa, smi: str, p5: dict, cache_dir: str) -> dict:
+    """Returns the cold run's steady step and ``misc/compile_ms``; its
+    Inductor cache stays in ``cache_dir`` for phase 23."""
     root = tempfile.mkdtemp(prefix="chip_smoke_compiled_")
     try:
-        cache_dir = os.path.join(root, "inductor")
         cold = _compiled_run(root, "cold", cache_dir, profile=True)
         warm = _compiled_run(root, "warm", cache_dir, profile=False)
         _check_compiled(cold, warm, smi, p5)
@@ -3040,6 +3070,61 @@ def phase_compiled(torch, fa, smi: str, p5: dict) -> None:
                 raise AssertionError(f"unbucketed ragged run: {r}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    prof = cold["profile"]
+    return {"steady_ms": cold["steady_ms"], "compile_ms": cold["compile_ms"],
+            "idle": max(0.0, 1 - prof["busy_us"] / prof["wall_us"]), "peak_gib": cold["peak_gib"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the compiled step on a mesh (FSDP2 on a one-rank NCCL mesh)
+# ---------------------------------------------------------------------------
+
+def phase_compiled_mesh(torch, smi: str, p5: dict, p16: dict, cache_dir: str) -> dict:
+    """Phase 5's 1b argv with ``--mesh fsdp=1`` (FSDP2 over a one-rank NCCL
+    mesh), precompiled, in a fresh process on phase 16's Inductor cache
+    directory (the per-parameter update graphs are the one-card ones; the
+    block graphs are new): 0 graph breaks, ``misc/recompiles`` 0, the data
+    loop's K1-K3 launches phase 5's (192/168/168, CUDA-core kernels 0),
+    step 1 within 0.01 of ``PR1_FIRST_LOSS``, every loss within
+    ``COMPILED_LOSS_ATOL`` of phase 5's, peak within ``PR1_PEAK_GIB``; prints
+    the steady step, its idle share and ``misc/compile_ms`` beside phase 16's
+    one-card compiled step."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_compiled_mesh_")
+    try:
+        r = _compiled_run(root, "mesh", cache_dir, profile="steady", mesh=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counters = r["precompile_counters"]
+    log(f"[compiled-mesh] {smi}: 1b --mesh fsdp=1 precompiled: {r['mesh']}; process {r['process_s']:.1f} s (run "
+        f"{r['wall_s']:.1f} s); misc/compile_ms {r['compile_ms']:.0f} (phase 16 cold, one card: "
+        f"{p16['compile_ms']:.0f}); Inductor cache in the precompile: fxgraph {counters['fxgraph_hit']} hit(s) "
+        f"{counters['fxgraph_miss']} miss(es), autograd {counters['autograd_hit']} hit(s) "
+        f"{counters['autograd_miss']} miss(es); graph breaks {r['graph_breaks']}; misc/recompiles {r['recompiles']}; "
+        f"data-loop launches {r['loop_launches']}; peak {r['peak_gib']:.2f} GiB")
+    log(f"[compiled-mesh] losses {r['losses']}, val/loss {r['val']!r}")
+    mesh = r["mesh"]
+    if not (mesh["fsdp"] and mesh["axes"] == {"fsdp": 1} and mesh["backend"] == "nccl" and mesh["dtensors"]
+            and mesh["blocks_compiled"]):
+        raise AssertionError(f"--mesh fsdp=1 did not run FSDP2 on NCCL with compiled blocks: {mesh}")
+    if r["graph_breaks"] or r["recompiles"] != [0]:
+        raise AssertionError(f"{r['graph_breaks']} graph breaks, misc/recompiles {r['recompiles']}")
+    if r["loop_launches"] != p5["launches"]:
+        raise AssertionError(f"data-loop launches {r['loop_launches']}, phase 5's {p5['launches']}")
+    if abs(r["losses"][0] - PR1_FIRST_LOSS) > 0.01:
+        raise AssertionError(f"step-1 loss {r['losses'][0]:.4f} not within 0.01 of {PR1_FIRST_LOSS}")
+    gaps = [abs(a - b) for a, b in zip(r["losses"] + [r["val"]], p5["losses"] + [p5["val"]])]
+    log(f"[compiled-mesh] |compiled fsdp=1 - eager one card| per loss (phase 5): max {max(gaps):.3g}; {gaps}")
+    if len(r["losses"]) != len(p5["losses"]) or max(gaps) > COMPILED_LOSS_ATOL:
+        raise AssertionError(f"losses off phase 5's by {max(gaps):.3g} > {COMPILED_LOSS_ATOL}")
+    if r["peak_gib"] > PR1_PEAK_GIB:
+        raise AssertionError(f"peak memory {r['peak_gib']:.2f} GiB above {PR1_PEAK_GIB}")
+    prof = r["profile"]
+    idle = max(0.0, 1 - prof["busy_us"] / prof["wall_us"])
+    log(f"[compiled-mesh] {smi}: steady compiled fsdp=1 step {r['steady_ms']:.1f} ms (median of "
+        f"{[round(t, 1) for t in r['steady_times']]}) = {4 * 2048 / r['steady_ms'] * 1e3:.0f} tokens/s, idle share "
+        f"{idle:.3f}; phase 16's compiled one-card step {p16['steady_ms']:.1f} ms (idle share {p16['idle']:.3f}), "
+        f"phase 6's eager one-card step {p5['steady_ms']:.1f} ms")
+    return {"steady_ms": r["steady_ms"], "idle": idle, "compile_ms": r["compile_ms"], "peak_gib": r["peak_gib"]}
 
 
 def _check_compiled(cold: dict, warm: dict, smi: str, p5: dict) -> None:
@@ -4951,7 +5036,9 @@ def main() -> None:
     phase_data(torch, fa, dev["smi"], p5)
     log(f"[data] phase 15 in {time.perf_counter() - t15:.1f} s")
     t16 = time.perf_counter()
-    phase_compiled(torch, fa, dev["smi"], p5)
+    # phase 16's Inductor cache serves phase 23's update graphs
+    inductor_dir = tempfile.mkdtemp(prefix="chip_smoke_inductor_")
+    p16 = phase_compiled(torch, fa, dev["smi"], p5, inductor_dir)
     log(f"[compiled] phase 16 in {time.perf_counter() - t16:.1f} s")
     t17 = time.perf_counter()
     phase_quant_lora(torch, fa, dev["smi"], p5)
@@ -4971,6 +5058,12 @@ def main() -> None:
     phase_hf(torch, fa, dev["smi"])
     log(f"[hf] phase 21 in {time.perf_counter() - t21:.1f} s")
     phase_lint(torch, fa, dev["smi"], p5)
+    t23 = time.perf_counter()
+    try:
+        phase_compiled_mesh(torch, dev["smi"], p5, p16, inductor_dir)
+    finally:
+        shutil.rmtree(inductor_dir, ignore_errors=True)
+    log(f"[compiled-mesh] phase 23 in {time.perf_counter() - t23:.1f} s")
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": list(rows.values()) + list(bert_rows.values())}))
     print(dev["smi"])

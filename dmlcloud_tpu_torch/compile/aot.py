@@ -34,7 +34,15 @@ Abstract specs come from ``abstract_spec`` (any pytree of tensors or arrays ->
 ``TensorSpec`` skeleton) and ``global_batch_spec`` (the batch all
 data-parallel processes feed together); ``validate_global_batch_spec`` keeps
 the reference's stage-start check that a batch dim divides over the mesh's
-data-parallel axes.
+data-parallel axes. On a mesh each process feeds its own rows as a plain
+tensor (``parallel.mesh.make_global_batch``), so the spec it precompiles is
+that of its rows, with no placements; a DTensor input's spec keeps its mesh
+and placements, and its zeros are a DTensor of the same layout.
+
+``compile_blocks`` moves the boundary of a region to a model's blocks: the
+step of a model whose parameters are DTensors (FSDP2, ``model``, ``expert``)
+compiles each block's forward, one graph shared by like blocks, with the
+module hooks (FSDP2's all-gather and reshard) running eagerly around it.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ __all__ = [
     "TensorSpec",
     "PrecompiledStep",
     "abstract_spec",
+    "compile_blocks",
     "compile_region",
     "global_batch_spec",
     "preserving",
@@ -77,11 +86,13 @@ RECOMPILE_LIMIT = 8
 @dataclasses.dataclass(frozen=True)
 class TensorSpec:
     """Shape, dtype and (for a DTensor) placements of one tensor: the
-    counterpart of ``jax.ShapeDtypeStruct``."""
+    counterpart of ``jax.ShapeDtypeStruct``. A DTensor's spec also keeps its
+    ``DeviceMesh`` (outside the signature), which its zeros are laid out on."""
 
     shape: tuple[int, ...]
     dtype: torch.dtype
     placements: tuple | None = None
+    mesh: Any = dataclasses.field(default=None, compare=False, repr=False)
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -99,8 +110,9 @@ def abstract_spec(tree: Any) -> Any:
         if isinstance(x, TensorSpec):
             return x
         if isinstance(x, torch.Tensor):
-            placements = tuple(x.placements) if hasattr(x, "placements") else None
-            return TensorSpec(tuple(x.shape), x.dtype, placements)
+            if hasattr(x, "placements"):
+                return TensorSpec(tuple(x.shape), x.dtype, tuple(x.placements), x.device_mesh)
+            return TensorSpec(tuple(x.shape), x.dtype)
         if isinstance(x, (np.ndarray, np.generic, bool, int, float)):
             arr = np.asarray(x)
             return TensorSpec(tuple(arr.shape), _torch_dtype(arr.dtype))
@@ -180,12 +192,38 @@ def compile_region(fn: Callable, name: str | None = None) -> Callable:
     return torch.compile(copy, fullgraph=True, dynamic=False, backend=BACKEND)
 
 
+def compile_blocks(modules, name: str):
+    """Compile the ``forward`` of each of ``modules`` as a region
+    (``compile_region``), one region per forward function, shared by every
+    module that has it: Dynamo takes the module as an input and guards on its
+    parameters' shapes, not its identity, so like blocks run one graph. The
+    hooks around a module's call (FSDP2's all-gather before, its reshard and
+    gradient reduce-scatter after) run eagerly, outside the region. Returns
+    the function that puts the plain forwards back."""
+    regions: dict[Any, Callable] = {}
+    for m in modules:
+        fn = type(m).forward
+        if fn not in regions:
+            regions[fn] = compile_region(fn, f"{name}_{fn.__qualname__.replace('.', '_')}")
+        m.forward = types.MethodType(regions[fn], m)
+
+    def restore() -> None:
+        for m in modules:
+            m.__dict__.pop("forward", None)
+
+    return restore
+
+
 def _zeros(specs: Any, device) -> Any:
     def leaf(x):
         if isinstance(x, TensorSpec):
             if x.placements is not None:
-                raise NotImplementedError("precompiling against DTensor specs (compiled steps on a mesh) is not "
-                                          "ported yet (ROADMAP Queue 1 item 14)")
+                if x.mesh is None:
+                    raise ValueError(f"a TensorSpec with placements {x.placements} needs its DeviceMesh (mesh=) to "
+                                     "make its zeros; a process's batch rows are a plain tensor (no placements)")
+                from torch.distributed.tensor import zeros as dtensor_zeros
+
+                return dtensor_zeros(x.shape, dtype=x.dtype, device_mesh=x.mesh, placements=x.placements)
             return torch.zeros(x.shape, dtype=x.dtype, device=device)
         if isinstance(x, torch.Tensor):
             return torch.zeros_like(x)
@@ -199,13 +237,16 @@ def _zeros(specs: Any, device) -> Any:
 @contextlib.contextmanager
 def preserving(modules=(), optimizers=(), tensors=(), holders=()):
     """Run the body, then put back bit for bit what it changed: the
-    parameters, gradients (None included), buffers and ``torch.Generator``
+    parameters, gradients (None included; the gradient tensors themselves,
+    their values restored), buffers and ``torch.Generator``
     attributes of ``modules``; every tensor and number in the state of
     ``optimizers`` (slots the body created are dropped) and their int/float
     attributes (a step count); ``tensors`` (an EMA shadow); the int/float
     attributes of ``holders`` (a ``TrainState``'s step); and the default CPU
     and CUDA generators. Tensors are copied to host memory, so the snapshot
-    costs no device memory."""
+    costs no device memory. A DTensor (an FSDP2 shard, a tensor-parallel
+    slice, its optimizer slots and EMA) is restored through its local
+    tensor, on every process."""
     saved: list[tuple[torch.Tensor, torch.Tensor]] = []
     grads: list[tuple[torch.Tensor, torch.Tensor | None]] = []
     attrs: list[tuple[Any, str, Any]] = []
@@ -224,7 +265,8 @@ def preserving(modules=(), optimizers=(), tensors=(), holders=()):
     for m in modules:
         for p in m.parameters():
             keep(p)
-            grads.append((p, None if p.grad is None else local_tensor(p.grad).detach().to("cpu", copy=True)))
+            grads.append((p, p.grad))
+            keep(p.grad)
         for b in m.buffers():
             keep(b)
         for sub in m.modules():
@@ -249,7 +291,7 @@ def preserving(modules=(), optimizers=(), tensors=(), holders=()):
             for t, host in saved:
                 local_tensor(t).copy_(host)
             for p, g in grads:
-                p.grad = None if g is None else g.to(p.device)
+                p.grad = g
         for d, before in slots:
             d.clear()
             d.update(before)

@@ -20,10 +20,18 @@ masking is then the step's own responsibility, and a one-time warning says so.
 Leaves may be numpy arrays (host batches, before the device copy) or tensors;
 the mask is a numpy array for a host batch and a tensor on the batch's device
 for a batch of tensors.
+
+On a mesh every process pads its own rows (``make_global_batch``'s local
+batch): a bucket is a row count per process, so the global batch of a bucket
+is that times the data-parallel size and divides over the data axes by
+construction, which ``aot.validate_global_batch_spec`` checks at stage start
+as the reference does. ``model``/``seq``/``expert`` peers feed the same rows,
+so they pad to the same bucket and their collectives meet equal shapes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 from typing import Any, Iterable, Iterator, Mapping, Sequence
@@ -135,7 +143,7 @@ def bucket_spec(spec: Any, bucket: int, axis: int = 0, mask_key: str = DEFAULT_M
         shape = list(s.shape)
         if len(shape) > axis:
             shape[axis] = int(bucket)
-        return TensorSpec(tuple(shape), s.dtype)
+        return dataclasses.replace(s, shape=tuple(shape))
 
     out = pytree.tree_map(leaf, abstract_spec(spec))
     if isinstance(spec, Mapping):

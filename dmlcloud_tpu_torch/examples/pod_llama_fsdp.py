@@ -33,7 +33,10 @@ one host:
 decoder, e.g. over four gloo processes ``python -m torch.distributed.run
 --nproc_per_node=4 -m dmlcloud_tpu_torch.examples.pod_llama_fsdp --toy --mesh
 data=2,fsdp=2 --device cpu``. ``main(argv)`` returns the stage; ``build(argv)``
-the unrun pipeline and stage.
+the unrun pipeline and stage, and ``build(argv, precompile=True)`` (also
+``compile_cache=``, ``buckets=``) the pipeline whose step is compiled on the
+mesh: each block a ``fullgraph`` region, FSDP2's all-gather and reshard
+between them.
 """
 
 from __future__ import annotations
@@ -112,7 +115,11 @@ class LlamaStage(dml.TrainValStage):
         pass
 
 
-def build(argv: list[str] | None = None) -> tuple[dml.TrainingPipeline, LlamaStage]:
+def build(argv: list[str] | None = None, **compile_kwargs) -> tuple[dml.TrainingPipeline, LlamaStage]:
+    """The pipeline and stage that ``argv`` describes, not yet run;
+    ``compile_kwargs`` (``compile_cache``, ``precompile``, ``buckets``) are
+    passed to ``TrainingPipeline``: ``precompile=True`` compiles the step on
+    the mesh (its blocks, with FSDP2's hooks between them)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", choices=sorted(PRESETS), default="8b")
     ap.add_argument("--toy", action="store_true", help="tiny model + tiny batch (sets --preset toy)")
@@ -161,7 +168,7 @@ def build(argv: list[str] | None = None) -> tuple[dml.TrainingPipeline, LlamaSta
         "save_every_steps": args.save_every_steps,
         "seed": 0,
     }
-    pipeline = dml.TrainingPipeline(config, name=f"llama-{args.preset}", device=args.device)
+    pipeline = dml.TrainingPipeline(config, name=f"llama-{args.preset}", device=args.device, **compile_kwargs)
     pipeline.set_mesh(parse_mesh_axes(args.mesh))
     if args.checkpoint_dir:
         pipeline.enable_checkpointing(args.checkpoint_dir, resume=args.resume)

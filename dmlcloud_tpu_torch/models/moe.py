@@ -56,6 +56,11 @@ Across processes:
   backward (as ``clip_loss``'s gather), so the stage's gradient average gives
   the gradient of the reference's loss. With no group (or one rank) this is
   the local computation.
+
+Every collective here is a functional one (``parallel.tensor_parallel``'s
+``all_reduce_sum``/``all_gather_dim``), so a compiled step traces the routing
+on a data-parallel group and the sums over the ``expert`` or ``model`` group
+under ``fullgraph=True``.
 """
 
 from __future__ import annotations
@@ -68,7 +73,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.tensor_parallel import ModelGroup, copy_to_model, local_tensor, reduce_from_model
+from ..parallel.tensor_parallel import (ModelGroup, all_gather_dim, all_reduce_sum, copy_to_model, local_tensor,
+                                        reduce_from_model)
 from .quant import QuantDense
 
 __all__ = ["moe_partition_rules", "MoEConfig", "MoEMLP", "total_aux_loss"]
@@ -118,15 +124,11 @@ class _SumOverGroup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
+        return all_reduce_sum(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return all_reduce_sum(g, ctx.group), None
 
 
 @dataclass
@@ -205,9 +207,6 @@ class MoEMLP(nn.Module):
         # the inner dim (along dim 0 of [N*k, E] it is a slow outer-dim scan)
         pos = ((flat.t().contiguous().cumsum(1).t() - 1) * flat).sum(-1).reshape(n, k)
         group = self._dp(across_data)
-        if group is not None and torch.compiler.is_compiling():
-            raise NotImplementedError("an MoE model compiled on a data-parallel group (its routing's all-gather) is "
-                                      "not ported yet (ROADMAP Queue 1 item 14)")
         n_tok = n
         if group is None:
             token_frac = onehot.sum(1).float().mean(0)
@@ -216,9 +215,8 @@ class MoEMLP(nn.Module):
             world, rank = dist.get_world_size(group), dist.get_rank(group)
             n_tok = n * world
             counts = flat.sum(0)
-            every = [torch.empty_like(counts) for _ in range(world)]
-            dist.all_gather(every, counts, group=group)
-            offset = torch.stack(every[:rank]).sum(0) if rank else torch.zeros_like(counts)
+            every = all_gather_dim(counts[None], 0, group)  # [world, E]
+            offset = every[:rank].sum(0) if rank else torch.zeros_like(counts)
             token_frac = _SumOverGroup.apply(counts.float(), group) / n_tok
             prob_frac = _SumOverGroup.apply(probs.sum(0), group) / n_tok
         cap = capacity(n_tok, cfg)

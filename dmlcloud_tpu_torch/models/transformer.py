@@ -67,6 +67,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
@@ -408,11 +409,24 @@ def _compiled_once(fn):
     return fn if region is None else region(fn)
 
 
-@_compiled_once
-def _block_forward(block: "DecoderBlock", x, cos, sin, seg_info, adapters=None):
+def _block_body(block: "DecoderBlock", x, cos, sin, seg_info, adapters=None):
     attn_ad, mlp_ad = _split_adapters(adapters)
     x = x + block.attn(block.attn_norm(x), cos, sin, seg_info=seg_info, adapters=attn_ad)
     return x + block.ffn(block.mlp_norm(x), mlp_ad)
+
+
+_block_region = _compiled_once(_block_body)
+
+
+def _block_forward(block: "DecoderBlock", x, cos, sin, seg_info, adapters=None):
+    """The block's body, through the nested compile region unless a
+    parameter is a DTensor (a ``model`` or ``expert`` shard): torch 2.11's
+    ``invoke_subgraph`` takes no DTensor input, and on such a mesh the stage
+    compiles each block as a region of its own (``compile.aot.compile_blocks``),
+    which the nested region would only repeat."""
+    if any(isinstance(p, DTensor) for p in block.parameters()):
+        return _block_body(block, x, cos, sin, seg_info, adapters)
+    return _block_region(block, x, cos, sin, seg_info, adapters)
 
 
 def _split_adapters(adapters):

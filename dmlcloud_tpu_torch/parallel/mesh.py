@@ -630,12 +630,19 @@ def _owner(model: torch.nn.Module, name: str) -> tuple[torch.nn.Module, str]:
     return (model.get_submodule(mod) if mod else model), attr
 
 
-def grad_sq_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def _vector_norm(t: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.vector_norm(t, dtype=torch.float32)
+
+
+def grad_sq_norm(tensors: Sequence[torch.Tensor], norm: Callable[[torch.Tensor], torch.Tensor] = _vector_norm
+                 ) -> torch.Tensor:
     """The sum of squares of ``tensors`` as whole tensors, in fp32, on every
     rank: each DTensor's local shard counts once per mesh dim it is sharded
     over (summed over that dim's group) and once for the dims it is
     replicated over. Tensors of one sharding are summed in their order, as
-    one stack, so one group of plain tensors gives the unsharded sum bitwise."""
+    one stack, so one group of plain tensors gives the unsharded sum bitwise.
+    ``norm`` takes each local tensor's fp32 2-norm (a compiled step passes its
+    compiled region); the sums over the groups run eagerly, between regions."""
     from torch.distributed.tensor import DTensor, Replicate
 
     groups: dict[tuple, list[torch.Tensor]] = {}
@@ -645,8 +652,7 @@ def grad_sq_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
             if not all(isinstance(p, Replicate) or p.is_shard() for p in t.placements):
                 raise ValueError(f"grad_sq_norm: unreduced placements {t.placements}")
             key = (t.device_mesh, tuple(p.is_shard() for p in t.placements))
-        norm = torch.linalg.vector_norm(local_tensor(t), dtype=torch.float32)
-        groups.setdefault(key, []).append(norm)
+        groups.setdefault(key, []).append(norm(local_tensor(t)))
     total = None
     for key, norms in groups.items():
         sq = torch.stack(norms).square().sum()

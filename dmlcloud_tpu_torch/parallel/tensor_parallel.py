@@ -26,6 +26,11 @@ ends with the same activations and the same parameter gradients.
 Each rank of the group ends a forward with the same replicated activations,
 so every rank computes the same loss, and each backward rule above gives the
 gradient of that one loss (not of the sum of the ranks' copies).
+
+The collectives are functional (``torch.distributed._functional_collectives``):
+they return new tensors instead of writing into their inputs, which is the
+form Dynamo traces into a ``fullgraph=True`` region (a compiled step on a
+``model`` axis). Eagerly they run the same c10d collectives.
 """
 
 from __future__ import annotations
@@ -34,11 +39,11 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
-import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor
 
 __all__ = ["ModelGroup", "copy_to_model", "reduce_from_model", "gather_from_model", "scatter_to_model",
-           "local_tensor"]
+           "local_tensor", "all_reduce_sum", "all_gather_dim"]
 
 
 def local_tensor(t: torch.Tensor) -> torch.Tensor:
@@ -56,10 +61,24 @@ class ModelGroup:
     size: int
 
 
+def _waited(t: torch.Tensor) -> torch.Tensor:
+    """A functional collective's result, waited for: eagerly it comes back as
+    an ``AsyncCollectiveTensor``; under tracing the wait is in the graph."""
+    return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the process ``group``, as a new tensor."""
+    return _waited(funcol.all_reduce(x.contiguous(), "sum", group))
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's ``x`` concatenated along ``dim`` in rank order, as a new tensor."""
+    return _waited(funcol.all_gather_tensor(x.contiguous(), dim, group))
+
+
 def _all_reduce_sum(x: torch.Tensor, tp: ModelGroup) -> torch.Tensor:
-    out = x.float().contiguous() if x.dtype != torch.float32 else x.contiguous().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=tp.group)
-    return out.to(x.dtype)
+    return all_reduce_sum(x.float() if x.dtype != torch.float32 else x, tp.group).to(x.dtype)
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -87,9 +106,7 @@ class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, tp, dim):
         ctx.tp, ctx.dim, ctx.width = tp, dim, x.shape[dim]
-        parts = [torch.empty_like(x, memory_format=torch.contiguous_format) for _ in range(tp.size)]
-        dist.all_gather(parts, x.contiguous(), group=tp.group)
-        return torch.cat(parts, dim=dim)
+        return all_gather_dim(x, dim, tp.group)
 
     @staticmethod
     def backward(ctx, grad):

@@ -68,7 +68,13 @@ What carries over unchanged:
   (``misc/compile_ms``) on zeros of the batch spec, leaving the state as it
   was; ``buckets()`` pads ragged batches to a fixed set of sizes;
   ``misc/recompiles`` counts signatures that compiled mid-run. Without either
-  the step is the eager one above.
+  the step is the eager one above. On a mesh whose parameters are DTensors
+  (``fsdp``, ``model``, ``expert``) the region's boundary is the model's block
+  (``fsdp_blocks()``, else the whole module): FSDP2's per-block all-gather and
+  reshard hooks run eagerly between the compiled blocks, the blocks run their
+  ``model``/``expert`` collectives as functional ones inside the region, the
+  clip's global norm sums its per-shard norms over the mesh between the
+  regions, and the update region runs on each parameter's local shard.
 
 - quantized training (stage.py:318-333, :409-416, :638-645, :674-716 of the
   reference): ``TrainValStage(precision="int8")`` (or a ``precision()``
@@ -83,9 +89,8 @@ What carries over unchanged:
   the amax is the whole weight's, max-reduced over the shards
   (``models/quant.py``).
 
-Compiled steps on a mesh (``fsdp``, ``model``, ``seq``, ``pipe``), int8
-training on a ``pipe`` axis, and the lint/verify/sanitize arms come in later
-slices.
+Compiled steps on a ``seq`` or ``pipe`` axis, int8 training on a ``pipe``
+axis, and the lint/verify/sanitize arms come in later slices.
 """
 
 from __future__ import annotations
@@ -109,7 +114,7 @@ from .data.device import device_iterator
 from .metrics import MetricTracker, Reduction
 from .parallel import runtime
 from .parallel.data_parallel import all_reduce_gradients
-from .parallel.mesh import DATA, FSDP, MODEL, PIPE, SEQ, grad_sq_norm, sharding_record
+from .parallel.mesh import DATA, PIPE, SEQ, grad_sq_norm, sharding_record
 from .parallel.runtime import is_root
 from .parallel.tensor_parallel import local_tensor
 from .telemetry import journal as _journal
@@ -478,6 +483,8 @@ class TrainValStage(Stage):
         self._val_fwd = None
         self._sq_norm_fn = None
         self._opt_update = None
+        #: puts back the plain forwards of a mesh plan's compiled blocks
+        self._restore_blocks = None
         self._buckets_resolved: tuple[int, ...] | None = None
         #: gradient_clip() and ema_decay(), read once for the compiled update
         self._clip = 0.0
@@ -900,8 +907,10 @@ class TrainValStage(Stage):
             rows = rows.pin_memory().to(self.device, non_blocking=True)
         scale = None
         if self._clip > 0.0:
+            # the global norm over the shards, replicas counted once: the
+            # per-gradient norms are compiled, their sums over the mesh eager
             grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-            sq = torch.stack([self._sq_norm_fn(g) for g in grads]).square().sum()
+            sq = grad_sq_norm(grads, norm=self._sq_norm_fn)
             scale = torch.clamp(self._clip * torch.rsqrt(torch.clamp(sq, min=1e-12)), max=1.0)
         names = {p: n for n, p in state.model.named_parameters()}
         ema, done = state.ema if self._decay > 0.0 else None, set()
@@ -912,22 +921,25 @@ class TrainValStage(Stage):
                 shadow = None if ema is None else ema.get(names[p])
                 if shadow is not None and shadow.is_floating_point():
                     done.add(names[p])
+                    shadow = local_tensor(shadow)
                 else:
                     shadow = None
-                self._update_fn(p, opt.state[p], group, rows[i], scale, shadow)
+                # a sharded parameter updates its local shard (DTensor slots too)
+                slots = {k: local_tensor(v) for k, v in opt.state[p].items()}
+                self._update_fn(local_tensor(p), local_tensor(p.grad), slots, group, rows[i], scale, shadow)
         if ema is not None:
             state.update_ema(self._decay, skip=done)  # parameters without a gradient
         opt.count += 1
         state.step += 1
 
-    def _update_param(self, p, slots: dict, group: dict, scalars, scale, shadow) -> None:
-        """One parameter's update (the compiled region): the clip's scale
-        rounded to the gradient's dtype, the optimizer's ``update_param`` (a
-        static method: the graph reads no optimizer object, whose every
-        parameter Dynamo would guard on), and the EMA fold of the updated
-        parameter into its fp32 ``shadow``."""
+    def _update_param(self, p, g, slots: dict, group: dict, scalars, scale, shadow) -> None:
+        """One parameter's update (the compiled region) on plain tensors (a
+        sharded parameter's local shard, its gradient's and its slots'): the
+        clip's scale rounded to the gradient's dtype, the optimizer's
+        ``update_param`` (a static method: the graph reads no optimizer
+        object, whose every parameter Dynamo would guard on), and the EMA fold
+        of the updated parameter into its fp32 ``shadow``."""
         with torch.no_grad():
-            g = p.grad
             if scale is not None:
                 g.mul_(scale.to(g.dtype))
             self._opt_update(p, g, slots, group, scalars)
@@ -989,12 +1001,12 @@ class TrainValStage(Stage):
         if not self.precompile() and self._buckets_resolved is None:
             return
         plan = self._plan
-        if plan is not None and any(a in plan.axes for a in (FSDP, MODEL, SEQ, PIPE)):
+        if plan is not None and any(a in plan.axes for a in (SEQ, PIPE)):
             raise NotImplementedError(
-                f"precompile()/buckets() on a mesh with axes {sorted(plan.axes)}: compiled steps on a mesh "
-                "(FSDP2, 'model', 'seq', 'pipe') are not ported yet (ROADMAP Queue 1 item 14); the 'data' axis "
-                "(sharding='replicate') is")
-        from .compile.aot import PrecompiledStep, compile_region, preserving
+                f"precompile()/buckets() on a mesh with axes {sorted(plan.axes)}: compiled steps on a 'seq' or "
+                "'pipe' axis (the ring's and the pipeline's point-to-point hops) are not ported yet (ROADMAP "
+                "Queue 1 item 14b); 'data', 'fsdp', 'model' and 'expert' are")
+        from .compile.aot import PrecompiledStep, compile_blocks, compile_region, preserving
         from .lint import TraceGuard
 
         state = self.state
@@ -1003,14 +1015,22 @@ class TrainValStage(Stage):
         n_buckets = len(self._buckets_resolved or ())
         self._clip = float(self.gradient_clip())
         self._decay = float(self.ema_decay())
-        self._train_fwd = compile_region(self._forward_loss, f"{name}_train_forward")
-        self._val_fwd = compile_region(self._val_forward, f"{name}_val_forward")
+        per_block = plan is not None and (plan.fsdp or plan.tp is not None or plan.ep is not None)
+        if per_block:
+            # FSDP2's hooks sit on the blocks' calls and Dynamo does not trace
+            # them: the forward and loss stay eager around compiled blocks
+            model = state.model
+            blocks = list(model.fsdp_blocks()) if hasattr(model, "fsdp_blocks") else [model]
+            self._restore_blocks = compile_blocks(blocks, name)
+        else:
+            self._train_fwd = compile_region(self._forward_loss, f"{name}_train_forward")
+            self._val_fwd = compile_region(self._val_forward, f"{name}_val_forward")
         if hasattr(opt, "update_param") and hasattr(opt, "step_scalars"):
             opt.init_state()  # the moments exist before the warm-up snapshots them
             self._opt_update = type(opt).update_param
             self._update_fn = compile_region(self._update_param, f"{name}_update")
             self._sq_norm_fn = compile_region(self._sq_norm, f"{name}_grad_norm")
-            n_shapes = len({(tuple(p.shape), p.dtype) for p in state.model.parameters()})
+            n_shapes = len({(tuple(local_tensor(p).shape), p.dtype) for p in state.model.parameters()})
         else:
             n_shapes = 0
             self.logger.warning(f"optimizer {type(opt).__name__} has no update_param/step_scalars: stage "
@@ -1019,10 +1039,12 @@ class TrainValStage(Stage):
             self._run_train_step, name=f"{name}.train_step", compile=False,
             preserve=lambda: preserving(modules=[state.model], optimizers=[opt],
                                         tensors=list((state.ema or {}).values()), holders=[state]),
-            recompile_limit=max(n_buckets, 2 * n_shapes))
+            recompile_limit=max(2 * n_buckets if per_block else n_buckets, 2 * n_shapes))
+        # a block region serves the train (grad) and the val (no_grad) calls
         self._val_compiled = PrecompiledStep(
             self._run_val_step, name=f"{name}.val_step", compile=False,
-            preserve=lambda: preserving(tensors=list(state.model.buffers())), recompile_limit=n_buckets)
+            preserve=lambda: preserving(tensors=list(state.model.buffers())),
+            recompile_limit=2 * n_buckets if per_block else n_buckets)
         if self.precompile():
             self._run_precompile_phase()
         # the runtime retrace guard reads the registry's _cache_size(): any
@@ -1079,22 +1101,29 @@ class TrainValStage(Stage):
                 aot.validate_global_batch_spec(aot.global_batch_spec(hs, mesh), mesh)
             return out
 
+        train = variants(self._host_batch_spec(self.train_dataset))
+        # val is best-effort: a stage may have no val dataset, or one whose
+        # first-batch peek is impossible — the val step then compiles lazily
+        try:
+            val = variants(self._host_batch_spec(self.val_dataset))
+        except ValueError as e:
+            self.logger.warning(f"val-step precompile skipped: {e}")
+            val = None
+        train, val = self._agreed_warmups(train, val)
         n_train = 0
-        for hs in variants(self._host_batch_spec(self.train_dataset)):
+        for hs in train:
             self._train_compiled.precompile(hs, device=self.device)
             if n_train == 0 and self._telemetry_armed and float(self.step_flops()) <= 0:
                 # the MFU fallback's count (one eager step on zeros)
                 self._train_compiled.count_flops(hs, device=self.device)
             n_train += 1
-        # val is best-effort: a stage may have no val dataset, or one whose
-        # first-batch peek is impossible — the val step then compiles lazily
         n_val = 0
-        try:
-            for hs in variants(self._host_batch_spec(self.val_dataset)):
-                self._val_compiled.precompile(hs, device=self.device)
-                n_val += 1
-        except ValueError as e:
-            self.logger.warning(f"val-step precompile skipped: {e}")
+        for hs in val:
+            self._val_compiled.precompile(hs, device=self.device)
+            n_val += 1
+        # the warm-ups' zeros are no batch: the peers' first-batch check is
+        # still to come
+        self._batch_checked = False
 
         elapsed_ms = (time.perf_counter() - t0) * 1e3
         if not ("misc/compile_ms" in self.tracker and self.tracker.has_value("misc/compile_ms")):
@@ -1111,6 +1140,28 @@ class TrainValStage(Stage):
                 f"precompile() on stage {self.name!r} found no batch spec to compile "
                 "against; the first step pays the compile as usual"
             )
+
+    def _agreed_warmups(self, train: list, val: list | None) -> tuple[list, list]:
+        """The warm-ups every process runs. Each one runs the step's
+        collectives (FSDP2's all-gathers, the ``model`` and ``expert`` sums,
+        the gradient average), so a process that warmed one signature more
+        than another would hang it. One exchange of the counts at stage
+        start: the train counts must agree (the shapes may differ over
+        data-parallel ranks, whose collectives do not depend on the batch),
+        and the val warm-ups run only where every process has as many (None:
+        this one has none to offer)."""
+        if runtime.world_size() == 1:
+            return train, val or []
+        every = runtime.all_gather_object((len(train), None if val is None else len(val)))
+        if len({n for n, _ in every}) > 1:
+            raise ValueError(f"precompile() on stage {self.name!r}: the processes would warm "
+                             f"{[n for n, _ in every]} train signature(s) (by rank); each warm-up runs the step's "
+                             "collectives, so every process must warm as many — declare batch_spec() or buckets()")
+        if val is not None and len({v for _, v in every}) > 1:
+            self.logger.warning(f"val-step precompile skipped: the processes have {[v for _, v in every]} val "
+                                "signature(s) (by rank)")
+            val = None
+        return train, val or []
 
     def _cost_analysis_flops(self) -> float:
         """MFU fallback when ``step_flops()`` is not declared: FLOPs of one
@@ -1237,6 +1288,9 @@ class TrainValStage(Stage):
         if ckpt is not None:
             ckpt.wait_until_finished(scope=self.name)
             ckpt.wait_until_finished(scope=self._steps_scope)
+        if self._restore_blocks is not None:
+            self._restore_blocks()
+            self._restore_blocks = None
         super()._post_stage()
 
     # -- automatic state checkpointing --------------------------------------

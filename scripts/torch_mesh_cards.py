@@ -17,7 +17,7 @@ the elastic resumes of the N-card run's save on two cards and on one:
 ``python -c "from dmlcloud_tpu_torch.ops import flash_attention as fa; fa.build()"``).
 ``--parts`` picks the parts by name (default: all): ``8b``, ``meshes``,
 ``resume``, ``ring``, ``pipe``, ``elastic``, ``clip``, ``resnet``, ``moe``,
-``tp_decode``, ``int8_mesh``; ``--single``
+``tp_decode``, ``int8_mesh``, ``compiled``; ``--single``
 runs only what the chosen parts compare with. The last ``--resume`` call
 deletes the save.
 
@@ -84,7 +84,19 @@ The parts, on the N processes (one per card):
    steps), every loss within ``LOSS_ATOL`` of one card's int8 run, the steady
    step and peak per card; then the int8 1b (``quantize_tree`` of the sharded
    model) decoding on ``data=2,model=2``, its greedy tokens held to one card's
-   int8 tokens as in part 10.
+   int8 tokens as in part 10;
+12. ``compiled``: the compiled step on a mesh (``precompile=True``: each
+   block a ``fullgraph`` region, FSDP2's hooks between them), each against
+   the same run eager in this call: the 1b (part 1's argv) on ``fsdp=4`` and
+   ``fsdp=2,model=2``, the 8b (part 3's argv, through
+   ``pod_llama_fsdp.build(argv, precompile=True)``; part 3's run is its
+   eager twin when both parts run) on ``fsdp=4``, and the 1b-moe (part 9's
+   configuration at its check depth, 8 layers) on ``data=2,expert=2``: every loss within
+   ``COMPILED_LOSS_ATOL`` of the eager run's, 0 graph breaks and
+   ``misc/recompiles`` 0 on every rank; side by side the steady step, one
+   profiled step's device busy time and idle share, peak memory per card and
+   ``misc/compile_ms`` (cold: each run compiles into a fresh Inductor cache),
+   and for the 8b the MFU at the steady step.
 
 ``--device cpu --preset tiny`` runs every part on the CPU over gloo (part 3
 with the ``toy`` preset). Rank 0 prints the cards' names and power limits
@@ -117,7 +129,13 @@ from dmlcloud_tpu_torch.parallel import runtime  # noqa: E402
 #: reductions in another order (and bf16 partial sums under tensor parallelism)
 LOSS_ATOL = 1e-2
 MESHES = ["fsdp=4", "data=2,fsdp=2", "fsdp=2,model=2"]
-PARTS = ["8b", "meshes", "resume", "ring", "pipe", "elastic", "clip", "resnet", "moe", "tp_decode", "int8_mesh"]
+PARTS = ["8b", "meshes", "resume", "ring", "pipe", "elastic", "clip", "resnet", "moe", "tp_decode", "int8_mesh",
+         "compiled"]
+#: part 12: the compiled step on a mesh against the same run eager
+#: (chip_smoke.py's COMPILED_LOSS_ATOL, PERF.md section 2's compiled bound)
+COMPILED_MESHES = ["fsdp=4", "fsdp=2,model=2"]
+COMPILED_MOE_MESH = "data=2,expert=2"
+COMPILED_LOSS_ATOL = 2e-2
 #: the ring's runs: the 1b model at T = 8192 on seq=4, without and with a window
 RING_WINDOW = 4096
 #: pipeline_apply against the sequential blocks: bf16 activations, the
@@ -189,11 +207,12 @@ class _Stopping:
 
 
 def run_lm(argv: list[str], stop_after: int = 0, resume: bool = False, epoch_saves: bool = True, int8: bool = False,
-           on_stage=None):
+           on_stage=None, **compile_kwargs):
     """One ``train_lm`` run; with ``stop_after`` its feed raises once that many
     batches were taken (after the step save there), which ends the run; with
-    ``int8`` at ``precision="int8"``; ``on_stage(stage)`` before it runs."""
-    pipe, stage = train_lm.build(argv, resume=resume)
+    ``int8`` at ``precision="int8"``; ``on_stage(stage)`` before it runs;
+    ``compile_kwargs`` go to ``TrainingPipeline`` (``precompile=True``)."""
+    pipe, stage = train_lm.build(argv, resume=resume, **compile_kwargs)
     if int8:
         stage.precision = lambda: "int8"
     if on_stage is not None:
@@ -346,6 +365,16 @@ def _nccl_ms(prof) -> dict:
 
 
 def part_8b(args, failed: list) -> dict:
+    res = run_8b(args)
+    if not (len(res["losses"]) == res["steps"] and all(math.isfinite(x) for x in res["losses"])
+            and res["losses"][-1] < res["losses"][0]):
+        failed.append(f"8b losses not finite and falling: {res['losses']}")
+    return res
+
+
+def run_8b(args, **compile_kwargs) -> dict:
+    """Part 3's run (``compile_kwargs`` to ``TrainingPipeline``): its losses,
+    steady step, MFU, peak memory and one profiled step."""
     if args.preset == "1b":
         argv = ["--mesh", "fsdp=-1", "--global-batch", "8", "--seq-len", "4096", "--remat", "--chunked-loss", "8192",
                 "--steps-per-epoch", "6", "--device", args.device]
@@ -354,10 +383,10 @@ def part_8b(args, failed: list) -> dict:
         argv = ["--toy", "--mesh", "fsdp=-1", "--global-batch", "8", "--steps-per-epoch", "4", "--remat",
                 "--chunked-loss", "200", "--lr", "1e-2", "--device", args.device]
         tokens = 8 * 64
-    if args.device != "cpu":
-        torch.cuda.reset_peak_memory_stats()
+    base = _allocated_gib(args)
     t0 = time.perf_counter()
-    pipe, stage = pod_llama_fsdp.build(argv)
+    _clear_dynamo_counters()
+    pipe, stage = pod_llama_fsdp.build(argv, **compile_kwargs)
     step_times = []
     inner = stage._train_step
 
@@ -380,28 +409,56 @@ def part_8b(args, failed: list) -> dict:
     prof_ms = None
     if args.device != "cpu":
         batch = torch.from_numpy(pipe.datasets["train"][0]).cuda()
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            inner(batch)
-            torch.cuda.synchronize()
-        prof_ms = _nccl_ms(prof)
+        prof_ms = _profiled_step(inner, batch)
     res = {"losses": losses, "step_times_ms": runtime.all_gather_object(step_times), "steady_ms": steady,
            "tokens_per_s": tokens / steady * 1e3, "tokens_per_s_per_card": tokens / steady * 1e3 / world,
            "step_flops": flops, "mfu_steady": flops / (steady / 1e3) / (PEAK_BF16_FLOPS * world),
            "mfu_epoch": float(stage.tracker["misc/mfu"][-1]) if "misc/mfu" in stage.tracker else None,
            "peak_gib": runtime.all_gather_object(peak), "profiled_step": runtime.all_gather_object(prof_ms),
-           "n_params": sum(p.numel() for p in stage.state.model.parameters()), "wall_s": wall}
-    log(f"[8b] {' '.join(argv)}: losses {losses}; steady step {steady:.1f} ms = {res['tokens_per_s']:.0f} tokens/s "
-        f"({res['tokens_per_s_per_card']:.0f} per card); MFU at the steady step {res['mfu_steady']:.4f} "
-        f"(misc/mfu over the epoch {res['mfu_epoch']}); peak GiB per card {res['peak_gib']}; profiled step (device ms) {prof_ms}; "
-        f"{wall:.1f} s")
-    if not (len(losses) == stage.config.steps_per_epoch and all(math.isfinite(x) for x in losses)
-            and losses[-1] < losses[0]):
-        failed.append(f"8b losses not finite and falling: {losses}")
+           "n_params": sum(p.numel() for p in stage.state.model.parameters()), "wall_s": wall,
+           "steps": stage.config.steps_per_epoch, "allocated_at_start_gib": runtime.all_gather_object(base),
+           **_compile_record(stage)}
+    log(f"[8b] {' '.join(argv)} {compile_kwargs or 'eager'}: losses {losses}; steady step {steady:.1f} ms = "
+        f"{res['tokens_per_s']:.0f} tokens/s ({res['tokens_per_s_per_card']:.0f} per card); MFU at the steady step "
+        f"{res['mfu_steady']:.4f} (misc/mfu over the epoch {res['mfu_epoch']}); peak GiB per card {res['peak_gib']} "
+        f"(allocated at the start {res['allocated_at_start_gib']}); "
+        f"profiled step (device ms) {prof_ms}; {wall:.1f} s")
     del pipe, stage
     _free(args)
     return res
+
+
+def _clear_dynamo_counters() -> None:
+    import torch._dynamo.utils as dynamo_utils
+
+    dynamo_utils.counters.clear()
+
+
+def _compile_record(stage) -> dict:
+    """Every rank's graph breaks (since ``_clear_dynamo_counters``),
+    ``misc/recompiles`` and ``misc/compile_ms`` (None when eager)."""
+    import torch._dynamo.utils as dynamo_utils
+
+    compiled = stage._train_compiled is not None
+    mine = {"graph_breaks": sum(dynamo_utils.counters["graph_break"].values()),
+            "recompiles": [int(x) for x in stage.tracker["misc/recompiles"]] if compiled else None,
+            "compile_ms": float(stage.tracker["misc/compile_ms"][0]) if compiled else None}
+    return {"compile": runtime.all_gather_object(mine)}
+
+
+def _profiled_step(step, batch) -> dict:
+    """One call of ``step(batch)`` under torch.profiler: the device ms of
+    FSDP2's collectives and of all device work (``busy``; kernels on the
+    collectives' stream overlap the compute, so busy may exceed the wall),
+    the wall ms, and the idle share ``1 - busy / wall`` (floored at 0)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, seconds = timed("cuda", lambda: step(batch))
+    wall = seconds * 1e3
+    out = _nccl_ms(prof)
+    out.update(wall=wall, idle=max(0.0, 1 - out["busy"] / wall))
+    return out
 
 
 def _timed_steps(args, stage) -> list[float]:
@@ -834,11 +891,11 @@ def moe_config(args, layers: int):
                              **dict(train_lm.PRESETS["tiny"], num_layers=layers))
 
 
-def run_moe(args, mesh: str | None, layers: int) -> dict:
+def run_moe(args, mesh: str | None, layers: int, **compile_kwargs) -> dict:
     """1b-moe at ``layers`` through a ``TrainingPipeline`` on ``mesh`` (None:
     one card): ``MOE_STEPS`` AdamW steps of a global batch of 4 rows, each
     process feeding its data-parallel rows, the step ``lm_loss +
-    total_aux_loss``."""
+    total_aux_loss``; ``compile_kwargs`` to the pipeline."""
     import dmlcloud_tpu_torch as dml
     from dmlcloud_tpu_torch.models.moe import total_aux_loss
     from dmlcloud_tpu_torch.models.transformer import DecoderLM, llama_partition_rules, lm_loss
@@ -865,23 +922,28 @@ def run_moe(args, mesh: str | None, layers: int) -> dict:
         def val_epoch(self):
             pass
 
-    if args.device != "cpu":
-        torch.cuda.reset_peak_memory_stats()
-    pipe = dml.TrainingPipeline({"seed": 0}, name="moe", device=args.device)
+    base = _allocated_gib(args)
+    pipe = dml.TrainingPipeline({"seed": 0}, name="moe", device=args.device, **compile_kwargs)
     if mesh:
         pipe.set_mesh(parse_mesh_axes(mesh))
     stage = MoEStage()
     times = _timed_steps(args, stage)
     pipe.append_stage(stage, max_epochs=1)
+    _clear_dynamo_counters()
     pipe.run()
     losses = global_losses(stage)
     steady = statistics.median(times[1:])
     peak = torch.cuda.max_memory_allocated() / 2**30 if args.device != "cpu" else None
     local = sum(getattr(p, "_local_tensor", p).numel() for p in stage.state.model.parameters())
+    prof = None
+    if compile_kwargs and args.device != "cpu":
+        prof = _profiled_step(stage._train_step, next(iter(stage._feed(stage.train_dataset()))))
     out = {"layers": layers, "losses": losses, "step_ms": steady, "step_ms_all": times,
            "tokens_per_s": 4 * cfg.max_seq_len / steady * 1e3, "peak_gib": runtime.all_gather_object(peak),
-           "local_params_b": local / 1e9}
-    log(f"[moe] {mesh or 'one card'}, 1b-moe at {layers} layers: losses {losses}; steady step {steady:.1f} ms "
+           "local_params_b": local / 1e9, "profiled_step": runtime.all_gather_object(prof),
+           "allocated_at_start_gib": runtime.all_gather_object(base), **_compile_record(stage)}
+    log(f"[moe] {mesh or 'one card'}, 1b-moe at {layers} layers {compile_kwargs or ''}: losses {losses}; steady "
+        f"step {steady:.1f} ms (allocated at the start {out['allocated_at_start_gib']} GiB) "
         f"(steps {[round(t, 1) for t in times]}) = {out['tokens_per_s']:.0f} tokens/s; peak GiB per card "
         f"{out['peak_gib']}; {out['local_params_b']:.3f} B parameters on rank 0")
     del pipe, stage
@@ -905,6 +967,94 @@ def part_moe(args, one: dict, failed: list) -> dict:
     if not gap <= LOSS_ATOL:
         failed.append(f"moe: {MOE_MESHES[1]} off {MOE_MESHES[0]} by {gap} (> {LOSS_ATOL})")
     return out
+
+
+def _compiled_gates(what: str, eager: dict, compiled: dict, failed: list) -> float:
+    """Part 12's gates on one configuration; returns the largest loss gap."""
+    gaps = [abs(a - b) for a, b in zip(compiled["losses"], eager["losses"])]
+    gap = max(gaps) if gaps else float("inf")
+    if len(compiled["losses"]) != len(eager["losses"]) or not gap <= COMPILED_LOSS_ATOL:
+        failed.append(f"compiled {what}: losses off eager by {gap} (> {COMPILED_LOSS_ATOL})")
+    for rank, rec in enumerate(compiled["compile"]):
+        if rec["graph_breaks"] or rec["recompiles"] != [0]:
+            failed.append(f"compiled {what}, rank {rank}: {rec['graph_breaks']} graph breaks, misc/recompiles "
+                          f"{rec['recompiles']}")
+    return gap
+
+
+def _lm_mesh_run(args, mesh: str, **compile_kwargs) -> dict:
+    """Part 1's 1b run on ``mesh``: losses, steady step, one profiled step,
+    peak memory per card and the compile record."""
+    base = _allocated_gib(args)
+    times = []
+    _clear_dynamo_counters()
+    t0 = time.perf_counter()
+    pipe, stage = run_lm(lm_argv(args) + ["--mesh", mesh], on_stage=lambda st: times.extend([_timed_steps(args, st)]),
+                         **compile_kwargs)
+    wall = time.perf_counter() - t0
+    steps = times[0]
+    prof = None
+    if args.device != "cpu":
+        prof = _profiled_step(stage._train_step, next(iter(stage._feed(stage.train_dataset()))))
+    peak = torch.cuda.max_memory_allocated() / 2**30 if args.device != "cpu" else None
+    res = {"losses": global_losses(stage), "val": float(stage.tracker["val/loss"][-1]),
+           "steady_ms": statistics.median(steps[1:]), "step_ms_all": steps, "wall_s": wall,
+           "peak_gib": runtime.all_gather_object(peak), "allocated_at_start_gib": runtime.all_gather_object(base),
+           "profiled_step": runtime.all_gather_object(prof), **_compile_record(stage)}
+    del pipe, stage
+    _free(args)
+    return res
+
+
+def _allocated_gib(args) -> float | None:
+    """GiB allocated on this card now (a run's starting point), after which
+    the peak statistic is reset; None on the CPU."""
+    if args.device == "cpu":
+        return None
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2**30
+
+
+def part_compiled(args, out: dict, failed: list) -> dict:
+    """Part 12 (module docstring); ``out`` holds part 3's run when it ran."""
+    res = {}
+    cache = runtime.broadcast_object(tempfile.mkdtemp(prefix="mesh_cards_inductor_") if runtime.is_root() else None)
+    try:
+        for mesh in COMPILED_MESHES:
+            eager = _lm_mesh_run(args, mesh)
+            compiled = _lm_mesh_run(args, mesh, precompile=True, compile_cache=os.path.join(cache, mesh))
+            gap = _compiled_gates(f"1b {mesh}", eager, compiled, failed)
+            res[mesh] = {"eager": eager, "compiled": compiled, "max_abs_loss_diff": gap}
+            log(f"[compiled] 1b {mesh}: losses eager {eager['losses']} compiled {compiled['losses']} (max |diff| "
+                f"{gap:.3g}); steady step {eager['steady_ms']:.1f} -> {compiled['steady_ms']:.1f} ms; profiled "
+                f"step {eager['profiled_step'][0]} -> {compiled['profiled_step'][0]}; peak GiB per card "
+                f"{eager['peak_gib']} -> {compiled['peak_gib']} (allocated at the start "
+                f"{eager['allocated_at_start_gib']} -> {compiled['allocated_at_start_gib']}); compile "
+                f"{compiled['compile']}")
+        # the 8b last: each run's memory is released only once the next one
+        # has started (the eager 8b of part 3 is still allocated during the
+        # first 1b run; each run logs what was allocated at its start)
+        layers = _moe_layers(args)[0]
+        eager = run_moe(args, COMPILED_MOE_MESH, layers)
+        compiled = run_moe(args, COMPILED_MOE_MESH, layers, precompile=True, compile_cache=os.path.join(cache, "moe"))
+        gap = _compiled_gates(f"1b-moe {COMPILED_MOE_MESH}", eager, compiled, failed)
+        res["moe"] = {"eager": eager, "compiled": compiled, "max_abs_loss_diff": gap}
+        log(f"[compiled] 1b-moe {COMPILED_MOE_MESH} at {layers} layers: losses eager {eager['losses']} compiled "
+            f"{compiled['losses']} (max |diff| {gap:.3g}); steady step {eager['step_ms']:.1f} -> "
+            f"{compiled['step_ms']:.1f} ms; compile {compiled['compile']}")
+        eager = out.get("8b") or run_8b(args)
+        compiled = run_8b(args, precompile=True, compile_cache=os.path.join(cache, "8b"))
+        gap = _compiled_gates("8b fsdp=4", eager, compiled, failed)
+        res["8b"] = {"eager": eager, "compiled": compiled, "max_abs_loss_diff": gap}
+        log(f"[compiled] 8b fsdp=4: losses eager {eager['losses']} compiled {compiled['losses']} (max |diff| "
+            f"{gap:.3g}); steady step {eager['steady_ms']:.1f} -> {compiled['steady_ms']:.1f} ms; MFU "
+            f"{eager['mfu_steady']:.4f} -> {compiled['mfu_steady']:.4f}; peak GiB per card {eager['peak_gib']} -> "
+            f"{compiled['peak_gib']}; compile {compiled['compile']}")
+    finally:
+        runtime.barrier("compiled done", timeout=600)
+        if runtime.is_root():
+            shutil.rmtree(cache, ignore_errors=True)
+    return res
 
 
 def _lm_1b(args):
@@ -1191,6 +1341,8 @@ def main(argv: list[str] | None = None) -> int:
             out["tp_decode"] = part_tp_decode(args, one, failed)
         if "int8_mesh" in parts:
             out["int8_mesh"] = part_int8_mesh(args, one, failed)
+        if "compiled" in parts:
+            out["compiled"] = part_compiled(args, out, failed)
     finally:
         if runtime.is_root():
             _remove_params_file(one)

@@ -248,6 +248,36 @@ def test_specs_signatures_and_the_divisibility_error(mesh8):
     aot.validate_global_batch_spec({"x": aot.TensorSpec((16, 2), torch.float32)}, {"data": 8})
 
 
+def test_a_dtensor_spec_warms_zeros_of_its_layout():
+    """A DTensor input's spec keeps its mesh, and its zeros are a DTensor of
+    the same placements, so the precompiled signature is the one a call with
+    the DTensor matches; a process's batch rows stay a plain spec."""
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+
+    from dmlcloud_tpu_torch.parallel import mesh as tmesh
+    from dmlcloud_tpu_torch.parallel import runtime
+
+    runtime.init_single()
+    try:
+        mesh = tmesh.create_mesh({"fsdp": 1}, device="cpu")
+        x = distribute_tensor(torch.randn(4, 3), mesh, [Shard(0)])
+        batch = {"x": x, "rows": np.zeros((2, 5), np.int64)}
+        spec = aot.abstract_spec(batch)
+        assert spec["x"].placements == (Shard(0),) and spec["x"].mesh is mesh and spec["rows"].placements is None
+        zeros = aot._zeros(spec, "cpu")
+        assert isinstance(zeros["x"], DTensor) and zeros["x"].placements == (Shard(0),)
+        assert not zeros["x"].to_local().any() and zeros["rows"].dtype == torch.int64
+        assert aot.signature_of((zeros,)) == aot.signature_of((spec,)) == aot.signature_of((batch,))
+        step = aot.PrecompiledStep(lambda b: b["x"].to_local().sum() + b["rows"].sum(), name="dt", compile=False)
+        step.precompile(spec, device="cpu")
+        step({"x": x, "rows": torch.zeros(2, 5, dtype=torch.int64)})
+        assert step.signatures == 1 and step.recompiles == 0
+        with pytest.raises(ValueError, match="needs its DeviceMesh"):
+            aot._zeros(aot.TensorSpec((4,), torch.float32, (Shard(0),)), "cpu")
+    finally:
+        runtime.deinitialize()
+
+
 def test_cache_resolution_order_and_stats_keys(tmp_path, monkeypatch):
     for var in (cache_lib.ENV_VAR, cache_lib.INDUCTOR_ENV_VAR):
         monkeypatch.delenv(var, raising=False)

@@ -9,7 +9,8 @@
 - The compiled tiny LM step against the JAX package's train step, on the same
   weights, within tests/test_torch_train.py's bounds.
 - The compiled replicate step over two gloo processes against eager, and a
-  mesh plan under ``precompile`` raising with its ROADMAP item.
+  ``seq`` or ``pipe`` plan under ``precompile`` raising with its ROADMAP item
+  (14b).
 
 Compiled regions use ``backend="aot_eager"`` (``compile.aot.BACKEND``,
 monkeypatched), which traces and partitions like Inductor without generating
@@ -293,16 +294,45 @@ def test_compiled_lm_step_matches_the_jax_train_step(single_runtime):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max(), err_msg=name)
 
 
-def test_a_mesh_plan_under_precompile_names_its_queue_item():
+@pytest.mark.parametrize("mesh", ["seq=1", "pipe=1"])
+def test_a_mesh_plan_under_precompile_names_its_queue_item(mesh):
+    """The ring's and the pipeline's point-to-point hops have no functional
+    form for Dynamo: a compiled step on ``seq`` or ``pipe`` still raises
+    (``fsdp``, ``model`` and ``expert`` compile: tests/test_torch_fsdp.py,
+    tests/test_torch_moe_dist.py)."""
     from dmlcloud_tpu_torch.examples import train_lm
 
-    pipeline, _ = train_lm.build(["--device", "cpu", "--mesh", "fsdp=1", "--epochs", "1", "--n-seqs", "16",
+    pipeline, _ = train_lm.build(["--device", "cpu", "--mesh", mesh, "--epochs", "1", "--n-seqs", "16",
                                   "--seq-len", "16", "--batch-size", "4"], precompile=True)
     try:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14b"):
             pipeline.run()
     finally:
         runtime.deinitialize()
+
+
+def test_the_precompile_warm_ups_agree_over_the_processes(monkeypatch):
+    """Each warm-up runs the step's collectives: the processes must warm as
+    many train signatures (else a ``ValueError``, not a hang), and val
+    warm-ups run only where every process has as many."""
+    import logging
+    import types
+
+    from dmlcloud_tpu_torch import stage as stage_mod
+
+    other = {}
+    monkeypatch.setattr(stage_mod.runtime, "world_size", lambda: 2)
+    monkeypatch.setattr(stage_mod.runtime, "all_gather_object", lambda mine, **kw: [mine, other["counts"]])
+    me = types.SimpleNamespace(name="LM", logger=logging.getLogger("test"))
+    agreed = tdml.TrainValStage._agreed_warmups
+    other["counts"] = (2, 1)
+    assert agreed(me, ["a", "b"], ["v"]) == (["a", "b"], ["v"])
+    other["counts"] = (2, None)
+    assert agreed(me, ["a", "b"], ["v"]) == (["a", "b"], [])
+    assert agreed(me, ["a", "b"], None) == (["a", "b"], [])
+    other["counts"] = (1, 1)
+    with pytest.raises(ValueError, match=r"\[2, 1\] train signature"):
+        agreed(me, ["a", "b"], ["v"])
 
 
 _DP_WORKER = textwrap.dedent(

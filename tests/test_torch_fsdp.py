@@ -18,9 +18,20 @@ below one after another, rank 0 writing what it saw to a pickle:
 - ``gradient_accumulation() = 2`` equal to one microbatch;
 - a save after epoch 1 resumed on the same mesh ends bitwise equal to the
   uninterrupted two-epoch run;
-- tensor-parallel peers fed different batches raise;
+- tensor-parallel peers fed different batches raise, eager and after a
+  precompile warm-up;
 - the pure-``data`` mesh (``set_mesh({"data": 2})``) bitwise equal to the
-  path with no mesh set.
+  path with no mesh set;
+- the compiled step (``TrainingPipeline(precompile=True)``, Dynamo's
+  ``aot_eager`` backend) on every mesh above, in the same processes right
+  after the eager runs (``data=2,fsdp=2`` with ``buckets()`` too): 0 graph
+  breaks and ``misc/recompiles`` 0 on every rank, the state after the
+  precompile warm-up bitwise the state before it, losses, parameters, EMA and
+  validation loss within ``COMPILED_REL`` of the eager run on the same mesh
+  and within ``JAX_REL`` of the JAX step on a JAX mesh of the same axes, and
+  the clip's global gradient norm (the one ``grad_sq_norm`` takes over the
+  shards) equal to the eager one and above ``CLIP`` at some step, so the clip
+  binds.
 """
 
 import os
@@ -62,6 +73,9 @@ REL = 1e-5
 #: against the JAX step: the port's LM step is held to this in
 #: tests/test_torch_train.py (XLA's and torch's CPU matmuls round differently)
 JAX_REL = 1e-4
+#: compiled against eager on the same mesh, fp32: the compiled blocks and
+#: update fuse and reorder nothing that changes the sums beyond rounding
+COMPILED_REL = 1e-5
 
 
 def global_batches() -> list[np.ndarray]:
@@ -88,6 +102,14 @@ class LM(tdml.TrainValStage):
         super().__init__()
         self.tree, self.attn, self.accum, self.chunk, self.feed = tree, attn, accum, chunk, feed
         self.losses = []
+        self.warmup_kept_state = None
+
+    def _run_precompile_phase(self):
+        before = _snapshot(self.state)
+        super()._run_precompile_phase()
+        after = _snapshot(self.state)
+        self.warmup_kept_state = before.keys() == after.keys() and all(
+            np.array_equal(before[k], after[k]) for k in before)
 
     def pre_stage(self):
         model = ttr.DecoderLM(ttr.TransformerConfig(dtype=torch.float32, attn_impl=self.attn, **TINY), device="cpu")
@@ -133,18 +155,54 @@ def _full(t: torch.Tensor) -> np.ndarray:
     return (t.full_tensor() if isinstance(t, DTensor) else t).numpy().copy()
 
 
-def run(tree, axes=None, epochs=1, root=None, resume=False, **kw) -> dict:
-    """One pipeline run; what every rank saw (gathered to full tensors)."""
+def _snapshot(state) -> dict:
+    """Every number of a train state, gathered to full arrays (a collective
+    on a mesh: every rank calls it)."""
+    names = {p: n for n, p in state.model.named_parameters()}
+    out = {f"p/{n}": _full(p) for n, p in state.model.named_parameters()}
+    out.update({f"g/{n}": _full(p.grad) for n, p in state.model.named_parameters() if p.grad is not None})
+    out.update({f"ema/{n}": _full(e) for n, e in (state.ema or {}).items()})
+    for p, slots in state.optimizer.state.items():
+        out.update({f"{k}/{names[p]}": _full(v) for k, v in slots.items() if isinstance(v, torch.Tensor)})
+    out["step"] = np.asarray([state.step, state.optimizer.count])
+    return out
+
+
+def _recording_norms():
+    """Wrap the stage's ``grad_sq_norm`` (the clip's global norm, eager and
+    compiled) to record each step's norm; returns the list it appends to."""
+    from dmlcloud_tpu_torch import stage as stage_mod
+
+    norms, inner = [], stage_mod.grad_sq_norm
+
+    def recorded(*args, **kwargs):
+        sq = inner(*args, **kwargs)
+        norms.append(float(sq.sqrt()))
+        return sq
+
+    stage_mod.grad_sq_norm = recorded
+    return norms, lambda: setattr(stage_mod, "grad_sq_norm", inner)
+
+
+def run(tree, axes=None, epochs=1, root=None, resume=False, compiled=False, buckets=None, **kw) -> dict:
+    """One pipeline run; what every rank saw (gathered to full tensors).
+    ``compiled``: ``precompile=True`` (with ``buckets``)."""
+    import torch._dynamo.utils as dynamo_utils
     from torch.distributed.tensor import DTensor
 
-    pipe = tdml.TrainingPipeline({"seed": 0}, name="mesh", device="cpu")
+    pipe = tdml.TrainingPipeline({"seed": 0}, name="mesh", device="cpu", precompile=compiled, buckets=buckets)
     if axes:
         pipe.set_mesh(axes)
     if root:
         pipe.enable_checkpointing(root, resume=resume)
     stage = LM(tree, **kw)
     pipe.append_stage(stage, max_epochs=epochs)
-    pipe.run()
+    dynamo_utils.counters.clear()
+    norms, unwrap = _recording_norms()
+    try:
+        pipe.run()
+    finally:
+        unwrap()
     state, plan = stage.state, pipe.models["lm"].plan
     # the global loss of a step: the mean over the data-parallel processes
     # (tensor-parallel peers hold the same value)
@@ -165,6 +223,15 @@ def run(tree, axes=None, epochs=1, root=None, resume=False, **kw) -> dict:
         "local_heads": int(getattr(state.model.layers[0].attn.q_proj.weight, "_local_tensor",
                                    state.model.layers[0].attn.q_proj.weight).shape[0]) // TINY["head_dim"],
         "run_dir": str(pipe.checkpoint_dir.path) if pipe.checkpoint_dir else None,
+        "norms": norms,
+        # every rank's: graph breaks, recompiles, precompiled signatures, the warm-up's bitwise check
+        "compile": runtime.all_gather_object({
+            "graph_breaks": sum(dynamo_utils.counters["graph_break"].values()),
+            "recompiles": [float(x) for x in stage.tracker["misc/recompiles"]] if compiled else None,
+            "signatures": stage._train_compiled.signatures if compiled else 0,
+            "warmup_kept_state": stage.warmup_kept_state,
+            "unique_graphs": dynamo_utils.counters["stats"]["unique_graphs"],
+        }),
     }
 
 
@@ -173,29 +240,36 @@ _WORKER = textwrap.dedent(
     import os, pickle, sys
     import torch
     sys.path.insert(0, os.environ["TEST_DIR"])
+    from dmlcloud_tpu_torch.compile import aot
     from dmlcloud_tpu_torch.parallel import runtime
-    from test_torch_fsdp import run
+    from test_torch_fsdp import BATCH, run
 
     torch.set_num_threads(1)
     assert runtime.init_auto(device="cpu") == "gloo"
     rank, world = runtime.rank(), runtime.world_size()
     tree = pickle.loads(open(os.environ["INIT"], "rb").read())
     root = os.environ["CKPT_ROOT"]
+    aot.BACKEND = "aot_eager"
     out = {}
     if world == 2:
         out["fsdp=2"] = run(tree, {"fsdp": 2})
         out["model=2"] = run(tree, {"model": 2})
+        out["fsdp=2 compiled"] = run(tree, {"fsdp": 2}, compiled=True)
+        out["model=2 compiled"] = run(tree, {"model": 2}, compiled=True)
         out["no mesh"] = run(tree)
         out["data=2"] = run(tree, {"data": 2})
-        try:
-            run(tree, {"model": 2}, feed="skewed")
-            out["skewed"] = None
-        except ValueError as exc:
-            out["skewed"] = str(exc)
+        for compiled in (False, True):
+            try:
+                run(tree, {"model": 2}, feed="skewed", compiled=compiled)
+                out["skewed" + (" compiled" if compiled else "")] = None
+            except ValueError as exc:
+                out["skewed" + (" compiled" if compiled else "")] = str(exc)
     else:
         out["data=2,fsdp=2"] = run(tree, {"data": 2, "fsdp": 2})
         out["data=2,fsdp=2 accum 2"] = run(tree, {"data": 2, "fsdp": 2}, accum=2)
         out["fsdp=2,model=2"] = run(tree, {"fsdp": 2, "model": 2})
+        out["data=2,fsdp=2 compiled"] = run(tree, {"data": 2, "fsdp": 2}, compiled=True, buckets=(BATCH // 4,))
+        out["fsdp=2,model=2 compiled"] = run(tree, {"fsdp": 2, "model": 2}, compiled=True)
         out["fsdp=2,model=2 flash"] = run(tree, {"fsdp": 2, "model": 2}, attn="flash")
         out["fsdp=2,model=2 chunked"] = run(tree, {"fsdp": 2, "model": 2}, chunk=200)
         out["two epochs"] = run(tree, {"data": 2, "fsdp": 2}, epochs=2, root=root + "/a")
@@ -304,7 +378,40 @@ def test_the_flash_path_and_the_chunked_loss_on_a_tensor_parallel_mesh(results):
     _assert_trees_close(chunked["params"], dense["params"], REL, "chunked")
 
 
+@pytest.mark.parametrize("case", sorted(MESH_CASES))
+def test_a_compiled_step_on_a_mesh_matches_eager_on_the_same_mesh(results, case):
+    got, eager, one = results[case + " compiled"], results[case], results["one"]
+    for rank in got["compile"]:
+        assert rank["graph_breaks"] == 0 and rank["recompiles"] == [0.0], rank
+        assert rank["signatures"] == 1 and rank["unique_graphs"] > 0, rank
+        assert rank["warmup_kept_state"] is True, "the precompile warm-up changed the train state"
+    assert (got["fsdp"], got["tp"], got["local_heads"]) == MESH_CASES[case]
+    assert got["step"] == got["count"] == STEPS
+    np.testing.assert_allclose(got["losses"], eager["losses"], rtol=COMPILED_REL)
+    np.testing.assert_allclose(got["val"], eager["val"], rtol=COMPILED_REL)
+    _assert_trees_close(got["params"], eager["params"], COMPILED_REL, case + " compiled")
+    _assert_trees_close(got["ema"], eager["ema"], COMPILED_REL, case + " compiled ema")
+    # the clip's norm is the global one over the shards (the warm-up's comes
+    # first), and it binds: a per-rank norm would scale each shard otherwise
+    norms = got["norms"][-STEPS:]
+    np.testing.assert_allclose(norms, eager["norms"], rtol=COMPILED_REL)
+    np.testing.assert_allclose(norms, one["norms"], rtol=REL)
+    assert max(norms) > CLIP, f"the clip never binds (norms {norms}): the global norm would go untested"
+
+
+_JAX_RUNS: dict = {}
+
+
 def _run_jax(tree, axes: dict) -> tuple[list[float], dict]:
+    """The JAX step on a JAX mesh of ``axes`` (one run per mesh, shared by
+    the eager and the compiled case)."""
+    key = tuple(axes.items())
+    if key not in _JAX_RUNS:
+        _JAX_RUNS[key] = _run_jax_once(tree, axes)
+    return _JAX_RUNS[key]
+
+
+def _run_jax_once(tree, axes: dict) -> tuple[list[float], dict]:
     model = jtr.DecoderLM(jtr.TransformerConfig(dtype=jnp.float32, **TINY))
 
     class Stage(jdml.TrainValStage):
@@ -341,11 +448,11 @@ def _run_jax(tree, axes: dict) -> tuple[list[float], dict]:
     return stage.step_losses, jax.tree_util.tree_map(np.asarray, stage.state.params)
 
 
-@pytest.mark.parametrize("case", ["data=2,fsdp=2", "fsdp=2,model=2"])
+@pytest.mark.parametrize("case", ["data=2,fsdp=2", "fsdp=2,model=2"] + [m + " compiled" for m in sorted(MESH_CASES)])
 def test_a_mesh_matches_the_jax_step_on_the_same_mesh(results, case):
     from dmlcloud_tpu.parallel import runtime as jruntime
 
-    axes = {a.split("=")[0]: int(a.split("=")[1]) for a in case.split(",")}
+    axes = {a.split("=")[0]: int(a.split("=")[1]) for a in case.split()[0].split(",")}
     jruntime.init_single()
     try:
         losses, params = _run_jax(results["tree"], axes)
@@ -375,6 +482,12 @@ def test_a_resume_on_the_same_mesh_is_bitwise(results):
 
 def test_tensor_parallel_peers_must_feed_the_same_batch(results):
     assert results["skewed"] is not None and "tensor-parallel peers" in results["skewed"]
+
+
+def test_tensor_parallel_peers_must_feed_the_same_batch_after_a_precompile(results):
+    """The warm-up's zeros are equal on every peer: the check still reads
+    the first real batch."""
+    assert results["skewed compiled"] is not None and "tensor-parallel peers" in results["skewed compiled"]
 
 
 def test_the_pure_data_mesh_is_bitwise_the_default_path(results):

@@ -19,7 +19,7 @@ Medusa modes, each under the chaos monkey and drained to a verdict, routes
 requests through the ``Router`` across a kill and a drain under replica chaos,
 round-trips a HF-named state dict and finetunes it with LoRA (no
 ``transformers``), runs the CLI's ``diag``/``timeline``/``lint`` and the
-linter, and checks
+linter, runs a precompiled step on a one-rank ``fsdp`` mesh, and checks
 that none of those modules was loaded — and that, on a machine
 without CUDA, entry points called without a device raise instead of running
 on the CPU.
@@ -161,6 +161,13 @@ _SCRIPT = textwrap.dedent(
                cache_stats()["enabled"], to_prometheus_text(registry.snapshot()),
                float(profile_steps(lambda: torch.ones(2).sum(), 2, tempfile.mkdtemp()))]
     runtime.deinitialize()
+    # the slice-19 path: the compiled step on a one-rank fsdp mesh (FSDP2's hooks between compiled blocks)
+    fpipe, fstage = build(["--device", "cpu", "--epochs", "1", "--n-seqs", "24", "--seq-len", "32", "--mesh",
+                           "fsdp=1"], precompile=True)
+    fpipe.run()
+    slice19 = [fstage._plan.fsdp, fstage._train_compiled.signatures, [int(x) for x in fpipe.tracker["misc/recompiles"]],
+               float(fpipe.tracker["train/loss"][-1]) > 0]
+    runtime.deinitialize()
 
     # the slice-13 paths: int8 decode and training, LoRA, speculative decoding
     from dmlcloud_tpu_torch.models import lora, quant, speculative
@@ -279,7 +286,8 @@ _SCRIPT = textwrap.dedent(
                       "mnist_acc": mnist_acc, "collectives": collectives, "pod": [pod_loss, pod_fsdp],
                       "slice8": slice8, "slice9": slice9, "slice10": slice10,
                       "slice11": slice11, "slice12": slice12, "slice13": slice13, "slice14": slice14,
-                      "slice15": slice15, "slice16": slice16, "slice18": slice18}))
+                      "slice15": slice15, "slice16": slice16, "slice18": slice18,
+                      "slice19": slice19}))
     """
 )
 
@@ -333,6 +341,8 @@ def test_port_imports_no_jax_and_needs_an_explicit_cpu_request():
     assert result["slice16"] == [True, 1, 0, True, True, [2, 3], {"fsdp": 1}, False], result["slice16"]
     # diag over the recorder's run, its timeline, a lint of the DML108 fixture (exit 1), the torch corpus's 28 findings
     assert result["slice18"] == [0, True, 0, True, 1, {"DML108": 5}, 28], result["slice18"]
+    # FSDP2 on one rank, one precompiled signature, no mid-run compile, a finite loss
+    assert result["slice19"] == [True, 1, [0], True], result["slice19"]
     for name, did_raise in result["raised"].items():
         assert did_raise, f"{name} without a device ran on the CPU instead of raising"
 

@@ -19,6 +19,17 @@ capacity is also shown to differ.
 
 An ``expert=2`` AdamW step's state, saved with its sharding sidecar, restores
 onto one process bitwise.
+
+Compiled, in the same processes: on every mesh the same forward and backward
+with each block's forward a ``compile.aot.compile_region`` (``compile_blocks``,
+the boundary the stage takes on a mesh; Dynamo's ``aot_eager`` backend), so
+the data-parallel routing's all-gather and the sums over the ``expert`` group
+trace as functional collectives, against the eager run within
+``COMPILED_REL`` and the JAX apply within ``REL``; and on ``expert=2`` and
+``data=2,expert=2`` a ``TrainingPipeline(precompile=True)`` of ``STAGE_STEPS``
+clipped AdamW steps against the same pipeline eager: 0 graph breaks,
+``misc/recompiles`` 0 and the warm-up's state unchanged on every rank, losses
+and parameters within ``COMPILED_REL``.
 """
 
 import functools
@@ -35,10 +46,12 @@ import numpy as np
 import pytest
 import torch
 
+import dmlcloud_tpu_torch as tdml
 from dmlcloud_tpu.models import moe as jmoe
 from dmlcloud_tpu.models import transformer as jtr
 from dmlcloud_tpu.parallel import mesh as jmesh
 from dmlcloud_tpu_torch.checkpoint import CheckpointDir
+from dmlcloud_tpu_torch.compile import aot
 from dmlcloud_tpu_torch.models import moe as tmoe
 from dmlcloud_tpu_torch.models import transformer as ttr
 from dmlcloud_tpu_torch.optim import adamw
@@ -53,6 +66,9 @@ torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parent.parent
 #: meshes against one process, fp32: PERF.md's gate (sums run in another order)
 REL = 1e-5
+#: compiled against eager on the same mesh, fp32
+COMPILED_REL = 1e-5
+STAGE_STEPS = 2
 CFG = dict(vocab_size=64, num_layers=2, num_heads=2, head_dim=8, hidden_dim=16, mlp_dim=32, max_seq_len=32,
            num_experts=4, moe_every=1, moe_capacity_factor=0.5)
 GLOBAL, T = 4, 16
@@ -67,9 +83,10 @@ def port_model(tree: dict) -> ttr.DecoderLM:
     return ttr.load_flax_params(ttr.DecoderLM(ttr.TransformerConfig(dtype=torch.float32, **CFG), device="cpu"), tree)
 
 
-def moe_case(tree: dict, axes: dict | None) -> dict:
+def moe_case(tree: dict, axes: dict | None, compiled: bool = False) -> dict:
     """One forward and backward of this process's rows on a mesh of ``axes``
-    (None: one process, the global batch)."""
+    (None: one process, the global batch); ``compiled``: each block's forward
+    a compiled region."""
     model = port_model(tree)
     plan = None
     if axes is not None:
@@ -79,6 +96,11 @@ def moe_case(tree: dict, axes: dict | None) -> dict:
         dp, r = tmesh.data_parallel_size(mesh), tmesh.data_parallel_rank(mesh)
     else:
         dp, r = 1, 0
+    if compiled:
+        import torch._dynamo.utils as dynamo_utils
+
+        dynamo_utils.counters.clear()
+        aot.compile_blocks(model.fsdp_blocks(), "moe")
     rows = torch.tensor(tokens()[r * GLOBAL // dp:(r + 1) * GLOBAL // dp]).long()
     logits = model(rows)
     aux = tmoe.total_aux_loss(model)
@@ -89,6 +111,9 @@ def moe_case(tree: dict, axes: dict | None) -> dict:
     grads = ttr.to_flax_params(model, {n: p.grad for n, p in model.named_parameters()})
     out = {"logits": logits.detach().numpy(), "loss": float(loss), "aux": float(aux), "grads": grads, "dp": r,
            "ep": None if plan is None or plan.ep is None else (plan.ep.rank, plan.ep.size)}
+    if compiled:
+        out["graphs"] = (sum(dynamo_utils.counters["graph_break"].values()),
+                         dynamo_utils.counters["stats"]["unique_graphs"])
     if axes is not None:
         every = runtime.all_gather_object({k: out[k] for k in ("logits", "loss", "aux", "dp")})
         by_dp = {o["dp"]: o for o in every}
@@ -113,6 +138,61 @@ def saved_state(tree: dict, mesh=None) -> tuple[TrainState, dict | None]:
     return state, record
 
 
+class MoEStage(tdml.TrainValStage):
+    """``STAGE_STEPS`` clipped AdamW steps of the tiny MoE model on
+    ``lm_loss + total_aux_loss``, each process feeding its data-parallel rows."""
+
+    def __init__(self, tree):
+        super().__init__()
+        self.tree, self.losses, self.warmup_kept_state = tree, [], None
+
+    def pre_stage(self):
+        self.pipeline.register_model("lm", port_model(self.tree), sharding=ttr.llama_partition_rules(),
+                                     verbose=False)
+        self.pipeline.register_optimizer("adamw", adamw(lambda step: 1e-2))
+        mesh = self.pipeline.mesh
+        dp, r = tmesh.data_parallel_size(mesh), tmesh.data_parallel_rank(mesh)
+        rows = np.random.RandomState(5).randint(0, CFG["vocab_size"], (STAGE_STEPS, GLOBAL, T)).astype(np.int64)
+        self.pipeline.register_dataset("train", [b[r * GLOBAL // dp:(r + 1) * GLOBAL // dp] for b in rows],
+                                       verbose=False)
+
+    def gradient_clip(self):
+        return 0.5
+
+    def _run_precompile_phase(self):
+        before = flat(self.state.state_dict())
+        super()._run_precompile_phase()
+        after = flat(self.state.state_dict())
+        self.warmup_kept_state = all(torch.equal(before[k], after[k]) for k in before)
+
+    def post_epoch(self):
+        self.losses.extend(float(x) for x in self.train_losses)
+
+    def step(self, state, batch):
+        return ttr.lm_loss(state.model(batch), batch) + tmoe.total_aux_loss(state.model)
+
+
+def stage_case(tree: dict, axes: dict, compiled: bool) -> dict:
+    """A pipeline run of ``MoEStage`` on ``axes``, eager or precompiled; the
+    losses (mean over data-parallel ranks), the gathered parameters and every
+    rank's compile record."""
+    import torch._dynamo.utils as dynamo_utils
+
+    pipe = tdml.TrainingPipeline({"seed": 0}, name="moe", device="cpu", precompile=compiled)
+    pipe.set_mesh(axes)
+    stage = MoEStage(tree)
+    pipe.append_stage(stage, max_epochs=1)
+    dynamo_utils.counters.clear()
+    pipe.run()
+    every = runtime.all_gather_object(stage.losses)
+    return {"losses": [float(np.mean(step)) for step in zip(*every)],
+            "params": {k: v.numpy() for k, v in flat(dict(stage.state.model.named_parameters())).items()},
+            "compile": runtime.all_gather_object({
+                "graph_breaks": sum(dynamo_utils.counters["graph_break"].values()),
+                "recompiles": [float(x) for x in stage.tracker["misc/recompiles"]] if compiled else None,
+                "warmup_kept_state": stage.warmup_kept_state})}
+
+
 def flat(tree: dict, prefix: str = "") -> dict:
     """Every tensor of a nested state dict, gathered to full tensors."""
     from torch.distributed.tensor import DTensor
@@ -133,17 +213,25 @@ _WORKER = textwrap.dedent(
     import torch
     sys.path.insert(0, os.environ["TEST_DIR"])
     from dmlcloud_tpu_torch.checkpoint import CheckpointDir
+    from dmlcloud_tpu_torch.compile import aot
     from dmlcloud_tpu_torch.parallel import mesh as tmesh, runtime
-    from test_torch_moe_dist import MESHES, flat, moe_case, saved_state
+    from test_torch_moe_dist import MESHES, flat, moe_case, saved_state, stage_case
 
     torch.set_num_threads(1)
+    aot.BACKEND = "aot_eager"
     assert runtime.init_auto(device="cpu") == "gloo"
     world, rank = runtime.world_size(), runtime.rank()
     out_dir = os.environ["OUT_DIR"]
     tree = pickle.loads(open(os.path.join(out_dir, "tree.pkl"), "rb").read())
     out = {}
     for axes in MESHES[world]:
-        out[",".join(f"{k}={v}" for k, v in axes.items())] = moe_case(tree, axes)
+        name = ",".join(f"{k}={v}" for k, v in axes.items())
+        out[name] = moe_case(tree, axes)
+        out[name + " compiled"] = moe_case(tree, axes, compiled=True)
+    stage_axes = {"expert": 2} if world == 2 else {"data": 2, "expert": 2}
+    for compiled in (False, True):
+        name = "stage " + ",".join(f"{k}={v}" for k, v in stage_axes.items())
+        out[name + (" compiled" if compiled else "")] = stage_case(tree, stage_axes, compiled)
     if world == 2:
         state, record = saved_state(tree, tmesh.create_mesh({"expert": 2}, device="cpu"))
         ckpt = CheckpointDir(os.path.join(out_dir, "save"))
@@ -203,7 +291,8 @@ def results(tmp_path_factory):
     (out_dir / "tree.pkl").write_bytes(pickle.dumps(tree))
     procs = {w: _launch(w, out_dir) for w in MESHES}
     try:
-        out = {"jax": want, "one": moe_case(tree, None)}
+        out = {"jax": want, "one": moe_case(tree, None),
+               "one stage params": {n: p.detach().numpy().copy() for n, p in port_model(tree).named_parameters()}}
         for ps in procs.values():
             for p in ps:
                 p.wait(timeout=240)
@@ -249,6 +338,34 @@ def test_expert_meshes_equal_the_jax_single_device_apply(results, case):
     got = results[case]
     assert got["ep"] is not None and got["ep"][1] == 2
     _check(got, results["jax"])
+
+
+@pytest.mark.parametrize("case", ["expert=2", "data=2,expert=2", "fsdp=2,expert=2"])
+def test_compiled_blocks_on_expert_meshes_equal_eager_and_the_jax_apply(results, case):
+    got, eager = results[case + " compiled"], results[case]
+    assert got["graphs"][0] == 0 and got["graphs"][1] > 0, got["graphs"]  # no graph break, something compiled
+    _check(got, results["jax"])
+    assert _rel(got["logits"], eager["logits"]) <= COMPILED_REL
+    np.testing.assert_allclose(got["loss"], eager["loss"], rtol=COMPILED_REL)
+    np.testing.assert_allclose(got["aux"], eager["aux"], rtol=COMPILED_REL)
+    for path, w in jax.tree_util.tree_leaves_with_path(eager["grads"]):
+        g = dict(jax.tree_util.tree_leaves_with_path(got["grads"]))[path]
+        assert _rel(g, w) <= COMPILED_REL, (jmesh.path_str(path), _rel(g, w))
+
+
+@pytest.mark.parametrize("case", ["expert=2", "data=2,expert=2"])
+def test_a_precompiled_pipeline_on_an_expert_mesh_equals_its_eager_run(results, case):
+    got, eager = results[f"stage {case} compiled"], results[f"stage {case}"]
+    for rank in got["compile"]:
+        assert rank == {"graph_breaks": 0, "recompiles": [0.0], "warmup_kept_state": True}, rank
+    assert len(got["losses"]) == STAGE_STEPS
+    np.testing.assert_allclose(got["losses"], eager["losses"], rtol=COMPILED_REL)
+    assert got["params"].keys() == eager["params"].keys()
+    for name, w in eager["params"].items():
+        assert _rel(got["params"][name], w) <= COMPILED_REL, (name, _rel(got["params"][name], w))
+    moved = max(float(np.abs(w - t).max()) for w, t in zip(eager["params"].values(),
+                                                           results["one stage params"].values()))
+    assert moved > 1e-3, "the steps did not move the weights: the comparison would be vacuous"
 
 
 def test_a_local_capacity_would_differ(results):
